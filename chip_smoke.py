@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA GPU, and check it.
+"""Drive the PyTorch port's serving and training paths once on one CUDA GPU,
+and check them.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,15 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 4. serving: InferenceEngines (bf16, running and batch BN) behind the
    BatchingFrontend answer ragged uint8 requests from several threads.
    The kernels' launch counters are zeroed just before this phase and read
-   just after it: every kernel must have run in it.
+   just after it: every kernel must have run in it;
+5. training: K3 against its plain version at the train path's shape and
+   others (fp32 without TF32, and bf16), gradients through K1, K2 and K3
+   against the plain path, one fp32 train step with the kernels against one
+   without, then the path itself: the adversarial train step at 4×256²,
+   bf16, no perceptual term, 10 steps with the kernels and 10 plain, in
+   turns, with img/s, peak memory and the launches per step (counters
+   zeroed just before, read just after), and 3 split G/D steps through an
+   ImagePool.
 
 The line before the last holds the per-kernel summary as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -52,6 +61,16 @@ K2_VAR_TOL = dict(atol=1e-4, rtol=1e-3)
 # floor of 1e-2 for values near zero.
 K1_TOL_BF16 = dict(atol=1e-2, rtol=1.6e-2)
 GEN_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_pallas_dense.py:132
+K3_SHAPES = [(4, 256, 256, 3), (8, 512, 512, 3), (1, 24, 40, 3), (2, 120, 200, 3)]  # the path's first
+# K3 and its plain version normalise in x's dtype and sum in fp32 in the same
+# order without fused multiply-adds, so they should agree bit for bit; fp32
+# is held at the JAX suite's atol (tests/test_pallas_filters.py:17), bf16 at
+# one bf16 step (2^-8 relative) in case an fp32 sum lands on the other side
+# of a rounding boundary.
+K3_TOL = {"float32": dict(atol=2e-4, rtol=0), "bfloat16": dict(atol=2.0**-8, rtol=2.0**-8)}
+TRAIN_SHAPE = (4, 256, 256)  # bench.py:65-78: 4 images of 256², bf16, no perceptual term
+TRAIN_STEPS = 10
+LR = 2e-4
 # serving: running BN makes each image independent of its batch-mates, but
 # the batch size changes cuDNN's algorithms for the plain convs, so the bf16
 # result may move by a few bf16 steps (2^-7 near ±1) after ~60 layers.
@@ -309,6 +328,204 @@ def phase_serving(model):
     return launches, {"wall_s": wall, "batches_total": eng_batches, **lat}
 
 
+def train_batch(b, size, seed, device="cuda"):
+    """gt uniform, haze = clip(0.6·gt + 0.3), from a numpy seed."""
+    import torch
+
+    gt = np.random.default_rng(seed).uniform(size=(b, size, size, 3)).astype(np.float32)
+    haze = np.clip(0.6 * gt + 0.3, 0, 1)
+    return torch.from_numpy(haze).to(device), torch.from_numpy(gt).to(device)
+
+
+def reset_all_counts():
+    from fdgan_tpu_torch.ops import dense, freq
+
+    dense.reset_launch_counts()
+    freq.reset_launch_count()
+
+
+def all_counts():
+    from fdgan_tpu_torch.ops import dense, freq
+
+    return {"k1": dense.k1_launches, "k2": dense.k2_launches, "k3": freq.k3_launches}
+
+
+def phase_k3():
+    import torch
+
+    from fdgan_tpu_torch.ops import filters, freq
+
+    rows, worst = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for shape in K3_SHAPES:
+            x = torch.tensor(np.random.default_rng(3).uniform(size=shape), dtype=dtype, device="cuda")
+            with exact_fp32():
+                got, want = freq.frequency_fuse(x), filters.frequency_fuse(x)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = tuple(got.shape) == shape[:3] + (9,) and torch.allclose(got.float(), want.float(), **K3_TOL[name])
+                row = {"shape": list(shape), "dtype": name, "k3_max_abs_err": err,
+                       "k3_ms": cuda_ms(lambda: freq.frequency_fuse(x)),
+                       "k3_plain_ms": cuda_ms(lambda: filters.frequency_fuse(x))}
+            rows.append(row)
+            worst = max(worst, err)
+            log(json.dumps(row))
+            if not ok:
+                raise AssertionError(f"K3 disagrees with its plain version at {shape} {name}: err {err}")
+    return rows, worst
+
+
+def phase_gradients():
+    """Gradients through K1 and K2 (a 2-layer dense block) and K3 against the
+    plain path: both backwards are the plain version's VJP, so only K1's fp32
+    forward error (≤ 6e-6) separates them."""
+    import torch
+
+    from fdgan_tpu_torch.models.densenet import DenseBlock
+    from fdgan_tpu_torch.ops import dense, filters, freq
+
+    torch.manual_seed(0)
+    block = DenseBlock(64, 2, device="cuda")
+    x = torch.tensor(np.random.default_rng(4).uniform(size=(2, 32, 48, 64)), dtype=torch.float32, device="cuda")
+    xs = torch.tensor(np.random.default_rng(5).uniform(size=(2, 40, 56, 3)), dtype=torch.float32, device="cuda")
+    ct = torch.randn(2, 40, 56, 9, device="cuda")
+    grads = {}
+    with exact_fp32():
+        for impl in ("kernels", "plain"):
+            block.zero_grad(set_to_none=True)
+            xi, xf = x.clone().requires_grad_(True), xs.clone().requires_grad_(True)
+            y = dense.dense_block_fused(list(block.children()), xi, mode="batch", impl=impl)
+            y.square().mean().backward()
+            fuse = freq.frequency_fuse if impl == "kernels" else filters.frequency_fuse
+            (fuse(xf) * ct).sum().backward()
+            grads[impl] = [xi.grad] + [p.grad for p in block.parameters()] + [xf.grad]
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(grads["kernels"], grads["plain"]))
+    ok = all(torch.allclose(a, b, atol=1e-5, rtol=1e-4) for a, b in zip(grads["kernels"], grads["plain"]))
+    log(f"gradients through K1, K2, K3 vs plain: max_abs_err {err:.3e} ok={ok}")
+    if not ok:
+        raise AssertionError("gradients through the kernels disagree with the plain path")
+    return err
+
+
+def compare_states(a, b):
+    """(share of parameters off by > 1e-6, max parameter difference, max
+    running-statistic difference) between two train states' G and D."""
+    off = n = 0
+    worst_p = worst_s = 0.0
+    for net in ("g", "d"):
+        sa, sb = getattr(a, net).state_dict(), getattr(b, net).state_dict()
+        for k, v in sb.items():
+            diff = (sa[k] - v).abs()
+            if "running" in k:
+                worst_s = max(worst_s, diff.max().item())
+            else:
+                worst_p = max(worst_p, diff.max().item())
+                n, off = n + diff.numel(), off + int((diff > 1e-6).sum().item())
+    return off / n, worst_p, worst_s
+
+
+def phase_train_fp32():
+    """One fp32 step (TF32 off) from one state and batch, kernels against
+    plain. Losses: rtol 1e-4. Parameters: Adam's first step moves each by
+    ±lr wherever |g| ≫ ε, so gradient noise around 0 (conv biases under batch
+    BN) can differ in sign between the two: ≤ 2·lr everywhere and ≤ 1e-6 on
+    all but 0.5 % (tests/test_torch_train.py); running stats atol 1e-5."""
+    import copy
+
+    import torch
+
+    from fdgan_tpu_torch.losses.composite import LossWeights
+    from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
+
+    state, tx_g, tx_d = create_train_state(0, device="cuda")
+    states = {"kernels": state, "plain": copy.deepcopy(state)}
+    haze, gt = train_batch(2, 64, 6)
+    metrics = {}
+    with exact_fp32():
+        for impl, st in states.items():
+            _, m = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), impl=impl)(st, haze, gt)
+            metrics[impl] = {k: v.item() for k, v in m.items()}
+    loss_err = max(abs(v - metrics["plain"][k]) / max(abs(metrics["plain"][k]), 1e-6)
+                   for k, v in metrics["kernels"].items())
+    off, worst_p, worst_s = compare_states(states["kernels"], states["plain"])
+    out = {"loss_max_rel_err": loss_err, "param_share_over_1e-6": off, "param_max_abs_err": worst_p,
+           "running_stat_max_abs_err": worst_s, "losses": metrics["kernels"]}
+    log(f"train fp32 2x64^2 kernels vs plain: {json.dumps(out)}")
+    finite = all(np.isfinite(v) for v in metrics["kernels"].values())
+    if not (finite and loss_err <= 1e-4 and off < 5e-3 and worst_p <= 2 * LR + 1e-6 and worst_s <= 1e-5):
+        raise AssertionError("the fp32 train step with the kernels disagrees with the plain step")
+    return out
+
+
+def phase_training():
+    """The path: make_train_step at 4×256² bf16, 10 steps per impl in turns
+    (plain, kernels, kernels, plain; 5 steps each), after one warm-up step
+    each. The launch counters are zeroed just before and read just after."""
+    import torch
+
+    from fdgan_tpu_torch.losses.composite import LossWeights
+    from fdgan_tpu_torch.train.loop import create_train_state, make_gd_steps, make_train_step
+    from fdgan_tpu_torch.train.pool import ImagePool
+
+    b, size, _ = TRAIN_SHAPE
+    weights = LossWeights(perceptual=0.0)
+    runs = {}
+    for impl in ("kernels", "plain"):
+        state, tx_g, tx_d = create_train_state(0, device="cuda")
+        step = make_train_step(tx_g, tx_d, weights, compute_dtype=torch.bfloat16, impl=impl)
+        runs[impl] = {"state": state, "tx": (tx_g, tx_d), "step": step, "seconds": 0.0, "losses": [], "steps": 0}
+    batches = [train_batch(b, size, 100 + i) for i in range(TRAIN_STEPS)]
+    for impl, r in runs.items():  # warm-up: cuDNN's algorithm choice, the allocator
+        r["step"](r["state"], *batches[0])
+    torch.cuda.synchronize()
+
+    peak = {}
+    reset_all_counts()
+    for impl in ("plain", "kernels", "kernels", "plain"):
+        r = runs[impl]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS // 2):
+            _, m = r["step"](r["state"], *batches[(r["steps"] + i) % TRAIN_STEPS])
+            r["losses"].append(torch.stack([m["g_total"], m["d_total"], m["g_adv"], m["g_ssim"]]))
+        torch.cuda.synchronize()
+        r["seconds"] += time.perf_counter() - t0
+        r["steps"] += TRAIN_STEPS // 2
+        peak[impl] = max(peak.get(impl, 0), torch.cuda.max_memory_allocated())
+    launches = all_counts()
+
+    out = {}
+    for impl, r in runs.items():
+        losses = torch.stack(r["losses"]).float().cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"non-finite loss in the {impl} bf16 train steps: {losses}")
+        out[impl] = {"steps": r["steps"], "seconds": r["seconds"],
+                     "img_s": b * r["steps"] / r["seconds"], "ms_per_step": 1000 * r["seconds"] / r["steps"],
+                     "peak_gib": peak[impl] / 2**30, "g_total_first_last": [float(losses[0, 0]), float(losses[-1, 0])],
+                     "d_total_first_last": [float(losses[0, 1]), float(losses[-1, 1])]}
+        log(f"train bf16 {b}x{size}^2 {impl}: {json.dumps(out[impl])}")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    log(f"train launches {launches} per step {per_step}")
+    if per_step != {"k1": 42, "k2": 42, "k3": 3}:
+        raise AssertionError(f"launches per train step {per_step}, expected K1 42, K2 42, K3 3")
+
+    # split G/D steps through an ImagePool (misc.py:140-161)
+    state = runs["kernels"]["state"]
+    g_step, d_step = make_gd_steps(*runs["kernels"]["tx"], weights, compute_dtype=torch.bfloat16)
+    pool = ImagePool(pool_size=2, seed=0)
+    for i in range(3):
+        state, gm, x_hat = g_step(state, *batches[i])
+        state, dm = d_step(state, pool.query(x_hat), batches[i][1])
+        vals = [gm["g_total"].item(), dm["d_total"].item()]
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"non-finite loss in split G/D step {i}: {vals}")
+    log(f"split G/D steps with ImagePool(2): 3 steps, last g_total {vals[0]:.4f} d_total {vals[1]:.4f}")
+    out["launches"], out["launches_per_step"] = launches, per_step
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -325,18 +542,38 @@ def main() -> int:
     log(json.dumps({"generator": gen}))
     launches, serving = phase_serving(model)
     log(json.dumps({"serving": serving}))
+    del model
+    torch.cuda.empty_cache()
+    k3_rows, k3_worst = phase_k3()
+    grad_err = phase_gradients()
+    train_fp32 = phase_train_fp32()
+    training, train_launches = phase_training()
+    log(json.dumps({"training": training, "train_fp32": train_fp32, "gradients_max_abs_err": grad_err}))
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
+    k3_timed = {tuple(r["shape"]): r for r in k3_rows if r["dtype"] == "bfloat16"}[K3_SHAPES[0]]
+
+    def by_path(k):
+        return {"serving": launches.get(k, 0), "training": train_launches[k]}
+
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
-         "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": launches["k1"],
+         "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": train_launches["k1"],
+         "launches_by_path": by_path("k1"),
          "max_abs_err": worst["k1"], "ms": timed["k1_ms"], "plain_ms": timed["k1_plain_ms"],
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
         {"name": "h_batch_stats (K2)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
-         "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": launches["k2"],
+         "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": train_launches["k2"],
+         "launches_by_path": by_path("k2"),
          "max_abs_err": worst["k2"], "ms": timed["k2_ms"], "plain_ms": timed["k2_plain_ms"],
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
+        {"name": "frequency_fuse (K3)", "route": "cuda",
+         "source": "fdgan_tpu_torch/csrc/freq_filters.cu",
+         "replaces": "fdgan_tpu/ops/pallas_filters.py:81", "launches": train_launches["k3"],
+         "launches_by_path": by_path("k3"),
+         "max_abs_err": k3_worst, "ms": k3_timed["k3_ms"], "plain_ms": k3_timed["k3_plain_ms"],
+         "timed_at": list(K3_SHAPES[0]) + ["bfloat16"], "err_of": "fp32 and bf16, all shapes"},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

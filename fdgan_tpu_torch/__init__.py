@@ -4,9 +4,11 @@ The port of ``fdgan_tpu`` (JAX on a TPU) to an NVIDIA Hopper GPU. The JAX
 package is its reference; this package imports neither it nor JAX.
 
 Layout mirrors ``fdgan_tpu``: ``nn/`` layers, ``models/`` the FDGAN
-generator, ``ops/`` the fused dense-layer kernels (CUDA sources in
-``csrc/``), ``io/`` checkpoint loading, ``serve.py`` / ``serve_http.py``
-the serving engine and its HTTP frontend, ``cli/`` the entry points.
+generator, the fusion discriminator and VGG16, ``ops/`` the kernels' wrappers
+and plain versions (CUDA sources in ``csrc/``) and SSIM, ``losses/`` and
+``train/`` the adversarial train step, ``io/`` checkpoint loading,
+``serve.py`` / ``serve_http.py`` the serving engine and its HTTP frontend,
+``cli/`` the entry points.
 Activations are NCHW tensors in ``torch.channels_last`` memory format;
 public functions take and return NHWC images, as ``fdgan.apply`` does.
 """

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fdgan_tpu_torch.nn.layers import BatchNorm, relu, upsample_nearest
+from fdgan_tpu_torch.nn.layers import BatchNorm, Conv2d, ConvTranspose2d, relu, upsample_nearest
 
 
 class BottleneckDy(nn.Module):
@@ -22,9 +22,9 @@ class BottleneckDy(nn.Module):
         kw = {"device": device, "dtype": dtype}
         inter = out_planes * 4
         self.bn1 = BatchNorm(in_planes, **kw)  # dead
-        self.conv1 = nn.Conv2d(in_planes, inter, 1, bias=False, **kw)
+        self.conv1 = Conv2d(in_planes, inter, 1, bias=False, **kw)
         self.bn2 = BatchNorm(inter, **kw)  # dead
-        self.conv2 = nn.Conv2d(inter, out_planes, 3, padding=1, bias=False, **kw)
+        self.conv2 = Conv2d(inter, out_planes, 3, padding=1, bias=False, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([x, self.conv2(relu(self.conv1(relu(x))))], dim=1)
@@ -36,7 +36,7 @@ class TransitionDy(nn.Module):
     def __init__(self, in_planes: int, out_planes: int, device=None, dtype=torch.float32):
         super().__init__()
         self.bn1 = BatchNorm(in_planes, device=device, dtype=dtype)  # dead
-        self.conv1 = nn.ConvTranspose2d(
+        self.conv1 = ConvTranspose2d(
             in_planes, out_planes, 1, bias=False, device=device, dtype=dtype
         )
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fdgan_tpu_torch.nn.layers import BatchNorm, avg_pool, batch_norm, relu
+from fdgan_tpu_torch.nn.layers import BatchNorm, Conv2d, StatsOut, avg_pool, batch_norm, relu
 from fdgan_tpu_torch.ops.dense import dense_block_fused
 
 GROWTH_RATE = 32
@@ -24,9 +24,9 @@ class DenseLayer(nn.Module):
         kw = {"device": device, "dtype": dtype}
         inter = BN_SIZE * GROWTH_RATE
         self.norm1 = BatchNorm(in_ch, **kw)
-        self.conv1 = nn.Conv2d(in_ch, inter, 1, bias=False, **kw)
+        self.conv1 = Conv2d(in_ch, inter, 1, bias=False, **kw)
         self.norm2 = BatchNorm(inter, **kw)
-        self.conv2 = nn.Conv2d(inter, GROWTH_RATE, 3, padding=1, bias=False, **kw)
+        self.conv2 = Conv2d(inter, GROWTH_RATE, 3, padding=1, bias=False, **kw)
 
 
 class DenseBlock(nn.Module):
@@ -38,10 +38,13 @@ class DenseBlock(nn.Module):
                 DenseLayer(in_ch + i * GROWTH_RATE, device=device, dtype=dtype),
             )
 
-    def forward(self, x: torch.Tensor, bn_mode: str = "batch", impl: str = "kernels") -> torch.Tensor:
-        """x NCHW (channels_last) → the concat of x and every layer's output."""
+    def forward(self, x: torch.Tensor, bn_mode: str = "batch", impl: str = "kernels",
+                stats_out: StatsOut = None, prefix: str = "") -> torch.Tensor:
+        """x NCHW (channels_last) → the concat of x and every layer's output.
+        ``stats_out`` collects the BN statistics under ``{prefix}denselayerN.normK``."""
         y = dense_block_fused(
-            list(self.children()), x.permute(0, 2, 3, 1).contiguous(), mode=bn_mode, impl=impl
+            list(self.children()), x.permute(0, 2, 3, 1).contiguous(), mode=bn_mode, impl=impl,
+            stats_out=stats_out, prefix=prefix,
         )
         return y.permute(0, 3, 1, 2)
 
@@ -52,7 +55,9 @@ class Transition(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, device=None, dtype=torch.float32):
         super().__init__()
         self.norm = BatchNorm(in_ch, device=device, dtype=dtype)
-        self.conv = nn.Conv2d(in_ch, out_ch, 1, bias=False, device=device, dtype=dtype)
+        self.conv = Conv2d(in_ch, out_ch, 1, bias=False, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, bn_mode: str = "batch") -> torch.Tensor:
-        return avg_pool(self.conv(relu(batch_norm(self.norm, x, bn_mode))), 2)
+    def forward(self, x: torch.Tensor, bn_mode: str = "batch", stats_out: StatsOut = None,
+                prefix: str = "") -> torch.Tensor:
+        h = batch_norm(self.norm, x, bn_mode, stats_out=stats_out, stats_key=f"{prefix}norm")
+        return avg_pool(self.conv(relu(h)), 2)

@@ -11,18 +11,19 @@ The attribute names are the reference's, dead parameters included
 (densenet ``conv0``, ``dense_block31``, ``dense_norm31`` and the BNs inside
 the decoder's dy blocks), so a ``netG_epoch_*.pth`` loads with
 ``load_state_dict(strict=True)``.
+
+Mixed precision is the JAX package's: an fp32 model takes a bf16 input, and
+every conv casts its weight to bf16 where it is used.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 from torch import nn
 
 from fdgan_tpu_torch.models.blocks import BottleneckDy, TransitionDy
 from fdgan_tpu_torch.models.densenet import DenseBlock, Transition
-from fdgan_tpu_torch.nn.layers import BatchNorm, avg_pool, relu, tanh
+from fdgan_tpu_torch.nn.layers import BatchNorm, Conv2d, StatsOut, avg_pool, relu, tanh, torch_style_init
 
 
 class FDGAN(nn.Module):
@@ -35,7 +36,7 @@ class FDGAN(nn.Module):
     def __init__(self, device=None, dtype=torch.float32, generator=None):
         super().__init__()
         kw = {"device": "meta", "dtype": dtype}
-        self.conv0 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, **kw)  # dead
+        self.conv0 = Conv2d(3, 64, 7, 2, 3, bias=False, **kw)  # dead
         self.dense_block1 = DenseBlock(64, 6, **kw)
         self.trans_block1 = Transition(256, 128, **kw)
         self.dense_block2 = DenseBlock(128, 12, **kw)
@@ -50,53 +51,47 @@ class FDGAN(nn.Module):
         self.trans_block5 = TransitionDy(512, 64, **kw)
         self.dense_block6 = BottleneckDy(64, 32, **kw)
         self.trans_block6 = TransitionDy(96, 16, **kw)
-        self.conv_refin1 = nn.Conv2d(3, 64, 3, 1, 1, **kw)
-        self.conv_refin6 = nn.Conv2d(640, 512, 3, 1, 1, **kw)
-        self.conv_refin5 = nn.Conv2d(256, 128, 1, 1, 0, **kw)
-        self.conv_refin3 = nn.Conv2d(16, 3, 3, 1, 1, **kw)
-        self.conv_refin2 = nn.Conv2d(64, 32, 1, 1, 0, **kw)
-        self.conv_refine4 = nn.Conv2d(160, 128, 3, 1, 1, **kw)  # sic: 'refine'
+        self.conv_refin1 = Conv2d(3, 64, 3, 1, 1, **kw)
+        self.conv_refin6 = Conv2d(640, 512, 3, 1, 1, **kw)
+        self.conv_refin5 = Conv2d(256, 128, 1, 1, 0, **kw)
+        self.conv_refin3 = Conv2d(16, 3, 3, 1, 1, **kw)
+        self.conv_refin2 = Conv2d(64, 32, 1, 1, 0, **kw)
+        self.conv_refine4 = Conv2d(160, 128, 3, 1, 1, **kw)  # sic: 'refine'
         self.to_empty(device=device if device is not None else "cpu")
         self.init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Torch-style init, as ``conv2d_init(init='torch')``: every conv
-        weight and bias ~ U(−1/√fan_in, 1/√fan_in) with fan_in = in·kh·kw;
-        BatchNorm weight 1, bias 0, running mean 0, running var 1. Draws
-        on the CPU from ``generator``, module by module in definition order."""
-        for module in self.modules():
-            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
-                kh, kw = module.kernel_size
-                bound = 1.0 / math.sqrt(module.in_channels * kh * kw)
-                for p in (module.weight, module.bias):
-                    if p is not None:
-                        u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
-                        p.copy_(u * (2 * bound) - bound)
-            elif isinstance(module, BatchNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
-                module.running_mean.zero_()
-                module.running_var.fill_(1.0)
+        """Torch-style init (``nn.layers.torch_style_init``), as
+        ``conv2d_init(init='torch')``."""
+        torch_style_init(self, generator)
 
-    def forward(self, x: torch.Tensor, bn_mode: str = "batch", impl: str = "kernels") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_mode: str = "batch", impl: str = "kernels",
+                stats_out: StatsOut = None) -> torch.Tensor:
         """``bn_mode='batch'`` normalises with batch statistics (the
         reference's published inference mode), ``'running'`` with the
         stored ones. ``impl='kernels'`` runs the encoder's dense layers
         through K1/K2 (their plain twins for a CPU tensor); ``impl='plain'``
-        runs the twins on any device."""
+        runs the twins on any device. In batch mode ``stats_out`` collects
+        every BN's (mean, unbiased var) under its module path, which is the
+        JAX key (``dense_block1.denselayer1.norm1``, ``trans_block1.norm``)."""
         if x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"expected NHWC (B, H, W, 3) images, got shape {tuple(x.shape)}")
         if x.shape[1] % 8 or x.shape[2] % 8:
             raise ValueError(f"H and W must be divisible by 8, got {tuple(x.shape[1:3])}")
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
+        def dense(name, xx):
+            return getattr(self, name)(xx, bn_mode, impl, stats_out, f"{name}.")
+
+        def trans(name, xx):
+            return getattr(self, name)(xx, bn_mode, stats_out, f"{name}.")
+
         x0 = relu(self.conv_refin1(x))
         x01 = self.conv_refin2(avg_pool(x0, 2))
-        x1 = self.trans_block1(self.dense_block1(x0, bn_mode, impl), bn_mode)
+        x1 = trans("trans_block1", dense("dense_block1", x0))
         x10 = self.conv_refine4(torch.cat([x01, x1], dim=1))
-        x2 = self.trans_block2(self.dense_block2(x10, bn_mode, impl), bn_mode)
-        x3 = self.trans_block3(self.dense_block3(x2, bn_mode, impl), bn_mode)
+        x2 = trans("trans_block2", dense("dense_block2", x10))
+        x3 = trans("trans_block3", dense("dense_block3", x2))
         x22 = self.conv_refin5(avg_pool(x2, 2))
         x4 = self.conv_refin6(torch.cat([x3, x22], dim=1))
         x4 = self.trans_block4(self.dense_block4(x4))

@@ -1,18 +1,25 @@
-"""Layers of the FDGAN generator in PyTorch.
+"""Layers of the FDGAN models in PyTorch.
 
 Counterpart of ``fdgan_tpu/nn/layers.py``. Activations are NCHW tensors in
 ``torch.channels_last`` memory format (their memory is NHWC), conv weights
 are torch's OIHW, and the BatchNorm parameters carry the reference
 checkpoints' names (``weight``, ``bias``, ``running_mean``, ``running_var``).
 
+Mixed precision is the JAX package's: parameters may stay fp32 while the
+activations are bf16, and every conv casts its weight to the activation's
+dtype where it is used (:class:`Conv2d`, :class:`ConvTranspose2d`).
+
 BatchNorm follows the reference's published inference mode: ``mode='batch'``
 normalises with the current batch's statistics (its README runs
-``netG.train()``); ``mode='running'`` uses the stored statistics.
+``netG.train()``); ``mode='running'`` uses the stored statistics. In batch
+mode a ``stats_out`` dict collects each BN's (mean, unbiased var) under its
+module path, for :func:`update_running_stats`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,18 +27,64 @@ from torch import nn
 
 _DIMS = (0, 2, 3)  # N, H, W of an NCHW tensor
 
+StatsOut = Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
+
 
 def conv2d(
-    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, padding: int = 0
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding: int = 0,
+    stride: int = 1,
 ) -> torch.Tensor:
-    """Stride-1 conv in the activation dtype (OIHW weight, torch padding)."""
+    """Conv in the activation dtype (OIHW weight, torch padding)."""
     b = None if bias is None else bias.to(x.dtype)
-    return F.conv2d(x, weight.to(x.dtype), b, padding=padding)
+    return F.conv2d(x, weight.to(x.dtype), b, stride=stride, padding=padding)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose weight and bias are cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, padding=self.padding, stride=self.stride)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose weight is cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride, self.padding, self.output_padding)
+
+
+@torch.no_grad()
+def torch_style_init(model: nn.Module, generator: torch.Generator) -> None:
+    """``conv2d_init(init='torch')``: every conv weight and bias ~
+    U(−1/√fan_in, 1/√fan_in) with fan_in = in·kh·kw; BatchNorm weight 1,
+    bias 0, running mean 0, running var 1. Draws on the CPU from
+    ``generator``, module by module in definition order."""
+    for module in model.modules():
+        if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+            kh, kw = module.kernel_size
+            bound = 1.0 / math.sqrt(module.in_channels * kh * kw)
+            for p in (module.weight, module.bias):
+                if p is not None:
+                    u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+                    p.copy_(u * (2 * bound) - bound)
+        elif isinstance(module, BatchNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     """Torch-style avg_pool2d: stride = window, floor on odd sizes, no padding."""
     return F.avg_pool2d(x, window)
+
+
+def max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    return F.max_pool2d(x, window)
 
 
 def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
@@ -41,6 +94,14 @@ def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
@@ -62,6 +123,11 @@ def batch_stats(x: torch.Tensor, dims: Sequence[int] = _DIMS) -> Tuple[torch.Ten
     return mean.flatten(), var
 
 
+def unbiased(var: torch.Tensor, n: int) -> torch.Tensor:
+    """The n/(n−1) correction of a recorded batch variance."""
+    return var * (n / max(n - 1, 1))
+
+
 class BatchNorm(nn.Module):
     """BatchNorm parameters with exactly the reference's four state-dict
     entries. ``nn.BatchNorm2d`` is not used: its ``num_batches_tracked``
@@ -75,15 +141,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features, **kw))
         self.register_buffer("running_var", torch.ones(num_features, **kw))
 
-    def forward(self, x: torch.Tensor, mode: str = "batch") -> torch.Tensor:
-        return batch_norm(self, x, mode)
+    def forward(self, x: torch.Tensor, mode: str = "batch", stats_out: StatsOut = None,
+                stats_key: Optional[str] = None) -> torch.Tensor:
+        return batch_norm(self, x, mode, stats_out=stats_out, stats_key=stats_key)
 
 
-def batch_norm(bn: BatchNorm, x: torch.Tensor, mode: str = "batch", eps: float = 1e-5) -> torch.Tensor:
+def batch_norm(
+    bn: BatchNorm,
+    x: torch.Tensor,
+    mode: str = "batch",
+    eps: float = 1e-5,
+    stats_out: StatsOut = None,
+    stats_key: Optional[str] = None,
+) -> torch.Tensor:
     """BatchNorm over NCHW, normalising over N, H and W. The statistics and
-    the folded affine are fp32; the final multiply-add runs in x's dtype."""
+    the folded affine are fp32; the final multiply-add runs in x's dtype.
+
+    In batch mode with ``stats_out`` and ``stats_key`` given, the batch's
+    (mean, unbiased var) is recorded, detached, under ``stats_key``."""
     if mode == "batch":
         mean, var = batch_stats(x)
+        if stats_out is not None and stats_key is not None:
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            stats_out[stats_key] = (mean.detach(), unbiased(var.detach(), n))
     elif mode == "running":
         mean, var = bn.running_mean.float(), bn.running_var.float()
     else:
@@ -91,3 +171,18 @@ def batch_norm(bn: BatchNorm, x: torch.Tensor, mode: str = "batch", eps: float =
     inv = bn.weight.float() * torch.rsqrt(var + eps)
     shift = bn.bias.float() - mean * inv
     return x * inv.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
+
+
+@torch.no_grad()
+def update_running_stats(bn: BatchNorm, mean: torch.Tensor, var: torch.Tensor, momentum: float = 0.1) -> None:
+    """Torch-style running-stat update, in place: r = (1−m)·r + m·batch."""
+    bn.running_mean.copy_((1 - momentum) * bn.running_mean + momentum * mean.to(bn.running_mean.dtype))
+    bn.running_var.copy_((1 - momentum) * bn.running_var + momentum * var.to(bn.running_var.dtype))
+
+
+def fold_stats(model: nn.Module, stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]], momentum: float = 0.1) -> None:
+    """Fold collected batch statistics into the running statistics of the
+    BatchNorm at each key's module path."""
+    for key, (mean, var) in stats.items():
+        update_running_stats(model.get_submodule(key), mean, var, momentum)
+

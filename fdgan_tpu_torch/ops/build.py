@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``fdgan_tpu_torch/csrc`` are compiled at first use with
-``nvcc`` into a shared library with a plain C interface, loaded with
-``ctypes``. The library lands in ``build/kernels/<hash>/`` at the root of
+``nvcc``, one process per source, all started together, and linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The library lands in ``build/kernels/<hash>/`` at the root of
 the checkout (``FDGAN_KERNEL_DIR`` overrides it), keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the library already built. Nothing here runs at import.
@@ -21,11 +21,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("dense_layer.cu",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("dense_layer.cu", "freq_filters.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes (all return an int: cudaGetLastError() after launch)
@@ -35,6 +33,8 @@ _SIGNATURES = {
     "fdgan_h_stats_f32": [_P] * 6 + [_I] * 2 + [_P],
     "fdgan_h_stats_bf16": [_P] * 6 + [_I] * 2 + [_P],
     "fdgan_h_stats_rows": [],
+    "fdgan_freq_filters_f32": [_P] * 3 + [_I] * 3 + [_P],
+    "fdgan_freq_filters_bf16": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -67,6 +67,39 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(out_dir: Path, so_path: str) -> str:
+    """Compile every source to an object in parallel, then link them into
+    ``so_path``. Returns nvcc's output; raises if a step fails."""
+    nvcc = _nvcc()
+    objs = [tempfile.mkstemp(suffix=".o", dir=out_dir) for _ in SOURCES]
+    for fd, _ in objs:
+        os.close(fd)
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, (_, obj) in zip(SOURCES, objs)
+        ]
+        log = ""
+        failed = []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            log += f"--- {src}\n{out}"
+            if proc.returncode != 0:
+                failed.append(f"{src} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so_path, *(o for _, o in objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        return log
+    finally:
+        for _, obj in objs:
+            os.unlink(obj)
+
+
 def load() -> ctypes.CDLL:
     """Return the kernel library, building it first if no build of these
     sources exists. Safe to call from several threads; concurrent processes
@@ -81,14 +114,13 @@ def load() -> ctypes.CDLL:
             out_dir.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            try:
+                build_log = _compile_and_link(out_dir, tmp)
+            except RuntimeError:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+                raise
+            build_seconds = time.perf_counter() - t0
             (out_dir / "build.log").write_text(build_log)
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))

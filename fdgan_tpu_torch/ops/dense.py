@@ -10,18 +10,24 @@ Tensors here are in the JAX layout, NHWC: the generator passes the NHWC
 view of its channels_last activations, which costs no copy. Weights are
 ``w1`` (C, 128), the 1×1 conv as a matrix, and ``w2`` (3, 3, 128, 32), HWIO.
 
+Both ops are ``torch.autograd.Function``s, as the JAX ops are
+``jax.custom_vjp``s (``pallas_dense.py:247-262``, ``:293-307``): the forward
+is the kernel (the twin on the CPU), the backward is the VJP of the twin,
+recomputed from the saved inputs. The JAX package has no backward kernel
+for either, so neither has the port.
+
 ``k1_launches`` and ``k2_launches`` count the kernel launches in this
 process; the twins do not move them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from fdgan_tpu_torch.nn.layers import batch_stats
+from fdgan_tpu_torch.nn.layers import batch_stats, unbiased
 
 _EPS = 1e-5
 INTER = 128   # bn_size * growth of DenseNet-121
@@ -60,12 +66,13 @@ def _t(x, a1, b1) -> torch.Tensor:
 def layer_reference(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
     """Plain twin of K1, with its rounding points: t and g are rounded to
     x's dtype, h and f are accumulated in fp32, and g is zero-padded. The
-    convs run on fp32 copies, so bf16 operands multiply exactly."""
+    weights are rounded to x's dtype, as the kernel reads them. The convs
+    run on fp32 copies, so bf16 operands multiply exactly."""
     t = _t(x, a1, b1).permute(0, 3, 1, 2)
-    w1_oihw = w1.t().reshape(INTER, -1, 1, 1).float()
+    w1_oihw = w1.to(x.dtype).t().reshape(INTER, -1, 1, 1).float()
     h = F.conv2d(t.float(), w1_oihw)
     g = torch.relu(h * a2.float().view(1, -1, 1, 1) + b2.float().view(1, -1, 1, 1)).to(x.dtype)
-    f = F.conv2d(g.float(), w2.permute(3, 2, 0, 1).float(), padding=1)
+    f = F.conv2d(g.float(), w2.to(x.dtype).permute(3, 2, 0, 1).float(), padding=1)
     return f.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
@@ -73,7 +80,7 @@ def h_stats_reference(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of K2: h = t·W1 in fp32, then a two-pass fp32 mean and
     biased variance per channel."""
     t = _t(x, a1, b1).reshape(-1, x.shape[-1])
-    h = t.float() @ w1.float()
+    h = t.float() @ w1.to(x.dtype).float()
     mean = h.mean(dim=0)
     return mean, (h - mean).square().mean(dim=0)
 
@@ -120,14 +127,8 @@ def _on_device(t: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
-def fused_dense_layer(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
-    """One fused dense layer: x (B,H,W,C) → f (B,H,W,32) in x's dtype.
-
-    a1, b1 (C) and a2, b2 (128) are the folded norm1 and norm2 affines,
-    w1 (C, 128), w2 (3, 3, 128, 32)."""
+def _launch_k1(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
     global k1_launches
-    if x.device.type == "cpu":
-        return layer_reference(x, a1, b1, w1, a2, b2, w2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dense_layer runs on cpu or cuda, got {x.device}")
     _check_inputs(x, a1, b1, w1)
@@ -158,12 +159,8 @@ def fused_dense_layer(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
     return out
 
 
-def h_batch_stats(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """norm2's batch statistics: per-channel fp32 (mean, biased var) of
-    h = relu(a1·x + b1)·W1 over B, H and W."""
+def _launch_k2(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
     global k2_launches
-    if x.device.type == "cpu":
-        return h_stats_reference(x, a1, b1, w1)
     if x.device.type != "cuda":
         raise ValueError(f"h_batch_stats runs on cpu or cuda, got {x.device}")
     c = _check_inputs(x, a1, b1, w1)
@@ -193,19 +190,83 @@ def h_batch_stats(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean.float(), var.float()
 
 
+def twin_vjp(twin, ctx, cts):
+    """The VJP of ``twin`` at a Function's saved inputs, for the inputs that
+    need a grad: the backward of every kernel of the port."""
+    need = ctx.needs_input_grad
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        outs = twin(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
+        wanted = [t for t, n in zip(inputs, need) if n]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [c for _, c in pairs], allow_unused=True))
+    return tuple(next(grads) if n else None for n in need)
+
+
+class _FusedLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a1, b1, w1, a2, b2, w2):
+        ctx.save_for_backward(x, a1, b1, w1, a2, b2, w2)
+        if x.device.type == "cpu":
+            return layer_reference(x, a1, b1, w1, a2, b2, w2)
+        return _launch_k1(x, a1, b1, w1, a2, b2, w2)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return twin_vjp(layer_reference, ctx, (ct,))
+
+
+class _HStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a1, b1, w1):
+        ctx.save_for_backward(x, a1, b1, w1)
+        if x.device.type == "cpu":
+            return h_stats_reference(x, a1, b1, w1)
+        return _launch_k2(x, a1, b1, w1)
+
+    @staticmethod
+    def backward(ctx, ct_mean, ct_var):
+        return twin_vjp(h_stats_reference, ctx, (ct_mean, ct_var))
+
+
+def fused_dense_layer(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
+    """One fused dense layer (differentiable): x (B,H,W,C) → f (B,H,W,32)
+    in x's dtype.
+
+    a1, b1 (C) and a2, b2 (128) are the folded norm1 and norm2 affines,
+    w1 (C, 128), w2 (3, 3, 128, 32)."""
+    return _FusedLayer.apply(x, a1, b1, w1, a2, b2, w2)
+
+
+def h_batch_stats(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """norm2's batch statistics (differentiable): per-channel fp32 (mean,
+    biased var) of h = relu(a1·x + b1)·W1 over B, H and W."""
+    return _HStats.apply(x, a1, b1, w1)
+
+
 # ---------------------------------------------------------------------------
 # Full dense block
 # ---------------------------------------------------------------------------
 
-def dense_block_fused(layers, x: torch.Tensor, mode: str = "batch", impl: str = "kernels") -> torch.Tensor:
+def dense_block_fused(
+    layers,
+    x: torch.Tensor,
+    mode: str = "batch",
+    impl: str = "kernels",
+    stats_out: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+    prefix: str = "",
+) -> torch.Tensor:
     """A DenseNet block over NHWC x: ``layers`` are the block's DenseLayer
     modules (norm1, conv1, norm2, conv2). Returns the concat of x and every
     layer's 32 new channels.
 
     In batch mode, norm1's statistics are the per-channel statistics of the
     concat, kept per segment as it grows (channels partition, so each
-    segment is reduced once), and norm2's come from K2. ``impl='plain'``
-    runs the twins on any device."""
+    segment is reduced once), and norm2's come from K2. With ``stats_out``,
+    batch mode records every BN's (mean, unbiased var), detached, under
+    ``{prefix}denselayerN.norm1`` / ``.norm2``, as ``pallas_dense.py:411-413``.
+    ``impl='plain'`` runs the twins on any device."""
     if mode not in ("batch", "running"):
         raise ValueError(f"unknown BN mode {mode!r}")
     if impl == "kernels":
@@ -214,9 +275,10 @@ def dense_block_fused(layers, x: torch.Tensor, mode: str = "batch", impl: str = 
         layer_fn, stats_fn = layer_reference, h_stats_reference
     else:
         raise ValueError(f"unknown impl {impl!r}")
+    n = x.shape[0] * x.shape[1] * x.shape[2]
     if mode == "batch":
         mean_cat, var_cat = channel_stats(x)
-    for layer in layers:
+    for i, layer in enumerate(layers):
         if mode == "batch":
             m1, v1 = mean_cat, var_cat
         else:
@@ -228,6 +290,10 @@ def dense_block_fused(layers, x: torch.Tensor, mode: str = "batch", impl: str = 
         else:
             m2, v2 = layer.norm2.running_mean, layer.norm2.running_var
         a2, b2 = fold_bn(layer.norm2.weight, layer.norm2.bias, m2, v2)
+        if stats_out is not None and mode == "batch":
+            key = f"{prefix}denselayer{i + 1}"
+            stats_out[f"{key}.norm1"] = (m1.detach(), unbiased(v1.detach(), n))
+            stats_out[f"{key}.norm2"] = (m2.detach(), unbiased(v2.detach(), n))
         f = layer_fn(x, a1, b1, w1, a2, b2, layer.conv2.weight.permute(2, 3, 1, 0))
         if mode == "batch":
             mf, vf = channel_stats(f)

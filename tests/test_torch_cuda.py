@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and serving path on the card.
+"""The port's CUDA kernels, serving path and train step on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: the
 kernels have no CPU mode. The module imports neither JAX nor the JAX
@@ -7,13 +7,18 @@ package, so it also runs on a machine without them:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from fdgan_tpu_torch.losses.composite import LossWeights
+from fdgan_tpu_torch.models.densenet import DenseBlock
 from fdgan_tpu_torch.models.fdgan import FDGAN
-from fdgan_tpu_torch.ops import dense
+from fdgan_tpu_torch.ops import dense, filters, freq
 from fdgan_tpu_torch.serve import InferenceEngine
+from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -21,6 +26,10 @@ K1_TOL = dict(atol=2e-4, rtol=1e-3)  # tests/test_pallas_dense.py:52
 # bf16: kernel and twin round t, g and f at the same points; fp32 sums in
 # another order can move a value by one bf16 step (2^-8 relative)
 K1_TOL_BF16 = dict(atol=1e-2, rtol=1.6e-2)
+# K3 and its plain version normalise in x's dtype and sum in fp32 in the same
+# order without fused multiply-adds; fp32 is held at the JAX suite's atol
+# (tests/test_pallas_filters.py:17), bf16 at one bf16 step (2^-8 relative)
+K3_TOL = {torch.float32: dict(atol=2e-4, rtol=0), torch.bfloat16: dict(atol=2.0**-8, rtol=2.0**-8)}
 
 
 @pytest.fixture
@@ -109,3 +118,84 @@ def test_engine_on_cuda_matches_cpu_engine(cuda):
         assert a.shape == img.shape
         np.testing.assert_allclose(a, b, atol=5e-4, rtol=1e-3)
     assert gpu.stats["k1_launches"] == 42 * gpu.stats["batches"] and gpu.stats["k2_launches"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 256, 256, 3), (1, 24, 40, 3), (2, 120, 200, 3)])
+def test_k3_matches_plain(cuda, shape, dtype):
+    x = torch.tensor(np.random.default_rng(9).uniform(size=shape), dtype=dtype, device=cuda)
+    freq.reset_launch_count()
+    got = freq.frequency_fuse(x)
+    torch.cuda.synchronize()
+    assert freq.k3_launches == 1 and got.shape == shape[:3] + (9,) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), filters.frequency_fuse(x).float(), **K3_TOL[dtype])
+
+
+def test_k3_rejects_bad_inputs(cuda):
+    x = torch.zeros(1, 16, 16, 3, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        freq.frequency_fuse(x.transpose(1, 2))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        freq.frequency_fuse(x.half())
+    with pytest.raises(ValueError, match="reflect pad"):
+        freq.frequency_fuse(x[:, :7].contiguous())
+
+
+def test_gradients_through_the_kernels_match_plain(cuda, exact):
+    """K1 and K2 inside a 2-layer block, K3 on its own: the backward is the
+    plain version's VJP on both sides; the forwards differ by K1's fp32
+    error (≤ 6e-6), which the later layer carries."""
+    torch.manual_seed(0)
+    block = DenseBlock(64, 2, device=cuda)
+    x = torch.tensor(np.random.default_rng(10).uniform(size=(2, 16, 16, 64)), dtype=torch.float32, device=cuda)
+    grads = {}
+    for impl in ("kernels", "plain"):
+        block.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_(True)
+        dense.reset_launch_counts()
+        y = dense.dense_block_fused(list(block.children()), xi, mode="batch", impl=impl)
+        y.square().mean().backward()
+        grads[impl] = [xi.grad] + [p.grad for p in block.parameters()]
+        if impl == "kernels":
+            assert (dense.k1_launches, dense.k2_launches) == (2, 2)
+    for a, b in zip(grads["kernels"], grads["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=1e-5)), (torch.bfloat16, dict(atol=0, rtol=0))):
+        xs = torch.tensor(np.random.default_rng(11).uniform(size=(2, 40, 56, 3)), dtype=dtype, device=cuda)
+        ct = torch.randn(2, 40, 56, 9, device=cuda, dtype=dtype)
+        xk, xp = xs.clone().requires_grad_(True), xs.clone().requires_grad_(True)
+        (freq.frequency_fuse(xk).float() * ct.float()).sum().backward()
+        (filters.frequency_fuse(xp).float() * ct.float()).sum().backward()
+        torch.testing.assert_close(xk.grad, xp.grad, **tol)
+
+
+def test_fp32_train_step_kernels_match_plain(cuda, exact):
+    """One fp32 step from one state and batch: impl='kernels' against
+    impl='plain'. Losses agree closely; parameters agree to 1e-6 except
+    where Adam's first step turns gradient noise around 0 into ±lr (see
+    tests/test_torch_train.py): there by at most 2·lr, on under 0.5 %."""
+    state, tx_g, tx_d = create_train_state(0, device=cuda)
+    states = {"kernels": state, "plain": copy.deepcopy(state)}
+    gt = np.random.default_rng(12).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    haze = torch.tensor(np.clip(0.6 * gt + 0.3, 0, 1), device=cuda)
+    gt = torch.tensor(gt, device=cuda)
+    metrics = {}
+    for impl, st in states.items():
+        dense.reset_launch_counts()
+        freq.reset_launch_count()
+        _, metrics[impl] = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), impl=impl)(st, haze, gt)
+        torch.cuda.synchronize()
+        launches = (dense.k1_launches, dense.k2_launches, freq.k3_launches)
+        assert launches == ((42, 42, 3) if impl == "kernels" else (0, 0, 0))
+    for k, v in metrics["kernels"].items():
+        assert torch.isfinite(v), k
+        torch.testing.assert_close(v, metrics["plain"][k], atol=1e-5, rtol=1e-4, msg=k)
+    for net in ("g", "d"):
+        got, want = getattr(states["kernels"], net).state_dict(), getattr(states["plain"], net).state_dict()
+        n = off = 0
+        for k, w in want.items():
+            diff = (got[k] - w).abs()
+            tol = 1e-5 if "running" in k else 2 * 2e-4 + 1e-6
+            assert float(diff.max()) <= tol, k
+            n, off = n + diff.numel(), off + int((diff > 1e-6).sum())
+        assert off / n < 5e-3, (net, off, n)
