@@ -9,7 +9,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 1. device and build: the card's name and power limit from nvidia-smi, then
    the kernels of fdgan_tpu_torch/csrc built from source;
 2. kernels against their plain twins at the dense-layer shapes of the
-   8×512² path (fp32 without TF32, and bf16), with CUDA-event times;
+   8×512² serving path and of the 4×256² train path (fp32 without TF32,
+   and bf16), with CUDA-event times;
 3. the full-width FDGAN generator (random weights, seed 0) at 8×512²:
    the kernel path against the plain path in fp32 for both BN modes, the
    bf16 PSNR check, the launch counts per forward, and img/s in bf16;
@@ -43,12 +44,17 @@ import time
 
 import numpy as np
 
-SHAPES = [  # (B, H, W, C): one layer per dense block of the 8×512² path, a ragged C, a ragged W
+SHAPES = [  # (B, H, W, C): one layer per dense block of the 8×512² serving path, a ragged C, a ragged W
     (8, 512, 512, 64),
     (8, 256, 256, 128),
     (8, 128, 128, 256),
     (8, 128, 128, 992),
     (8, 120, 200, 64),
+    # the first layer of each dense block of the 4×256² train path, and block 3's last
+    (4, 256, 256, 64),
+    (4, 128, 128, 128),
+    (4, 64, 64, 256),
+    (4, 64, 64, 992),
 ]
 TIMED_SHAPE = SHAPES[0]
 # fp32 tolerances are the JAX suite's (tests/test_pallas_dense.py:52,67-68)

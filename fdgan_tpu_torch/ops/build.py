@@ -2,10 +2,11 @@
 
 The sources under ``fdgan_tpu_torch/csrc`` are compiled at first use with
 ``nvcc``, one process per source, all started together, and linked into
-one shared library with a plain C interface, loaded with ``ctypes``. The library lands in ``build/kernels/<hash>/`` at the root of
-the checkout (``FDGAN_KERNEL_DIR`` overrides it), keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the library already built. Nothing here runs at import.
+one shared library with a plain C interface, loaded with ``ctypes``. The
+library lands in ``build/kernels/<hash>/`` at the root of the checkout
+(``FDGAN_KERNEL_DIR`` overrides it), keyed by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads the library
+already built. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -67,37 +68,30 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile_and_link(out_dir: Path, so_path: str) -> str:
-    """Compile every source to an object in parallel, then link them into
-    ``so_path``. Returns nvcc's output; raises if a step fails."""
+def _compile_and_link(so_path: str) -> str:
+    """Compile each source to an object, all ``nvcc`` processes started
+    together, then link the objects into ``so_path``. Returns nvcc's output;
+    raises if a step fails."""
     nvcc = _nvcc()
-    objs = [tempfile.mkstemp(suffix=".o", dir=out_dir) for _ in SOURCES]
-    for fd, _ in objs:
-        os.close(fd)
+    objs = [f"{so_path}.{i}.o" for i in range(len(SOURCES))]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
     try:
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, (_, obj) in zip(SOURCES, objs)
-        ]
-        log = ""
-        failed = []
-        for src, proc in zip(SOURCES, procs):
-            out, _ = proc.communicate()
-            log += f"--- {src}\n{out}"
-            if proc.returncode != 0:
-                failed.append(f"{src} ({proc.returncode})")
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(f"--- {src}\n{out}" for src, out in zip(SOURCES, outs))
+        failed = [f"{src} ({proc.returncode})" for src, proc in zip(SOURCES, procs) if proc.returncode]
         if failed:
             raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
-        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so_path, *(o for _, o in objs)],
-                              capture_output=True, text=True)
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so_path, *objs], capture_output=True, text=True)
         log += link.stdout + link.stderr
-        if link.returncode != 0:
+        if link.returncode:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
         return log
     finally:
-        for _, obj in objs:
-            os.unlink(obj)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
 
 
 def load() -> ctypes.CDLL:
@@ -116,7 +110,7 @@ def load() -> ctypes.CDLL:
             os.close(fd)
             t0 = time.perf_counter()
             try:
-                build_log = _compile_and_link(out_dir, tmp)
+                build_log = _compile_and_link(tmp)
             except RuntimeError:
                 os.unlink(tmp)
                 raise

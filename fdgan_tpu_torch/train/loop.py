@@ -95,7 +95,6 @@ def create_train_state(
     beta1: float = 0.5,
     decay_every: int = 0,
     decay_start: int = 0,
-    input_nc: int = 9,
     clip_grad: float = 0.0,
     device=None,
 ) -> Tuple[TrainState, Transform, Transform]:
@@ -104,7 +103,7 @@ def create_train_state(
     ``decay_every`` = 0 keeps the learning rates constant; ``decay_start``
     delays the decay."""
     g = FDGAN(device=device, generator=torch.Generator().manual_seed(seed))
-    d = NLayerDiscriminator(input_nc=input_nc, device=device, generator=torch.Generator().manual_seed(seed + 1))
+    d = NLayerDiscriminator(input_nc=9, device=device, generator=torch.Generator().manual_seed(seed + 1))
 
     def transform(lr):
         sched = linear_decay_schedule(lr, decay_every, decay_start) if decay_every else (lambda count: lr)
@@ -130,7 +129,7 @@ def _frozen(*modules: Optional[nn.Module]):
             p.requires_grad_(True)
 
 
-def _steps(tx_g, tx_d, weights, vgg, compute_dtype, update_bn_stats, impl, real_label):
+def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label):
     if weights.contextual > 0:
         raise NotImplementedError(CONTEXTUAL_TODO)
 
@@ -142,8 +141,7 @@ def _steps(tx_g, tx_d, weights, vgg, compute_dtype, update_bn_stats, impl, real_
             state.g_opt.zero_grad(set_to_none=True)
             terms["total"].backward()
         tx_g.apply(state.g_opt, state.step)
-        if update_bn_stats:
-            fold_stats(state.g, stats)
+        fold_stats(state.g, stats)
         state.step += 1
         return {f"g_{k}": v.detach() for k, v in terms.items()}, x_hat.detach()
 
@@ -164,7 +162,6 @@ def make_train_step(
     weights: LossWeights = LossWeights(),
     vgg: Optional[VGG16] = None,
     compute_dtype: torch.dtype = torch.float32,
-    update_bn_stats: bool = True,
     impl: str = "kernels",
     real_label: float = 1.0,
 ):
@@ -173,7 +170,7 @@ def make_train_step(
     ``gt`` in [0, 1]; the metrics are detached 0-d tensors (``g_total``,
     ``g_adv``, ``g_pixel``, ``g_ssim``, …, ``d_total``, ``d_real``,
     ``d_fake``)."""
-    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, update_bn_stats, impl, real_label)
+    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label)
 
     def train_step(state: TrainState, haze: torch.Tensor, gt: torch.Tensor) -> Tuple[TrainState, Metrics]:
         metrics, x_hat = g_update(state, haze, gt)
@@ -189,7 +186,6 @@ def make_gd_steps(
     weights: LossWeights = LossWeights(),
     vgg: Optional[VGG16] = None,
     compute_dtype: torch.dtype = torch.float32,
-    update_bn_stats: bool = True,
     impl: str = "kernels",
     real_label: float = 1.0,
 ):
@@ -197,7 +193,7 @@ def make_gd_steps(
     ``g_step(state, haze, gt) -> (state, metrics, x_hat)`` returns the
     generated batch, which the caller pools; ``d_step(state, fake, gt) ->
     (state, metrics)`` trains D on the (possibly older) fake batch."""
-    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, update_bn_stats, impl, real_label)
+    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label)
 
     def g_step(state: TrainState, haze: torch.Tensor, gt: torch.Tensor):
         metrics, x_hat = g_update(state, haze, gt)

@@ -8,6 +8,7 @@ package, so it also runs on a machine without them:
 """
 
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -199,3 +200,15 @@ def test_fp32_train_step_kernels_match_plain(cuda, exact):
             assert float(diff.max()) <= tol, k
             n, off = n + diff.numel(), off + int((diff > 1e-6).sum())
         assert off / n < 5e-3, (net, off, n)
+
+
+def test_prof_train_reports_every_phase(cuda, capsys):
+    from fdgan_tpu_torch.tools import prof_train
+
+    assert prof_train.main(["--batch", "1", "--size", "64", "--impl", "kernels", "--warmup", "1",
+                            "--phase-steps", "1", "--steps", "1", "--prof-steps", "1"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(rec["phases"]) == ["g_forward", "g_loss", "g_backward", "g_adam", "bn_fold", "d_step"]
+    assert all(v > 0 for v in rec["phases"].values())
+    assert rec["step"]["device_ms"] > 0 and rec["step"]["device_ms"] < 2 * rec["step"]["wall_ms"]
+    assert rec["top"] and rec["step"]["device_events"] > 0
