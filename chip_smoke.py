@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one CUDA GPU,
-and check them.
+"""Drive the PyTorch port's serving, training and kernel-probe paths once on
+one CUDA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -25,9 +25,17 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    bf16, no perceptual term, 10 steps with the kernels and 10 plain, in
    turns, with img/s, peak memory and the launches per step (counters
    zeroed just before, read just after), and 3 split G/D steps through an
-   ImagePool.
+   ImagePool;
+6. probes: each of the seven probe kernels (csrc/probes.cu) against its plain
+   version at its full shape (2²¹ rows of 128; 8×512×512 images) and at a
+   ragged one, every row tile of probe_mm, the two conv2 bodies against
+   each other; then the path, fdgan_tpu_torch.tools.probes.run() as
+   `python -m fdgan_tpu_torch.tools.probes` runs it, with the probes'
+   launch counters zeroed just before and read just after: one timed JSON
+   line per probe and one line per question the Pallas probes asked.
 
-The line before the last holds the per-kernel summary as JSON; the last
+The line before the last holds the per-kernel summary as JSON (time, bound,
+plain version's and library call's time, launches per path); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails.
 """
@@ -150,6 +158,20 @@ def layer_inputs(shape, dtype, gen):
     return x, a1, b1, w1, a2, b2, w2
 
 
+def dense_bounds(x, a1, b1, w1, a2, b2, w2):
+    """K1's and K2's bounds on these inputs: every input read once, every
+    output written once; bf16 products at the tensor cores' peak, fp32 ones
+    at the CUDA cores'."""
+    from fdgan_tpu_torch.tools.probes import bound_ms, nbytes
+
+    npix, c = x.numel() // x.shape[-1], x.shape[-1]
+    tensor_cores = x.element_size() == 2
+    k1, k1_by = bound_ms(2 * npix * (c * 128 + 9 * 128 * 32),
+                         nbytes(x, a1, b1, w1, a2, b2, w2) + npix * 32 * x.element_size(), tensor_cores)
+    k2, k2_by = bound_ms(2 * npix * c * 128, nbytes(x, a1, b1, w1) + 2 * 128 * 4, tensor_cores)
+    return {"k1_bound_ms": k1, "k1_bound_by": k1_by, "k2_bound_ms": k2, "k2_bound_by": k2_by}
+
+
 def phase_kernels():
     import torch
 
@@ -183,7 +205,7 @@ def phase_kernels():
                     "k2_plain_ms": cuda_ms(lambda: dense.h_stats_reference(x, a1, b1, w1)),
                 }
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                   "k1_max_abs_err": e1, "k2_max_abs_err": e2, **t}
+                   "k1_max_abs_err": e1, "k2_max_abs_err": e2, **t, **dense_bounds(x, a1, b1, w1, a2, b2, w2)}
             rows.append(row)
             log(json.dumps(row))
             if not (ok1 and ok2):
@@ -360,6 +382,7 @@ def phase_k3():
     import torch
 
     from fdgan_tpu_torch.ops import filters, freq
+    from fdgan_tpu_torch.tools.probes import bound_ms, nbytes
 
     rows, worst = [], 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -371,9 +394,13 @@ def phase_k3():
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 ok = tuple(got.shape) == shape[:3] + (9,) and torch.allclose(got.float(), want.float(), **K3_TOL[name])
+                # per pixel and channel: two 15-tap passes (a multiply and an add
+                # each) and the 9-term Laplacian, all outside the tensor cores
+                bound, by = bound_ms(x.numel() * (2 * 30 + 9), nbytes(x, got), tensor_cores=False)
                 row = {"shape": list(shape), "dtype": name, "k3_max_abs_err": err,
                        "k3_ms": cuda_ms(lambda: freq.frequency_fuse(x)),
-                       "k3_plain_ms": cuda_ms(lambda: filters.frequency_fuse(x))}
+                       "k3_plain_ms": cuda_ms(lambda: filters.frequency_fuse(x)),
+                       "k3_bound_ms": bound, "k3_bound_by": by}
             rows.append(row)
             worst = max(worst, err)
             log(json.dumps(row))
@@ -532,6 +559,44 @@ def phase_training():
     return out, launches
 
 
+def phase_probes():
+    """Phase 6. Checks first (their launches are not the path's), then the
+    path: tools.probes.run() at the probes' full sizes."""
+    import torch
+
+    from fdgan_tpu_torch.ops import probes as ops
+    from fdgan_tpu_torch.tools import probes as tool
+
+    errs = {}
+    for name in tool.PROBES:  # tolerances: tools/probes.py PRODUCT_TOL, CONV1_TOL, COPY_TOL
+        by_size = {size: tool.check(name, size) for size in ("full", "ragged")}
+        errs[name] = max(by_size.values())
+        log(f"{name} vs plain: max_abs_err {json.dumps(by_size)} tol {json.dumps(tool.PROBES[name].tol)}")
+    a, b = tool.make_mm("ragged", np.random.default_rng(1), "cuda")
+    want = ops.mm_reference(a, b)
+    for tile in ops.MM_TILES:
+        err = tool.compare(ops.probe_mm(a, b, tile), want, tool.PRODUCT_TOL, f"probe_mm, row tile {tile}")
+        log(f"probe_mm row tile {tile} vs plain: max_abs_err {err}")
+    del a, b, want
+    g, w2 = tool.make_conv2("ragged", np.random.default_rng(2), "cuda")
+    err = tool.compare(ops.conv2(g, w2, "packed"), ops.conv2(g, w2, "taps9"), tool.PRODUCT_TOL, "conv2 packed vs taps9")
+    log(f"probe_conv2 packed vs taps9: max_abs_err {err}")
+    del g, w2
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    rows = tool.run("cuda", "full", on_row=lambda row: log(json.dumps(row)))
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    for line in tool.answers(rows):
+        log(json.dumps(line))
+    log(f"probe launches {launches}")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle or len(rows) != len(tool.PROBES):
+        raise AssertionError(f"probe kernels that the path did not launch: {idle}")
+    return {row["name"]: row for row in rows}, errs, launches
+
+
 def main() -> int:
     import torch
 
@@ -555,11 +620,13 @@ def main() -> int:
     train_fp32 = phase_train_fp32()
     training, train_launches = phase_training()
     log(json.dumps({"training": training, "train_fp32": train_fp32, "gradients_max_abs_err": grad_err}))
+    torch.cuda.empty_cache()
+    probe_rows, probe_errs, probe_launches = phase_probes()
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
     k3_timed = {tuple(r["shape"]): r for r in k3_rows if r["dtype"] == "bfloat16"}[K3_SHAPES[0]]
 
     def by_path(k):
-        return {"serving": launches.get(k, 0), "training": train_launches[k]}
+        return {"serving": launches.get(k, 0), "training": train_launches[k], "probes": 0}
 
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
@@ -567,20 +634,31 @@ def main() -> int:
          "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": train_launches["k1"],
          "launches_by_path": by_path("k1"),
          "max_abs_err": worst["k1"], "ms": timed["k1_ms"], "plain_ms": timed["k1_plain_ms"],
+         "bound_ms": timed["k1_bound_ms"], "bound_by": timed["k1_bound_by"], "library_ms": None,
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
         {"name": "h_batch_stats (K2)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": train_launches["k2"],
          "launches_by_path": by_path("k2"),
          "max_abs_err": worst["k2"], "ms": timed["k2_ms"], "plain_ms": timed["k2_plain_ms"],
+         "bound_ms": timed["k2_bound_ms"], "bound_by": timed["k2_bound_by"], "library_ms": None,
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
         {"name": "frequency_fuse (K3)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/freq_filters.cu",
          "replaces": "fdgan_tpu/ops/pallas_filters.py:81", "launches": train_launches["k3"],
          "launches_by_path": by_path("k3"),
          "max_abs_err": k3_worst, "ms": k3_timed["k3_ms"], "plain_ms": k3_timed["k3_plain_ms"],
+         "bound_ms": k3_timed["k3_bound_ms"], "bound_by": k3_timed["k3_bound_by"], "library_ms": None,
          "timed_at": list(K3_SHAPES[0]) + ["bfloat16"], "err_of": "fp32 and bf16, all shapes"},
     ]
+    for name, row in probe_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": "fdgan_tpu_torch/csrc/probes.cu", "replaces": row["replaces"],
+            "launches": probe_launches[name],
+            "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name]},
+            "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "timed_at": row["shape"] + ["bfloat16"], "err_of": "bf16, full and ragged shapes"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,7 @@ def save_image_normalized(arr_hwc: np.ndarray, path: str) -> None:
     Image.fromarray(normalize_to_uint8(arr_hwc)).save(path)
 
 
-def load_generator(path: str, device="cpu", dtype=torch.float32):
+def load_generator(path: str, device="cuda", dtype=torch.float32):
     """An FDGAN generator on ``device`` in ``dtype`` from a reference
     ``.pth`` checkpoint (DataParallel prefixes handled)."""
     from fdgan_tpu_torch.io.torch_import import load_torch_state_dict

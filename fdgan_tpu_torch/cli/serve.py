@@ -75,7 +75,7 @@ def main(argv=None):
         out_names = [(s if stems.count(s) == 1 else n) + ".png" for s, n in zip(stems, names)]
 
     if opt.netG:
-        model = load_generator(opt.netG)
+        model = load_generator(opt.netG, device=opt.device)
     else:
         from fdgan_tpu_torch.models.fdgan import FDGAN
 
@@ -114,7 +114,8 @@ def main(argv=None):
             port=opt.http,
             max_wait=opt.maxWait if opt.maxWait > 0 else 0.05,
             depth=opt.depth,
-            weight_loader=load_generator,  # POST /reload re-reads --netG by default
+            # POST /reload re-reads --netG by default
+            weight_loader=lambda path: load_generator(path, device=opt.device),
             weights_path=opt.netG,
         )
         serve_forever(server)

@@ -42,23 +42,17 @@
 // pixels (K2); x is staged 32 channels at a time; the ragged last chunk of C
 // is zero-filled. Both kernels take NHWC-contiguous x.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace fdgan_dev;  // bf16, INTER, GROWTH, THREADS, KC, the mma.sync helpers, gemm1_bf16
 
-constexpr int INTER = 128;   // bn_size * growth of DenseNet-121
-constexpr int GROWTH = 32;   // channels K1 writes
 constexpr int TILE_H = 8;    // K1 output tile: 8 x 16 pixels
 constexpr int TILE_W = 16;
 constexpr int HALO_W = TILE_W + 2;                  // 18
 constexpr int HALO_PIX = (TILE_H + 2) * HALO_W;     // 180
 constexpr int NPIX = 192;    // GEMM1 rows per block (180 halo pixels, padded)
-constexpr int THREADS = 256;
-constexpr int KC = 32;       // channels of x staged per step
 
 // --- the fp32 path: CUDA-core FMAs ------------------------------------------
 
@@ -262,10 +256,11 @@ h_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1,
 
 // --- the bf16 path: tensor cores ----------------------------------------------
 //
-// Warp w of 8, lane = 4*gq + tq. GEMM1 (192 x 128, K = C): warp w owns rows
-// 48*(w%4) .. +48 (three m16 tiles) and columns 64*(w/4) .. +64 (eight n8
-// tiles). GEMM2 (128 x 32, K = 9*128): warp w owns output row w of the tile
-// (one m16 tile: pixels x = gq and gq+8) and all four n8 tiles.
+// Warp w of 8, lane = 4*gq + tq. GEMM1 (192 x 128, K = C) is gemm1_bf16<3>
+// of mma_bf16.cuh: warp w owns rows 48*(w%4) .. +48 (three m16 tiles) and
+// columns 64*(w/4) .. +64 (eight n8 tiles). GEMM2 (128 x 32, K = 9*128):
+// warp w owns output row w of the tile (one m16 tile: pixels x = gq and
+// gq+8) and all four n8 tiles.
 // Operands are staged in 16-byte vectors, and the next chunk of x and W1 (or
 // the next W2 tap) is loaded into registers while the tensor cores work on
 // the current one. Shared rows are padded by 8 bf16 (16 bytes) so that the
@@ -274,7 +269,6 @@ h_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1,
 // Weights arrive as w1t (128, C) = W1 transposed, and w2r (9, 32, 128) =
 // per tap, per output channel, the 128 inputs: both are torch's OIHW order.
 
-constexpr int TB_LD = KC + 8;       // t chunk [row][k] and W1 chunk [n][k], in bf16
 constexpr int GB_LD = INTER + 8;    // g [row][i] and one W2 tap [f][i], in bf16
 constexpr int BF_GS = NPIX * GB_LD;         // bf16 elements
 constexpr int BF_TS = NPIX * TB_LD;
@@ -283,117 +277,9 @@ constexpr size_t BF_K1_SMEM = 2 * (BF_GS + BF_TS + BF_W1S) + 4 * NPIX;
 constexpr size_t BF_K2_SMEM = 2 * (BF_TS + BF_W1S) + 4 * NPIX;
 static_assert(GROWTH * GB_LD <= BF_TS, "a W2 tap must fit in the t staging area");
 static_assert(2 * 4 * INTER * 2 <= BF_TS, "K2's reduction (fp32) must fit in the t staging area");
-static_assert(NPIX * (KC / 8) == 3 * THREADS && INTER * (KC / 8) == 2 * THREADS &&
+static_assert(NPIX == 3 * 64 && NPIX * (KC / 8) == 3 * THREADS && INTER * (KC / 8) == 2 * THREADS &&
                   GROWTH * (INTER / 8) == 2 * THREADS,
               "each thread stages 3 x vectors, 2 W1 vectors and 2 W2 vectors");
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-// two bf16 of x -> round(relu(a*x + b)) as two bf16
-__device__ __forceinline__ uint32_t affine_relu_pair(uint32_t xw, const float* a, const float* b) {
-  const float lo = __uint_as_float(xw << 16), hi = __uint_as_float(xw & 0xffff0000u);
-  return pack_pair(fmaxf(lo * a[0] + b[0], 0.f), fmaxf(hi * a[1] + b[1], 0.f));
-}
-
-// c += a . b for one m16n8k16 tile, bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[mi][j][*] is the m16n8 fragment of h for rows 48*(w%4) + 16*mi and
-// columns 64*(w/4) + 8*j: element 0,1 at (row gq, cols 2tq, 2tq+1), 2,3 at
-// row gq+8. h[row] = round(relu(a1*x[pix[row]] + b1)) . W1, 0 where pix is -1.
-// pix must be written before the call.
-__device__ __forceinline__ void gemm1_bf16(const bf16* __restrict__ x, const float* __restrict__ a1,
-                                           const float* __restrict__ b1, const bf16* __restrict__ w1t,
-                                           int C, const int* pix, bf16* ts, bf16* w1s,
-                                           float acc[3][8][4]) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4;
-  const int m0 = 48 * (warp % 4), n0 = 64 * (warp / 4);
-  // staging: rows sr + 64*r of x (r < 3) and of W1t (r < 2), channels 8*kq .. +8
-  const int sr = tid / 4, kq = tid % 4;
-#pragma unroll
-  for (int mi = 0; mi < 3; ++mi)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
-
-  uint4 xv[3], wv[2];
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  auto fetch = [&](int c0) {
-    const int c = c0 + 8 * kq;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int gp = pix[sr + 64 * r];
-      xv[r] = c < C && gp >= 0 ? *reinterpret_cast<const uint4*>(x + (size_t)gp * C + c) : zero;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      wv[r] = c < C ? *reinterpret_cast<const uint4*>(w1t + (size_t)(sr + 64 * r) * C + c) : zero;
-  };
-
-  __syncthreads();  // pix is written
-  fetch(0);
-  for (int c0 = 0; c0 < C; c0 += KC) {
-    {
-      const int c = c0 + 8 * kq;
-      float a[8], b[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        a[e] = c < C ? a1[c + e] : 0.f;
-        b[e] = c < C ? b1[c + e] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        const int row = sr + 64 * r;
-        uint4 t = zero;  // rows outside the image and channels past C stage t = 0
-        if (c < C && pix[row] >= 0) {
-          t.x = affine_relu_pair(xv[r].x, a + 0, b + 0);
-          t.y = affine_relu_pair(xv[r].y, a + 2, b + 2);
-          t.z = affine_relu_pair(xv[r].z, a + 4, b + 4);
-          t.w = affine_relu_pair(xv[r].w, a + 6, b + 6);
-        }
-        *reinterpret_cast<uint4*>(ts + row * TB_LD + 8 * kq) = t;
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) *reinterpret_cast<uint4*>(w1s + (sr + 64 * r) * TB_LD + 8 * kq) = wv[r];
-    }
-    __syncthreads();
-    if (c0 + KC < C) fetch(c0 + KC);  // in flight while the tensor cores run
-#pragma unroll
-    for (int ks = 0; ks < KC; ks += 16) {
-      uint32_t bfr[8][2];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* p = w1s + (n0 + 8 * j + gq) * TB_LD + ks + 2 * tq;
-        bfr[j][0] = ld_pair(p);
-        bfr[j][1] = ld_pair(p + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 3; ++mi) {
-        const bf16* p = ts + (m0 + 16 * mi + gq) * TB_LD + ks + 2 * tq;
-        const uint32_t afr[4] = {ld_pair(p), ld_pair(p + 8 * TB_LD), ld_pair(p + 8),
-                                 ld_pair(p + 8 * TB_LD + 8)};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_bf16_16816(acc[mi][j], afr, bfr[j]);
-      }
-    }
-    __syncthreads();  // the chunk is consumed before the next one is staged
-  }
-}
 
 // K1, bf16. Grid (ceil(W/16), ceil(H/8), B).
 __global__ void __launch_bounds__(THREADS, 2)
@@ -414,7 +300,8 @@ dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1
   halo_pixels(pix, b, y0, x0, H, W);
 
   float acc[3][8][4];
-  gemm1_bf16(x, a1, b1, w1t, C, pix, ts, w1s, acc);
+  gemm1_bf16<3>([=](int gp, int c) { return x + (size_t)gp * C + c; }, a1, b1, w1t, C, pix, ts,
+                w1s, acc);
 
   // the first W2 tap loads while the epilogue runs: f = sr2 + 16*r, inputs 8*iq ..
   const int sr2 = tid / 16, iq = tid % 16;
@@ -505,7 +392,8 @@ h_stats_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
   for (int row = tid; row < NPIX; row += THREADS) pix[row] = p0 + row < npix ? p0 + row : -1;
 
   float acc[3][8][4];
-  gemm1_bf16(x, a1, b1, w1t, C, pix, ts, w1s, acc);
+  gemm1_bf16<3>([=](int gp, int c) { return x + (size_t)gp * C + c; }, a1, b1, w1t, C, pix, ts,
+                w1s, acc);
 
   // rows past the end hold h = 0. Sum the thread's 6 rows, then the 8 lanes
   // of a column (shuffles over gq), then the 4 row-warps in a fixed order.
@@ -545,11 +433,6 @@ h_stats_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
     psum[(size_t)blockIdx.x * INTER + tid] = s;
     psq[(size_t)blockIdx.x * INTER + tid] = q;
   }
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace

@@ -1,0 +1,643 @@
+// Hand-written Hopper kernels for the kernel probes: the counterparts of
+// tools/probe_pallas{,2,3,4,5}.py, the Pallas measurements that decided the
+// dense layer's design on the TPU. Each is a stage of the dense layer (K1,
+// dense_layer.cu) or a streaming copy, taken alone, so that its time can be
+// held against its bound and against a library call at the dense block's
+// own sizes (2^21 pixels, 128 channels: arrays of 0.5 GB, far beyond the
+// 50 MB L2). All are bf16; the products run on the tensor cores with
+// mma.sync m16n8k16 and fp32 accumulation, round once, and read their
+// operands from padded shared-memory rows (mma_bf16.cuh).
+//
+// What the TPU versions are shaped by does not carry over: their row tiles
+// of 1024-8192 rows (0.25-2 MB) exceed the 227 KB of shared memory a block
+// may use, a grid's "arbitrary" or "parallel" order means nothing where all
+// blocks run at once, and the halo rows build_halo hands the conv2 probe
+// are read here from g itself, with the image border masked to zero as K1
+// does. The kernels that keep an operand resident (probe_mm's B, conv2's
+// W2) run as persistent blocks, as many as fit the card, each walking its
+// share of the tiles with the next tile's loads (cp.async) in flight under
+// the current tile's products.
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+using namespace fdgan_dev;
+
+constexpr int ROW_LD = INTER + 8;  // a 128-wide bf16 row in shared memory, padded
+
+// acc -> rows of a shared tile as bf16, in the accumulator's fragment layout:
+// acc[j][2*half + e] is (row gq + 8*half, column 8*j + 2*tq + e) of an m16 tile
+template <int NJ>
+__device__ __forceinline__ void store_fragments(bf16* tile_row0, int ld, const float acc[NJ][4], int gq, int tq) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<uint32_t*>(tile_row0 + (gq + 8 * half) * ld + 8 * j + 2 * tq) =
+          pack_pair(acc[j][2 * half], acc[j][2 * half + 1]);
+}
+
+// -----------------------------------------------------------------------------
+// probe_mm: Y = A.B, A (M,128), B (128,128), Y (M,128).
+//
+// Replaces tools/probe_pallas.py:18 pallas_mm (body mm_kernel :14), its tile
+// sweep tools/probe_pallas2.py:14 and the "parallel" grid variant
+// tools/probe_pallas3.py:52 pmm: one function, so one kernel, with the row
+// tile per block a compile-time parameter (64, 128 or 256 rows: the sweep).
+//
+// Bound on an H100: memory. It moves 2*(M*128 + M*128) bytes for 2*M*128*128
+// FLOP, 64 FLOP per byte against the card's ridge of ~295. So the design is
+// about streaming A and Y: B^T (32 KB) is staged once per block and stays,
+// blocks are persistent, A tiles arrive through a two-stage cp.async ring so
+// that the next tile loads while this one multiplies, and Y leaves through
+// shared memory in 16-byte rows rather than as 4-byte fragment stores.
+// -----------------------------------------------------------------------------
+
+template <int MI>
+constexpr size_t mm_smem() { return 2 * (size_t)(INTER * ROW_LD + 2 * 64 * MI * ROW_LD); }
+
+template <int MI>
+__global__ void __launch_bounds__(THREADS)
+probe_mm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bt, bf16* __restrict__ y, int m) {
+  constexpr int TM = 64 * MI;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* bs = reinterpret_cast<bf16*>(smem_raw);  // B^T [n][k]
+  bf16* ring = bs + INTER * ROW_LD;              // [2][TM][k]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int m0 = 16 * MI * (warp % 4), n0 = 64 * (warp / 4);
+  const int ntiles = (m + TM - 1) / TM;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  auto load_tile = [&](int tile, bf16* dst) {
+    const size_t row0 = (size_t)tile * TM;
+    for (int v = tid; v < TM * 16; v += THREADS) {
+      const int r = v / 16, kq = v % 16;
+      bf16* d = dst + r * ROW_LD + 8 * kq;
+      if (row0 + r < (size_t)m) cp_async16(d, a + (row0 + r) * INTER + 8 * kq);
+      else *reinterpret_cast<uint4*>(d) = zero;  // rows past the end multiply as 0
+    }
+  };
+
+  for (int v = tid; v < INTER * 16; v += THREADS) cp_async16(bs + (v / 16) * ROW_LD + 8 * (v % 16), bt + (size_t)v * 8);
+  int tile = blockIdx.x;
+  if (tile < ntiles) load_tile(tile, ring);
+  cp_async_commit();
+
+  for (int it = 0; tile < ntiles; tile += gridDim.x, ++it) {
+    bf16* cur = ring + (it & 1) * TM * ROW_LD;
+    if (tile + (int)gridDim.x < ntiles) load_tile(tile + gridDim.x, ring + ((it & 1) ^ 1) * TM * ROW_LD);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and B) has landed; the next may be in flight
+    __syncthreads();
+
+    float acc[MI][8][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < INTER; ks += 16) {
+      uint32_t bfr[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bf16* p = bs + (n0 + 8 * j + gq) * ROW_LD + ks + 2 * tq;
+        bfr[j][0] = ld_pair(p);
+        bfr[j][1] = ld_pair(p + 8);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const bf16* p = cur + (m0 + 16 * mi + gq) * ROW_LD + ks + 2 * tq;
+        const uint32_t afr[4] = {ld_pair(p), ld_pair(p + 8 * ROW_LD), ld_pair(p + 8),
+                                 ld_pair(p + 8 * ROW_LD + 8)};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_bf16_16816(acc[mi][j], afr, bfr[j]);
+      }
+    }
+    __syncthreads();  // every warp is done reading the A tile: Y takes its place
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) store_fragments<8>(cur + (m0 + 16 * mi) * ROW_LD + n0, ROW_LD, acc[mi], gq, tq);
+    __syncthreads();
+    const size_t row0 = (size_t)tile * TM;
+    for (int v = tid; v < TM * 16; v += THREADS) {
+      const int r = v / 16, kq = v % 16;
+      if (row0 + r < (size_t)m)
+        *reinterpret_cast<uint4*>(y + (row0 + r) * INTER + 8 * kq) =
+            *reinterpret_cast<const uint4*>(cur + r * ROW_LD + 8 * kq);
+    }
+    __syncthreads();  // the stage is free for the load after next
+  }
+  cp_async_wait<0>();
+}
+
+// -----------------------------------------------------------------------------
+// probe_scale_copy: Y = 2.A over n bf16 values.
+//
+// Replaces tools/probe_pallas3.py:32 pcopy (body copy_kernel :27). Bound on
+// an H100: memory, 4 bytes moved per value and one multiply. The design is
+// the plain one: 16-byte loads and stores, neighbouring threads on
+// neighbouring addresses, four independent loads per thread in flight, a
+// grid-stride loop. It is the yardstick the staged copy is held against.
+// -----------------------------------------------------------------------------
+
+__device__ __forceinline__ uint4 twice8(uint4 v) {
+  const __nv_bfloat162 two = __float2bfloat162_rn(2.f);
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = __hmul2(p[i], two);
+  return v;
+}
+
+// the n % 8 values after the last whole vector
+__device__ __forceinline__ void scale_tail(const bf16* a, bf16* y, size_t n) {
+  const size_t i = (n / 8) * 8 + threadIdx.x;
+  if (blockIdx.x == 0 && threadIdx.x < 8 && i < n) y[i] = __hmul(a[i], __float2bfloat16_rn(2.f));
+}
+
+constexpr int COPY_UNROLL = 4;
+
+__global__ void __launch_bounds__(THREADS)
+probe_scale_copy_kernel(const bf16* __restrict__ a, bf16* __restrict__ y, size_t n) {
+  const uint4* av = reinterpret_cast<const uint4*>(a);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  const size_t nvec = n / 8;
+  const size_t stride = (size_t)gridDim.x * THREADS * COPY_UNROLL;
+  for (size_t base = (size_t)blockIdx.x * THREADS * COPY_UNROLL + threadIdx.x; base < nvec; base += stride) {
+    uint4 v[COPY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u)
+      if (base + u * THREADS < nvec) v[u] = av[base + u * THREADS];
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u)
+      if (base + u * THREADS < nvec) yv[base + u * THREADS] = twice8(v[u]);
+  }
+  scale_tail(a, y, n);
+}
+
+// -----------------------------------------------------------------------------
+// probe_scale_copy_staged: the same function through shared memory.
+//
+// Replaces tools/probe_pallas4.py:49 dbuf_copy (body dbuf_kernel :13-46): one
+// sequential program with two DMA slots of 8192 rows. On this card one
+// program would occupy one SM of 132, so the counterpart is a set of
+// persistent blocks, two per SM, each walking its share of 32 KB chunks
+// through a two-stage ring of asynchronous copies: while a chunk is doubled
+// and stored, the next is already on its way into the other stage, and no
+// register holds data in flight. Every thread reads back only the 16-byte
+// slots it copied itself, so cp.async.wait_group orders the ring and no
+// block-wide barrier is needed. The bound is the plain copy's.
+// -----------------------------------------------------------------------------
+
+constexpr int ST_VPT = 8;                      // 16-byte vectors per thread per chunk
+constexpr int ST_CHUNK = THREADS * ST_VPT;     // vectors per chunk: 32 KB
+constexpr size_t ST_SMEM = 2 * (size_t)ST_CHUNK * 16;
+
+__global__ void __launch_bounds__(THREADS)
+probe_scale_copy_staged_kernel(const bf16* __restrict__ a, bf16* __restrict__ y, size_t n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw);  // [2][ST_CHUNK]
+  const uint4* av = reinterpret_cast<const uint4*>(a);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  const int tid = threadIdx.x;
+  const size_t nvec = n / 8;
+  const size_t nchunks = (nvec + ST_CHUNK - 1) / ST_CHUNK;
+
+  auto fetch = [&](size_t chunk, uint4* dst) {
+#pragma unroll
+    for (int u = 0; u < ST_VPT; ++u) {
+      const size_t idx = chunk * ST_CHUNK + u * THREADS + tid;
+      if (idx < nvec) cp_async16(dst + u * THREADS + tid, av + idx);
+    }
+  };
+
+  size_t chunk = blockIdx.x;
+  if (chunk < nchunks) fetch(chunk, ring);
+  cp_async_commit();
+  for (int it = 0; chunk < nchunks; chunk += gridDim.x, ++it) {
+    const uint4* cur = ring + (it & 1) * ST_CHUNK;
+    if (chunk + gridDim.x < nchunks) fetch(chunk + gridDim.x, ring + ((it & 1) ^ 1) * ST_CHUNK);
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk has landed; the next may be in flight
+#pragma unroll
+    for (int u = 0; u < ST_VPT; ++u) {
+      const size_t idx = chunk * ST_CHUNK + u * THREADS + tid;
+      if (idx < nvec) yv[idx] = twice8(cur[u * THREADS + tid]);
+    }
+  }
+  cp_async_wait<0>();
+  scale_tail(a, y, n);
+}
+
+// -----------------------------------------------------------------------------
+// probe_scale_copy_bulk: the staged copy with the Tensor Memory Accelerator in
+// place of the threads' own copies, a second answer to probe_pallas4.py:49,
+// whose DMA engine it resembles most: one thread asks for a whole 32 KB chunk
+// (cp.async.bulk, 1-D, no tensor map) and an mbarrier per stage reports its
+// arrival; the other 255 threads spend no instruction on the load. The
+// hardware writes the stage, so the block has to agree that the stage was read
+// before it is refilled: one block-wide barrier per chunk, which the cp.async
+// ring does not need.
+// -----------------------------------------------------------------------------
+
+constexpr size_t BULK_SMEM = ST_SMEM + 2 * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(THREADS)
+probe_scale_copy_bulk_kernel(const bf16* __restrict__ a, bf16* __restrict__ y, size_t n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw);  // [2][ST_CHUNK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + ST_SMEM);  // [2]: the stage's chunk has landed
+  const uint4* av = reinterpret_cast<const uint4*>(a);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  const int tid = threadIdx.x;
+  const size_t nvec = n / 8;
+  const size_t nchunks = (nvec + ST_CHUNK - 1) / ST_CHUNK;
+
+  auto fetch = [&](size_t chunk, int stage) {  // thread 0 only
+    const size_t first = chunk * ST_CHUNK;
+    const uint32_t bytes = 16 * (uint32_t)(nvec - first < ST_CHUNK ? nvec - first : ST_CHUNK);
+    mbarrier_arrive_expect_tx(full + stage, bytes);
+    bulk_copy_g2s(ring + stage * ST_CHUNK, av + first, bytes, full + stage);
+  };
+
+  if (tid == 0) {
+    mbarrier_init(full, 1);
+    mbarrier_init(full + 1, 1);
+  }
+  __syncthreads();
+  size_t chunk = blockIdx.x;
+  if (tid == 0 && chunk < nchunks) fetch(chunk, 0);
+  for (int it = 0; chunk < nchunks; chunk += gridDim.x, ++it) {
+    const int stage = it & 1;
+    // the other stage was read in the last iteration, which ended at a barrier
+    if (tid == 0 && chunk + gridDim.x < nchunks) fetch(chunk + gridDim.x, stage ^ 1);
+    mbarrier_wait(full + stage, (it >> 1) & 1);  // the stage's (it / 2)-th filling
+    const uint4* cur = ring + stage * ST_CHUNK;
+#pragma unroll
+    for (int u = 0; u < ST_VPT; ++u) {
+      const size_t idx = chunk * ST_CHUNK + u * THREADS + tid;
+      if (idx < nvec) yv[idx] = twice8(cur[u * THREADS + tid]);
+    }
+    __syncthreads();  // every thread has read the stage before it is refilled
+  }
+  scale_tail(a, y, n);
+}
+
+// -----------------------------------------------------------------------------
+// probe_conv1: out = round(relu(cat(s0..s_{n-1}).a + b)) . W1, (P,C) -> (P,128).
+//
+// Replaces tools/probe_pallas5.py:69 seg_conv1 (body _seg_kernel :58) and :99
+// mono_conv1 (body _mono_kernel :91): one kernel that takes 1 to 8 segment
+// arrays (P, width_i) by pointer and width and never forms their concat in
+// device memory; with one segment it reads the concatenated array. It is
+// K1's first stage, gemm1_bf16 of mma_bf16.cuh, with the x loader finding
+// each 8-channel vector's segment; a and b are indexed by the channel's
+// place in the virtual concat.
+//
+// Bound on an H100: memory, 2*P*(C + 128) bytes against 2*P*C*128 FLOP (71
+// FLOP per byte at C = 160). Segments change nothing in the bytes, only the
+// row stride of each read, which is what the probe measures. One block per
+// 128 pixels, two per SM; W1 is staged chunk by chunk from L2, as in K1;
+// the result leaves through shared memory in 16-byte rows.
+// -----------------------------------------------------------------------------
+
+constexpr int MAX_SEGS = 8;
+constexpr int C1_ROWS = 128;
+
+struct Segments {
+  const bf16* ptr[MAX_SEGS];
+  int width[MAX_SEGS];
+  int n;
+};
+
+struct SegmentAt {
+  const Segments& s;
+  // the 8 channels c .. c+8 of the virtual concat, at pixel gp; every width
+  // is a multiple of 8, so they lie in one segment
+  __device__ __forceinline__ const bf16* operator()(int gp, int c) const {
+    const bf16* p = nullptr;
+    int start = 0;
+#pragma unroll
+    for (int i = 0; i < MAX_SEGS; ++i) {
+      const int w = i < s.n ? s.width[i] : 0;
+      if (c >= start && c < start + w) p = s.ptr[i] + (size_t)gp * w + (c - start);
+      start += w;
+    }
+    return p;
+  }
+};
+
+constexpr size_t C1_SMEM = 2 * (size_t)(C1_ROWS * TB_LD + INTER * TB_LD + C1_ROWS * ROW_LD) + 4 * C1_ROWS;
+
+__global__ void __launch_bounds__(THREADS, 2)
+probe_conv1_kernel(const __grid_constant__ Segments segs, const float* __restrict__ a, const float* __restrict__ b,
+                   const bf16* __restrict__ w1t, bf16* __restrict__ out, int npix, int C) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ts = reinterpret_cast<bf16*>(smem_raw);
+  bf16* w1s = ts + C1_ROWS * TB_LD;
+  bf16* os = w1s + INTER * TB_LD;  // the block's (128, 128) result
+  int* pix = reinterpret_cast<int*>(os + C1_ROWS * ROW_LD);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int p0 = blockIdx.x * C1_ROWS;
+  for (int row = tid; row < C1_ROWS; row += THREADS) pix[row] = p0 + row < npix ? p0 + row : -1;
+
+  float acc[C1_ROWS / 64][8][4];
+  gemm1_bf16<C1_ROWS / 64>(SegmentAt{segs}, a, b, w1t, C, pix, ts, w1s, acc);
+
+  const int m0 = 16 * (C1_ROWS / 64) * (warp % 4), n0 = 64 * (warp / 4);
+#pragma unroll
+  for (int mi = 0; mi < C1_ROWS / 64; ++mi) store_fragments<8>(os + (m0 + 16 * mi) * ROW_LD + n0, ROW_LD, acc[mi], gq, tq);
+  __syncthreads();
+  for (int v = tid; v < C1_ROWS * 16; v += THREADS) {
+    const int r = v / 16, kq = v % 16;
+    if (p0 + r < npix)
+      *reinterpret_cast<uint4*>(out + (size_t)(p0 + r) * INTER + 8 * kq) =
+          *reinterpret_cast<const uint4*>(os + r * ROW_LD + 8 * kq);
+  }
+}
+
+// -----------------------------------------------------------------------------
+// probe_conv2: f = 3x3 conv of g, zero padding, 128 -> 32 channels, two bodies.
+//
+// Replaces tools/probe_pallas5.py:158 conv2 with its bodies :123
+// _conv2_9dot_kernel and :139 _conv2_packed_kernel (which Mosaic never
+// compiled: its record on the TPU is interpret mode).
+//
+// Bound on an H100: memory by a little, 2*P*(128 + 32) bytes (0.20 ms at
+// P = 2^21) against 2*P*9*128*32 FLOP (0.16 ms), so the design has to do both
+// well: W2 (72 KB as (9, 32, 128), per tap and output channel its 128
+// inputs) is staged once per persistent block and stays, the halo tile of g
+// arrives through a two-stage cp.async ring, read from g with the positions
+// outside the image set to zero (no halo array), and warp w owns output row
+// w of the tile, whose 32 channels leave through shared memory in 16-byte
+// vectors.
+//
+// taps9: the tile is 8 x 16 pixels (halo 10 x 18). Per tap, a
+// (16, 128) x (128, 32) product of the tile row shifted by (dy, dx),
+// accumulated in registers: K1's second stage.
+//
+// packed: one product with all nine taps side by side, N = 288, and the nine
+// 32-wide slices of its result added at their shifts. The (halo pixels, 288)
+// fp32 result of an 8 x 16 tile would be 207 KB, all the shared memory a block
+// has. Chosen instead: the tile is 8 x 14 pixels, so that a halo row is 16
+// pixels, exactly one m16 fragment tile, and the product is taken a tap row
+// at a time: for dy = 0..2 warp w multiplies halo row w + dy by the 96
+// columns of that tap row. All three land on output row w, so the dy shift is
+// the accumulator itself (K = 3*128), and the dx shift moves a value from
+// halo pixel x + dx to output pixel x: to the lane 4*dx further on, by warp
+// shuffle. The 288-wide result never leaves registers. The price is 16 halo
+// pixels multiplied for 14 outputs (1.14x taps9's tensor-core work, not the
+// 1.4x of a full halo tile); the gain is one A fragment per 12 products
+// instead of per 4. The two bodies add the nine terms in different orders.
+// -----------------------------------------------------------------------------
+
+constexpr int C2_TH = 8;
+constexpr int C2_TAPS = 9;
+constexpr int C2_OS_LD = GROWTH + 8;
+
+template <bool PACKED>
+struct Conv2Tile {
+  static constexpr int TW = PACKED ? 14 : 16;  // output tile width
+  static constexpr int HW = TW + 2;            // halo width
+  static constexpr int HPIX = (C2_TH + 2) * HW;
+  static constexpr size_t SMEM =
+      2 * (size_t)(C2_TAPS * GROWTH * ROW_LD + 2 * HPIX * ROW_LD + C2_TH * 16 * C2_OS_LD);
+};
+
+template <bool PACKED>
+__global__ void __launch_bounds__(THREADS)
+probe_conv2_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w2r, bf16* __restrict__ out,
+                   int B, int H, int W) {
+  typedef Conv2Tile<PACKED> T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* w2s = reinterpret_cast<bf16*>(smem_raw);    // [9*32][128]: tap, output channel, inputs
+  bf16* ring = w2s + C2_TAPS * GROWTH * ROW_LD;     // [2][HPIX][128]
+  bf16* os = ring + 2 * T::HPIX * ROW_LD;           // [8 * 16][32], warp w's row at 16*w
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int tiles_x = (W + T::TW - 1) / T::TW, tiles_y = (H + C2_TH - 1) / C2_TH;
+  const int ntiles = B * tiles_y * tiles_x;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  auto load_tile = [&](int tile, bf16* dst) {
+    const int x0 = (tile % tiles_x) * T::TW, y0 = (tile / tiles_x % tiles_y) * C2_TH;
+    const int b = tile / (tiles_x * tiles_y);
+    for (int v = tid; v < T::HPIX * 16; v += THREADS) {
+      const int r = v / 16, kq = v % 16;
+      const int iy = y0 - 1 + r / T::HW, ix = x0 - 1 + r % T::HW;
+      bf16* d = dst + r * ROW_LD + 8 * kq;
+      if (iy >= 0 && iy < H && ix >= 0 && ix < W) cp_async16(d, g + ((size_t)(b * H + iy) * W + ix) * INTER + 8 * kq);
+      else *reinterpret_cast<uint4*>(d) = zero;  // conv2's zero padding
+    }
+  };
+
+  for (int v = tid; v < C2_TAPS * GROWTH * 16; v += THREADS)
+    cp_async16(w2s + (v / 16) * ROW_LD + 8 * (v % 16), w2r + (size_t)v * 8);
+  int tile = blockIdx.x;
+  if (tile < ntiles) load_tile(tile, ring);
+  cp_async_commit();
+
+  for (int it = 0; tile < ntiles; tile += gridDim.x, ++it) {
+    const bf16* cur = ring + (it & 1) * T::HPIX * ROW_LD;
+    if (tile + (int)gridDim.x < ntiles) load_tile(tile + gridDim.x, ring + ((it & 1) ^ 1) * T::HPIX * ROW_LD);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and W2) has landed; the next may be in flight
+    __syncthreads();
+
+    bf16* orow = os + warp * 16 * C2_OS_LD;
+    if constexpr (!PACKED) {
+      float acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int tap = 0; tap < C2_TAPS; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        const bf16* g_lo = cur + ((warp + dy) * T::HW + gq + dx) * ROW_LD + 2 * tq;  // pixel x = gq
+        const bf16* g_hi = g_lo + 8 * ROW_LD;                                        // pixel x = gq + 8
+        const bf16* wt = w2s + (tap * GROWTH + gq) * ROW_LD + 2 * tq;
+#pragma unroll
+        for (int ks = 0; ks < INTER; ks += 16) {
+          const uint32_t afr[4] = {ld_pair(g_lo + ks), ld_pair(g_hi + ks), ld_pair(g_lo + ks + 8),
+                                   ld_pair(g_hi + ks + 8)};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bf16* p = wt + 8 * j * ROW_LD + ks;
+            const uint32_t bfr[2] = {ld_pair(p), ld_pair(p + 8)};
+            mma_bf16_16816(acc[j], afr, bfr);
+          }
+        }
+      }
+      store_fragments<4>(orow, C2_OS_LD, acc, gq, tq);
+    } else {
+      // acc[4*dx + j]: halo pixels gq and gq + 8 of the row, tap column dx, channels 8*j ..
+      float acc[12][4];
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int dy = 0; dy < 3; ++dy) {
+        const bf16* g_lo = cur + ((warp + dy) * T::HW + gq) * ROW_LD + 2 * tq;  // halo pixel gq
+        const bf16* g_hi = g_lo + 8 * ROW_LD;                                   // halo pixel gq + 8
+        const bf16* wt = w2s + (dy * 3 * GROWTH + gq) * ROW_LD + 2 * tq;
+#pragma unroll
+        for (int ks = 0; ks < INTER; ks += 16) {
+          const uint32_t afr[4] = {ld_pair(g_lo + ks), ld_pair(g_hi + ks), ld_pair(g_lo + ks + 8),
+                                   ld_pair(g_hi + ks + 8)};
+#pragma unroll
+          for (int j = 0; j < 12; ++j) {
+            const bf16* p = wt + 8 * j * ROW_LD + ks;
+            const uint32_t bfr[2] = {ld_pair(p), ld_pair(p + 8)};
+            mma_bf16_16816(acc[j], afr, bfr);
+          }
+        }
+      }
+      // output pixel x takes tap column dx from halo pixel x + dx, which the
+      // lane 4*dx further on holds: as its pixel gq' = gq + dx, or, past the
+      // warp's end (gq + dx >= 8), as pixel gq' + 8 of lane gq' = gq + dx - 8.
+      // Pixels 14 and 15 are no outputs, so pixel gq + 8 never needs the wrap.
+#pragma unroll
+      for (int dx = 1; dx < 3; ++dx) {
+        const int src = (lane + 4 * dx) % 32;
+        const bool wrapped = gq + dx >= 8;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float lo = __shfl_sync(0xffffffffu, acc[4 * dx + j][e], src);
+            const float hi = __shfl_sync(0xffffffffu, acc[4 * dx + j][2 + e], src);
+            acc[j][e] += wrapped ? hi : lo;
+            acc[j][2 + e] += wrapped ? 0.f : hi;
+          }
+      }
+      store_fragments<4>(orow, C2_OS_LD, acc, gq, tq);
+    }
+    __syncthreads();  // the tile's outputs are staged, and every warp is done reading g
+    {
+      const int x0 = (tile % tiles_x) * T::TW, y0 = (tile / tiles_x % tiles_y) * C2_TH;
+      const int b = tile / (tiles_x * tiles_y);
+      for (int v = tid; v < C2_TH * T::TW * 4; v += THREADS) {
+        const int q = v / 4, kq = v % 4;
+        const int ty = q / T::TW, tx = q % T::TW;
+        const int oy = y0 + ty, ox = x0 + tx;
+        if (oy < H && ox < W)
+          *reinterpret_cast<uint4*>(out + ((size_t)(b * H + oy) * W + ox) * GROWTH + 8 * kq) =
+              *reinterpret_cast<const uint4*>(os + (ty * 16 + tx) * C2_OS_LD + 8 * kq);
+      }
+    }
+    __syncthreads();  // os and the stage are free for the tile after next
+  }
+  cp_async_wait<0>();
+}
+
+// blocks for a persistent kernel: as many as the card runs at once, capped
+// per SM, and no more than there are tiles
+template <typename Kernel>
+int persistent_grid(Kernel kernel, size_t smem, long long ntiles, int max_per_sm, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (int err = (int)cudaGetDevice(&dev)) return err;
+  if (int err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return err;
+  if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) return err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (per_sm > max_per_sm) per_sm = max_per_sm;
+  const long long blocks = (long long)sms * per_sm;
+  *grid = (int)(ntiles < blocks ? ntiles : blocks);
+  return 0;
+}
+
+template <int MI>
+int launch_mm(const void* a, const void* bt, void* y, int m, cudaStream_t stream) {
+  if (int err = set_smem(probe_mm_kernel<MI>, mm_smem<MI>())) return err;
+  int grid = 0;
+  if (int err = persistent_grid(probe_mm_kernel<MI>, mm_smem<MI>(), (m + 64 * MI - 1) / (64 * MI), 8, &grid)) return err;
+  probe_mm_kernel<MI><<<grid, THREADS, mm_smem<MI>(), stream>>>((const bf16*)a, (const bf16*)bt, (bf16*)y, m);
+  return (int)cudaGetLastError();
+}
+
+template <bool PACKED>
+int launch_conv2(const void* g, const void* w2r, void* out, int B, int H, int W, cudaStream_t stream) {
+  typedef Conv2Tile<PACKED> T;
+  if (int err = set_smem(probe_conv2_kernel<PACKED>, T::SMEM)) return err;
+  const long long ntiles = (long long)B * ((H + C2_TH - 1) / C2_TH) * ((W + T::TW - 1) / T::TW);
+  int grid = 0;
+  if (int err = persistent_grid(probe_conv2_kernel<PACKED>, T::SMEM, ntiles, 1, &grid)) return err;
+  probe_conv2_kernel<PACKED><<<grid, THREADS, T::SMEM, stream>>>((const bf16*)g, (const bf16*)w2r, (bf16*)out, B, H, W);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point returns a CUDA error code (0 = success): that of its
+// set-up calls, or cudaGetLastError() after its launch. All tensors are
+// contiguous bf16 and 16-byte aligned unless said otherwise.
+
+// a (m,128), bt = B transposed (128,128), y (m,128); tile_rows 64, 128 or 256
+int fdgan_probe_mm(const void* a, const void* bt, void* y, int m, int tile_rows, void* stream) {
+  switch (tile_rows) {
+    case 64: return launch_mm<1>(a, bt, y, m, (cudaStream_t)stream);
+    case 128: return launch_mm<2>(a, bt, y, m, (cudaStream_t)stream);
+    case 256: return launch_mm<4>(a, bt, y, m, (cudaStream_t)stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// y = 2a over n values; mode 0: plain loads, 1: the cp.async ring, 2: the
+// bulk-copy ring
+int fdgan_probe_scale_copy(const void* a, void* y, long long n, int mode, void* stream) {
+  int grid = 0;
+  const long long nchunks = (n / 8 + ST_CHUNK - 1) / ST_CHUNK;
+  if (mode == 1) {
+    if (int err = set_smem(probe_scale_copy_staged_kernel, ST_SMEM)) return err;
+    if (int err = persistent_grid(probe_scale_copy_staged_kernel, ST_SMEM, nchunks > 0 ? nchunks : 1, 2, &grid)) return err;
+    probe_scale_copy_staged_kernel<<<grid, THREADS, ST_SMEM, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
+  } else if (mode == 2) {
+    if (int err = set_smem(probe_scale_copy_bulk_kernel, BULK_SMEM)) return err;
+    if (int err = persistent_grid(probe_scale_copy_bulk_kernel, BULK_SMEM, nchunks > 0 ? nchunks : 1, 2, &grid)) return err;
+    probe_scale_copy_bulk_kernel<<<grid, THREADS, BULK_SMEM, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
+  } else if (mode != 0) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const long long per_block = (long long)THREADS * COPY_UNROLL;
+    const long long nblocks = (n / 8 + per_block - 1) / per_block;
+    if (int err = persistent_grid(probe_scale_copy_kernel, 0, nblocks > 0 ? nblocks : 1, 8, &grid)) return err;
+    probe_scale_copy_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// segs: nseg (1..8) pointers to (npix, widths[i]) arrays, widths multiples of
+// 8 summing to C; a, b fp32 (C); w1t = W1 transposed (128, C); out (npix,128)
+int fdgan_probe_conv1(const void* const* segs, const int* widths, int nseg, const void* a,
+                      const void* b, const void* w1t, void* out, int npix, void* stream) {
+  if (nseg < 1 || nseg > MAX_SEGS) return (int)cudaErrorInvalidValue;
+  Segments s = {};
+  int C = 0;
+  for (int i = 0; i < nseg; ++i) {
+    s.ptr[i] = (const bf16*)segs[i];
+    s.width[i] = widths[i];
+    C += widths[i];
+  }
+  s.n = nseg;
+  if (int err = set_smem(probe_conv1_kernel, C1_SMEM)) return err;
+  probe_conv1_kernel<<<(npix + C1_ROWS - 1) / C1_ROWS, THREADS, C1_SMEM, (cudaStream_t)stream>>>(
+      s, (const float*)a, (const float*)b, (const bf16*)w1t, (bf16*)out, npix, C);
+  return (int)cudaGetLastError();
+}
+
+// g (B,H,W,128), w2r (9,32,128), out (B,H,W,32); packed != 0 takes the
+// tap-packed body
+int fdgan_probe_conv2(const void* g, const void* w2r, void* out, int B, int H, int W, int packed,
+                      void* stream) {
+  return packed ? launch_conv2<true>(g, w2r, out, B, H, W, (cudaStream_t)stream)
+                : launch_conv2<false>(g, w2r, out, B, H, W, (cudaStream_t)stream);
+}
+
+}  // extern "C"

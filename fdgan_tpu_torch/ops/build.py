@@ -4,9 +4,9 @@ The sources under ``fdgan_tpu_torch/csrc`` are compiled at first use with
 ``nvcc``, one process per source, all started together, and linked into
 one shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``build/kernels/<hash>/`` at the root of the checkout
-(``FDGAN_KERNEL_DIR`` overrides it), keyed by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads the library
-already built. Nothing here runs at import.
+(``FDGAN_KERNEL_DIR`` overrides it), keyed by a hash of the sources, the
+headers they include and the flags, so an edited source rebuilds and an
+unchanged one loads the library already built. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -22,11 +22,12 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("dense_layer.cu", "freq_filters.cu")
+SOURCES = ("dense_layer.cu", "freq_filters.cu", "probes.cu")
+HEADERS = ("mma_bf16.cuh",)  # included by the sources: part of the build's hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (all return an int: cudaGetLastError() after launch)
 _SIGNATURES = {
     "fdgan_dense_layer_f32": [_P] * 8 + [_I] * 4 + [_P],
@@ -36,6 +37,10 @@ _SIGNATURES = {
     "fdgan_h_stats_rows": [],
     "fdgan_freq_filters_f32": [_P] * 3 + [_I] * 3 + [_P],
     "fdgan_freq_filters_bf16": [_P] * 3 + [_I] * 3 + [_P],
+    "fdgan_probe_mm": [_P] * 3 + [_I] * 2 + [_P],
+    "fdgan_probe_scale_copy": [_P, _P, _L, _I, _P],
+    "fdgan_probe_conv1": [_P, _P, _I] + [_P] * 4 + [_I, _P],
+    "fdgan_probe_conv2": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -62,7 +67,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -96,10 +96,11 @@ def create_train_state(
     decay_every: int = 0,
     decay_start: int = 0,
     clip_grad: float = 0.0,
-    device=None,
+    device="cuda",
 ) -> Tuple[TrainState, Transform, Transform]:
-    """G and D with torch-style random weights from ``seed`` (G from
-    ``seed``, D from ``seed + 1``), fresh Adams, and the two transforms.
+    """G and D on ``device`` (the card unless asked otherwise) with
+    torch-style random weights from ``seed`` (G from ``seed``, D from
+    ``seed + 1``), fresh Adams, and the two transforms.
     ``decay_every`` = 0 keeps the learning rates constant; ``decay_start``
     delays the decay."""
     g = FDGAN(device=device, generator=torch.Generator().manual_seed(seed))

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, serving path and train step on the card.
+"""The port's CUDA kernels, serving path, train step and kernel probes on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: the
 kernels have no CPU mode. The module imports neither JAX nor the JAX
@@ -17,8 +17,9 @@ import torch
 from fdgan_tpu_torch.losses.composite import LossWeights
 from fdgan_tpu_torch.models.densenet import DenseBlock
 from fdgan_tpu_torch.models.fdgan import FDGAN
-from fdgan_tpu_torch.ops import dense, filters, freq
+from fdgan_tpu_torch.ops import dense, filters, freq, probes
 from fdgan_tpu_torch.serve import InferenceEngine
+from fdgan_tpu_torch.tools import probes as probe_tool
 from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -212,3 +213,64 @@ def test_prof_train_reports_every_phase(cuda, capsys):
     assert all(v > 0 for v in rec["phases"].values())
     assert rec["step"]["device_ms"] > 0 and rec["step"]["device_ms"] < 2 * rec["step"]["wall_ms"]
     assert rec["top"] and rec["step"]["device_events"] > 0
+
+
+@pytest.mark.parametrize("size", ["full", "ragged", "tiny"])
+@pytest.mark.parametrize("name", list(probe_tool.PROBES))
+def test_probe_kernel_matches_plain(cuda, name, size):
+    """Each probe kernel against its plain version at the probes' own size
+    (2²¹ rows; 8×512×512), at M = 2²¹ − 24 and a 120×200 image, and at a few
+    hundred values; tolerances and their reasons are in tools/probes.py."""
+    probes.reset_launch_counts()
+    probe_tool.check(name, size, device=cuda)
+    assert probes.launches[name] == 1 and sum(probes.launches.values()) == 1
+
+
+@pytest.mark.parametrize("tile_rows", probes.MM_TILES)
+def test_probe_mm_row_tiles_match_plain(cuda, tile_rows):
+    a, b = probe_tool.make_mm("ragged", np.random.default_rng(1), cuda)
+    probe_tool.compare(probes.probe_mm(a, b, tile_rows), probes.mm_reference(a, b), probe_tool.PRODUCT_TOL, "probe_mm")
+    assert probes.probe_mm(a[:40], b, tile_rows).shape == (40, 128)  # fewer rows than one tile
+
+
+@pytest.mark.parametrize("size", ["ragged", "tiny"])
+def test_probe_conv2_bodies_agree(cuda, size):
+    """taps9 and packed add the nine terms in different orders: one bf16 step."""
+    g, w2 = probe_tool.make_conv2(size, np.random.default_rng(2), cuda)
+    probe_tool.compare(probes.conv2(g, w2, "packed"), probes.conv2(g, w2, "taps9"), probe_tool.PRODUCT_TOL, "conv2")
+
+
+@pytest.mark.parametrize("widths", [(160,), (64, 32, 32, 32), (8,) * 8, (24, 104)])
+def test_probe_conv1_segmentations_agree(cuda, widths):
+    """The same 160 (or 64, or 128) channels cut differently give the same result bit for bit:
+    the segments change the reads, not the arithmetic."""
+    segs, a, b, w1 = probe_tool.make_conv1("ragged", np.random.default_rng(3), cuda, widths)
+    got = probes.conv1_segments(segs, a, b, w1)
+    mono = probes.conv1_segments([torch.cat(segs, dim=-1)], a, b, w1)
+    assert torch.equal(got, mono)
+    probe_tool.compare(got, probes.conv1_reference(segs, a, b, w1), probe_tool.CONV1_TOL, "conv1")
+
+
+def test_probe_wrappers_launch_or_raise_on_cuda(cuda):
+    a = torch.zeros(64, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        probes.scale_copy(a.float())
+    with pytest.raises(ValueError, match="aligned"):
+        probes.scale_copy_staged(torch.zeros(64 * 128 + 4, device=cuda, dtype=torch.bfloat16)[4:])
+    with pytest.raises(ValueError, match="tile_rows"):
+        probes.probe_mm(a, torch.zeros(128, 128, device=cuda, dtype=torch.bfloat16), tile_rows=512)
+    with pytest.raises(ValueError, match="x on cuda"):
+        probes.probe_mm(a, torch.zeros(128, 128, dtype=torch.bfloat16))
+    y = probes.scale_copy(torch.ones(13, device=cuda, dtype=torch.bfloat16))  # fewer values than two vectors
+    assert y.tolist() == [2.0] * 13
+
+
+def test_probe_tool_prints_rows_and_answers(cuda, capsys):
+    assert probe_tool.main(["--size", "ragged"]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()[1:]]
+    rows = [r for r in lines if "name" in r]
+    assert [r["name"] for r in rows] == list(probe_tool.PROBES)
+    for r in rows:
+        assert r["ms"] > 0 and r["plain_ms"] > 0 and 0 < r["share"] and r["bound_by"] in ("bytes", "operations")
+        assert "NVIDIA" in r["card"] and r["device"] == torch.cuda.get_device_name(0)
+    assert len([r for r in lines if "question" in r]) == 7  # P1, P2/P3b, P3a, P4, P5 Q1-Q3

@@ -83,7 +83,7 @@ def parity():
             "g": _sd(jnew.g_params), "d": _sd(jnew.d_params),
             "grads": {"g": _sd(jnew.g_opt[0]), "d": _sd(jnew.d_opt[0])}}
 
-    state, tx_g, tx_d = create_train_state(0)
+    state, tx_g, tx_d = create_train_state(0, device="cpu")
     state.g.load_state_dict(g0, strict=True)
     state.d.load_state_dict(d0, strict=True)
     grads = {"g": {}, "d": {}}
@@ -181,7 +181,7 @@ def test_dead_parameters_do_not_move(parity):
 
 
 def test_gd_steps_with_image_pool():
-    state, tx_g, tx_d = create_train_state(0)
+    state, tx_g, tx_d = create_train_state(0, device="cpu")
     g_step, d_step = make_gd_steps(tx_g, tx_d, LossWeights(perceptual=0.0))
     pool = ImagePool(pool_size=2, seed=0)
     haze, gt = (torch.from_numpy(a) for a in _batch(b=1))
@@ -196,7 +196,7 @@ def test_gd_steps_with_image_pool():
 
 
 def test_contextual_raises_until_ported():
-    _, tx_g, tx_d = create_train_state(0)
+    _, tx_g, tx_d = create_train_state(0, device="cpu")
     with pytest.raises(NotImplementedError, match="contextual"):
         make_train_step(tx_g, tx_d, LossWeights(contextual=1.0))
 
@@ -214,7 +214,7 @@ def test_schedule_is_evaluated_at_the_update_count():
     """As tests/test_train.py checks for optax: with decay_every=4 and
     decay_start=2 the lr of the first three updates is 1e-3, the fourth's
     0.75e-3; Adam of a constant gradient moves a weight by lr."""
-    _, tx_g, _ = create_train_state(0, lr_g=1e-3, decay_every=4, decay_start=2)
+    _, tx_g, _ = create_train_state(0, lr_g=1e-3, decay_every=4, decay_start=2, device="cpu")
     w = torch.nn.Parameter(torch.ones(4))
     opt = torch.optim.Adam([w], lr=1.0, betas=(0.5, 0.999), eps=1e-8)
     moves = []
