@@ -10,7 +10,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    the kernels of fdgan_tpu_torch/csrc built from source;
 2. kernels against their plain twins at the dense-layer shapes of the
    8×512² serving path and of the 4×256² train path (fp32 without TF32,
-   and bf16), with CUDA-event times;
+   and bf16), with CUDA-event times; in bf16 K1 (wgmma) is also held against
+   and timed beside its earlier mma.sync body;
 3. the full-width FDGAN generator (random weights, seed 0) at 8×512²:
    the kernel path against the plain path in fp32 for both BN modes, the
    bf16 PSNR check, the launch counts per forward, and img/s in bf16;
@@ -26,10 +27,12 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    turns, with img/s, peak memory and the launches per step (counters
    zeroed just before, read just after), and 3 split G/D steps through an
    ImagePool;
-6. probes: each of the seven probe kernels (csrc/probes.cu) against its plain
-   version at its full shape (2²¹ rows of 128; 8×512×512 images) and at a
-   ragged one, every row tile of probe_mm, the two conv2 bodies against
-   each other; then the path, fdgan_tpu_torch.tools.probes.run() as
+6. probes: the wgmma self-check (one tile through the helpers of
+   csrc/wgmma_bf16.cuh against torch.matmul), each of the eight probe kernels
+   (csrc/probes.cu) against its plain version at its full shape (2²¹ rows of
+   128; 8×512×512 images) and at a ragged one, every row tile of probe_mm,
+   the conv2 bodies against each other, what one wgmma costs an SM; then
+   the path, fdgan_tpu_torch.tools.probes.run() as
    `python -m fdgan_tpu_torch.tools.probes` runs it, with the probes'
    launch counters zeroed just before and read just after: one timed JSON
    line per probe and one line per question the Pallas probes asked.
@@ -112,6 +115,28 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, launches: int = 20) -> float:
+    """ms per fn() on the device alone: the calls are queued behind products
+    that keep the card busy for longer than the host takes to queue them
+    (~4 ms against 20 × ~0.1 ms), so the time between the two events holds no
+    wait for the host. What a small kernel costs when a forward has queued
+    ahead; cuda_ms above includes the wrapper's host time per launch."""
+    import torch
+
+    fn()
+    busy = torch.empty((8192, 8192), device="cuda", dtype=torch.bfloat16).normal_()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        busy @ busy
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def exact_fp32():
     """cuDNN and matmul without TF32."""
     import torch
@@ -134,7 +159,11 @@ def phase_device():
     build.load()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        # C7518 and its like: the compiler serialised wgmma products. C7519 (it added the
+        # warpgroup.arrive before products whose accumulators it had just written) is routine.
+        if "(C7519)" in line:
+            continue
+        if "registers" in line or "spill" in line or "error" in line.lower() or "(C75" in line:
             log(f"  ptxas: {line.strip()}")
 
 
@@ -190,6 +219,14 @@ def phase_kernels():
             torch.cuda.synchronize()
             tol = K1_TOL_F32 if dtype == torch.float32 else K1_TOL_BF16
             e1 = (f_k.float() - f_p.float()).abs().max().item()
+            ok_mma, e_mma = True, None
+            if dtype == torch.bfloat16:
+                # the two bodies round at the same points and sum in fp32: within one
+                # bf16 step of each other wherever the sums' orders differ
+                f_m = dense._launch_k1_mma(x, a1, b1, w1, a2, b2, w2)
+                e_mma = (f_k.float() - f_m.float()).abs().max().item()
+                ok_mma = torch.allclose(f_k.float(), f_m.float(), atol=1e-4, rtol=2.0**-7)
+                del f_m
             e2 = max((m_k - m_p).abs().max().item(), (v_k - v_p).abs().max().item())
             ok1 = torch.allclose(f_k.float(), f_p.float(), **tol)
             ok2 = torch.allclose(m_k, m_p, **K2_MEAN_TOL) and torch.allclose(v_k, v_p, **K2_VAR_TOL)
@@ -204,13 +241,23 @@ def phase_kernels():
                     "k2_ms": cuda_ms(lambda: dense.h_batch_stats(x, a1, b1, w1)),
                     "k2_plain_ms": cuda_ms(lambda: dense.h_stats_reference(x, a1, b1, w1)),
                 }
+                if dtype == torch.bfloat16:  # old body and new in turns, in one run
+                    t["k1_mma_ms"] = cuda_ms(lambda: dense._launch_k1_mma(x, a1, b1, w1, a2, b2, w2))
+                    t["k1_ms"] = (t["k1_ms"] + cuda_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))) / 2
+                    t["k1_mma_ms"] = (t["k1_mma_ms"] + cuda_ms(lambda: dense._launch_k1_mma(x, a1, b1, w1, a2, b2, w2))) / 2
+                    # on the device alone (the kernel and the wrapper's two weight-layout copies): the
+                    # wrapper's host time, ~0.1 ms, is inside the single-launch times above
+                    t["k1_device_ms"] = device_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))
+                    t["k1_mma_device_ms"] = device_ms(lambda: dense._launch_k1_mma(x, a1, b1, w1, a2, b2, w2))
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                   "k1_max_abs_err": e1, "k2_max_abs_err": e2, **t, **dense_bounds(x, a1, b1, w1, a2, b2, w2)}
+                   "k1_max_abs_err": e1, "k2_max_abs_err": e2, "k1_vs_mma_max_abs_err": e_mma, **t,
+                   **dense_bounds(x, a1, b1, w1, a2, b2, w2)}
             rows.append(row)
             log(json.dumps(row))
-            if not (ok1 and ok2):
+            if not (ok1 and ok2 and ok_mma):
                 raise AssertionError(f"kernel disagrees with its twin at {shape} {dtype}: "
-                                     f"K1 ok={ok1} err={e1}, K2 ok={ok2} err={e2}")
+                                     f"K1 ok={ok1} err={e1}, K2 ok={ok2} err={e2}, K1 vs its mma.sync body "
+                                     f"ok={ok_mma} err={e_mma}")
             del x, f_k, f_p
             torch.cuda.empty_cache()
     return rows, worst
@@ -567,6 +614,8 @@ def phase_probes():
     from fdgan_tpu_torch.ops import probes as ops
     from fdgan_tpu_torch.tools import probes as tool
 
+    selfcheck = tool.wgmma_selfcheck()
+    log(f"wgmma self-check vs torch.matmul (fp32): max_abs_err {selfcheck:.3e} (tol 1e-3)")
     errs = {}
     for name in tool.PROBES:  # tolerances: tools/probes.py PRODUCT_TOL, CONV1_TOL, COPY_TOL
         by_size = {size: tool.check(name, size) for size in ("full", "ragged")}
@@ -579,10 +628,13 @@ def phase_probes():
         log(f"probe_mm row tile {tile} vs plain: max_abs_err {err}")
     del a, b, want
     g, w2 = tool.make_conv2("ragged", np.random.default_rng(2), "cuda")
-    err = tool.compare(ops.conv2(g, w2, "packed"), ops.conv2(g, w2, "taps9"), tool.PRODUCT_TOL, "conv2 packed vs taps9")
-    log(f"probe_conv2 packed vs taps9: max_abs_err {err}")
-    del g, w2
+    taps9 = ops.conv2(g, w2, "taps9")
+    for mode in ("packed", "wgmma"):
+        err = tool.compare(ops.conv2(g, w2, mode), taps9, tool.PRODUCT_TOL, f"conv2 {mode} vs taps9")
+        log(f"probe_conv2 {mode} vs taps9: max_abs_err {err}")
+    del g, w2, taps9
     torch.cuda.empty_cache()
+    log(json.dumps({"wgmma_rates": tool.wgmma_rates()}))
 
     ops.reset_launch_counts()
     rows = tool.run("cuda", "full", on_row=lambda row: log(json.dumps(row)))
@@ -635,6 +687,8 @@ def main() -> int:
          "launches_by_path": by_path("k1"),
          "max_abs_err": worst["k1"], "ms": timed["k1_ms"], "plain_ms": timed["k1_plain_ms"],
          "bound_ms": timed["k1_bound_ms"], "bound_by": timed["k1_bound_by"], "library_ms": None,
+         "mma_ms": timed["k1_mma_ms"],  # the mma.sync body the wgmma kernel replaced, same run
+         "device_ms": timed["k1_device_ms"], "mma_device_ms": timed["k1_mma_device_ms"],
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
         {"name": "h_batch_stats (K2)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",

@@ -23,26 +23,46 @@
 // byte at C = 64 (dense block 1), above the card's ridge of ~295: block 1 is
 // bound by tensor-core throughput; at C = 256..992 (block 3) it falls to
 // 240..160 FLOP/B, below the ridge: memory-bound. The design keeps h and g on
-// chip (the Pallas kernel's point), reads x once per block plus a one-pixel
-// halo ring (180 GEMM1 rows for 128 outputs), and writes only the 32 new
+// chip (the Pallas kernel's point), reads x once per tile plus a one-pixel
+// halo ring (180 rows of t.W1 for 128 outputs), and writes only the 32 new
 // channels.
-// - bf16: both GEMMs run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate), fragments read straight from padded shared-memory rows;
-//   operands are staged in 16-byte vectors with the next chunk prefetched
-//   into registers, and two blocks share an SM. At the encoder's shapes this
-//   version reaches 9-13 % of the bf16 roofline on an H100 80GB HBM3 at
-//   700 W (PERF.md). The likely limits, not yet profiled per instruction:
-//   mma.sync issue (wgmma is Hopper's full rate), the shared-memory fragment
-//   loads, and the block-wide barriers between stages.
+// - bf16 K1 (dense_layer_bf16_kernel): both products are wgmma, Hopper's
+//   warpgroup products, whose operands the tensor core reads from shared
+//   memory itself (wgmma_bf16.cuh). Its mma.sync predecessor (kept below as
+//   dense_layer_bf16_mma_kernel to time old against new) was held at 9-14 %
+//   of the bound by what surrounds the products: every warp loaded its own A
+//   and B fragments from shared memory (1,536 bytes per 16,384 FLOP, three
+//   times what shared memory delivers in the tensor cores' time), W1 and W2
+//   were restaged per 128 outputs with two block barriers per chunk and per
+//   tap, and 16 warps per SM had little to hide the loads behind. The wgmma
+//   kernel is persistent (W2 staged once per block, all nine taps resident),
+//   takes the 3x3 conv as 24 products of N = 96 per 64 rows with the tap
+//   shift as an address, brings W1 in by bulk copies that no thread's load
+//   queue sees, and has one block barrier per 64-channel step. On an H100
+//   80GB HBM3 at 700 W it takes 0.4-0.7 of the mma.sync body's time on the
+//   device at the encoder's shapes (PERF.md has the table) and reaches 30 %
+//   of the bound at 8x512x512x64. What holds it now, from clock64 stamps per
+//   phase: the products need ~45 % of a tile's time at C = 64 and ~30 % of a
+//   step's at large C. The rest is the warps' own work (affine, ReLU and
+//   rounding of t, the epilogue of g, the conv's shift-add), which all
+//   twelve warps do at the same time, and x arriving as 16-byte loads per
+//   thread; a step's products, started before that work, are not done until
+//   well after it, so the work also slows them (every instruction taken out
+//   of stage_t showed in the kernel's time).
+// - bf16 K2 and the conv1 probe: mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate), fragments read straight from padded shared-memory rows
+//   (gemm1_bf16 of mma_bf16.cuh), operands staged in 16-byte vectors with the
+//   next chunk prefetched into registers, two blocks per SM.
 // - fp32: plain FMAs on the CUDA cores, so fp32 keeps full precision (no
 //   TF32); its bound is the shared-memory read rate of the register-tiled
 //   GEMM loops. It serves checkpoint-parity runs, not the serving default.
 //
-// Tiles: one 256-thread block per 8x16 output tile (K1) or per 192 flat
-// pixels (K2); x is staged 32 channels at a time; the ragged last chunk of C
-// is zero-filled. Both kernels take NHWC-contiguous x.
+// Tiles: an 8x16 output tile (K1; a 256-thread block each in fp32, walked by
+// persistent 384-thread blocks in bf16) or 192 flat pixels per 256-thread
+// block (K2); the ragged last chunk of C is zero-filled. All take
+// NHWC-contiguous x.
 
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -281,9 +301,9 @@ static_assert(NPIX == 3 * 64 && NPIX * (KC / 8) == 3 * THREADS && INTER * (KC / 
                   GROWTH * (INTER / 8) == 2 * THREADS,
               "each thread stages 3 x vectors, 2 W1 vectors and 2 W2 vectors");
 
-// K1, bf16. Grid (ceil(W/16), ceil(H/8), B).
+// K1, bf16, the mma.sync body. Grid (ceil(W/16), ceil(H/8), B).
 __global__ void __launch_bounds__(THREADS, 2)
-dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
+dense_layer_bf16_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
                         const float* __restrict__ b1, const bf16* __restrict__ w1t,
                         const float* __restrict__ a2, const float* __restrict__ b2,
                         const bf16* __restrict__ w2r, bf16* __restrict__ out, int H, int W, int C) {
@@ -376,6 +396,300 @@ dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1
   }
 }
 
+// --- K1 bf16 on wgmma ----------------------------------------------------------
+//
+// One persistent block of three warpgroups (384 threads) per SM walks the
+// 8 x 16 output tiles (TileWalk). Per tile:
+//   1. t.W1 for the 180 halo pixels (192 rows: warpgroup w owns rows 64w ..
+//      64w+63) as wgmma m64n128k16, 64 channels of x per step. A thread
+//      loads 16-byte vectors of x, applies the affine and ReLU in registers
+//      and stores t into a two-stage ring in the descriptor layout. The W1
+//      chunk arrives in the ring by one bulk copy from w1p, which has that
+//      layout in device memory, and is read by the tensor core, not by every
+//      warp; with C <= 128 the ring holds all of W1 and it is copied once per
+//      block. x is loaded two chunks ahead into registers, W1 one chunk
+//      ahead, and a step's products run while the next step's t is computed:
+//      one block barrier per step.
+//   2. g = round(relu(a2*h + b2)), 0 outside the image, from the accumulators
+//      straight into the flat-index buffer of wgmma_bf16.cuh, while the next
+//      tile's first x is already on its way.
+//   3. the 3x3 conv as 24 wgmma m64n96k16 per warpgroup on g and the resident
+//      W2 (conv2_flat_mma), the next tile's first t staged under them; then
+//      the three taps' shares of each output are brought together
+//      (conv2_flat_share, a block barrier, conv2_flat_combine).
+//   4. the 32 channels leave through shared memory in 16-byte vectors, each
+//      warpgroup storing the rows it staged.
+// Three block barriers per tile plus one per step keep the stages in order; a
+// stage of the ring is rewritten only after every warpgroup waited for the
+// products that read it (wgmma_wait<0> before the barrier that precedes the
+// write). Every wait for products stands in straight code right after they
+// are started or at a step's barrier: with products in flight across a loop or
+// a branch the compiler serialises them all (ptxas C7518), which a version
+// with mbarrier rings and the conv left running under the next tile's steps
+// ran into, 30 % slower than this one. a1, b1, a2, b2 are staged once.
+// Shared memory: W2 72 KB, g 58 KB, the ring 80 KB, the affines 9 KB, the
+// conv's hand-over rows 5 KB: 224 KB of the 227 a block may have.
+
+constexpr int K1_TW = 16;
+typedef FlatTile<K1_TW> K1T;
+constexpr int K1_WGS = K1T::M1;                      // 3 warpgroups
+constexpr int K1_THREADS = WG_THREADS * K1_WGS;      // 384
+constexpr int K1_ROWS = 64 * K1_WGS;                 // 192 rows of t and h
+constexpr int K1_KC = 64;                            // channels of x per step
+constexpr int K1_MAX_C = 1024;                       // a1, b1 are staged in shared memory up to this C
+constexpr uint32_t K1_T_PLANE = (K1_ROWS + 1) * 16;  // planes padded by 16 bytes: conflict-free stores
+constexpr uint32_t K1_W1_PLANE = INTER * 16;         // W1 arrives by bulk copy, in the layout of device memory
+constexpr uint32_t K1_T_BYTES = (K1_KC / 8) * K1_T_PLANE;
+constexpr uint32_t K1_STAGE = K1_T_BYTES + (K1_KC / 8) * K1_W1_PLANE;
+constexpr uint32_t K1_AB_BYTES = (2 * K1_MAX_C + 2 * INTER) * 4;
+constexpr uint32_t K1_XCH_BYTES = (K1_THREADS / 32 + 1) * XCH_WARP * 4;
+constexpr size_t K1_SMEM = W2_BYTES + K1T::G_BYTES + 2 * (size_t)K1_STAGE + K1_AB_BYTES + K1_XCH_BYTES + 2 * sizeof(uint64_t);
+static_assert(K1T::M2 == K1_WGS, "a warpgroup per 64-row tile of the conv, and the conv's barrier is the block's");
+static_assert(K1T::OS_BYTES <= K1_T_BYTES, "the staged outputs take the place of a t stage");
+static_assert(K1_SMEM <= 232448, "a block's shared memory");
+static_assert(K1_ROWS * (K1_KC / 8) == 4 * K1_THREADS, "each thread stages 4 vectors of x per step");
+
+__global__ void __launch_bounds__(K1_THREADS, 1)
+dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
+                        const float* __restrict__ b1, const bf16* __restrict__ w1p,
+                        const float* __restrict__ a2, const float* __restrict__ b2,
+                        const bf16* __restrict__ w2r, bf16* __restrict__ out, int B, int H, int W, int C) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  unsigned char* w2s = smem_wg;
+  unsigned char* gs = w2s + W2_BYTES;            // g of the halo tile, [k / 8][flat index][8]
+  unsigned char* ring = gs + K1T::G_BYTES;       // [2] stages: t [k / 8][row][8], then W1 [k / 8][n][8]
+  unsigned char* os = ring + K1_STAGE;           // staged outputs, in the second stage's t
+  float* abs_ = reinterpret_cast<float*>(ring + 2 * K1_STAGE);  // a1 | b1 | a2 | b2
+
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, lw = tid % WG_THREADS;
+  const int warp = lw / 32, gq = lw % 32 / 4, tq = lw % 4;
+  const int oct = lw % 8;                        // the thread stages channels 8*oct .. of rows srow + 16*r
+  const int srow = 64 * wg + lw / 8;
+  const int tiles_x = (W + K1_TW - 1) / K1_TW, tiles_y = (H + K1T::TH - 1) / K1T::TH;
+  const int ntiles = B * tiles_y * tiles_x;
+  const int nchunks = (C + K1_KC - 1) / K1_KC;
+  const bool w1_resident = nchunks <= 2;  // the ring's two stages hold all of W1: staged once, not per tile
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const bool ab_staged = C <= K1_MAX_C;
+  const float* a1s = ab_staged ? abs_ : a1;
+  const float* b1s = ab_staged ? abs_ + K1_MAX_C : b1;
+  const float* a2s = abs_ + 2 * K1_MAX_C;
+  const float* b2s = a2s + INTER;
+  float* xch = abs_ + 2 * K1_MAX_C + 2 * INTER;  // rows handed from warp to warp (conv2_flat_share)
+  uint64_t* w1_bar = reinterpret_cast<uint64_t*>(xch + K1_XCH_BYTES / 4);  // [2]: a stage's W1 has landed
+
+  int gp[4];  // device-memory pixel index of the thread's four staging rows, -1 outside the image
+  auto tile_pixels = [&](int tx, int ty, int b) {
+    const int x0 = tx * K1_TW, y0 = ty * K1T::TH;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = srow + 16 * r;
+      const int iy = y0 - 1 + row / K1T::HW, ix = x0 - 1 + row % K1T::HW;
+      gp[r] = (row < K1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W) ? (b * H + iy) * W + ix : -1;
+    }
+  };
+  auto fetch = [&](uint4 (&xr)[4], int c0) {
+    const int c = c0 + 8 * oct;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      xr[r] = (c < C && gp[r] >= 0) ? __ldcg(reinterpret_cast<const uint4*>(x + (size_t)gp[r] * C + c)) : zero;
+  };
+  // Chunk ci of W1 into a stage, by one thread: w1p (C / 8, 128, 8) is the stage's own
+  // layout, so a chunk is one bulk copy of up to 16 KB that no thread's load queue
+  // sees (as 16-byte cp.async the copies took ~1,000 clocks a step to send off and land).
+  // A ragged last chunk copies the planes there are; t is 0 past C and what the rest of
+  // the stage holds is finite (zeros at first, then weights), so it multiplies as 0.
+  auto w1_bulk = [&](int ci, int stage) {
+    const int planes = min(K1_KC / 8, C / 8 - ci * (K1_KC / 8));
+    mbarrier_arrive_expect_tx(w1_bar + stage, planes * K1_W1_PLANE);
+    bulk_copy_g2s(ring + stage * K1_STAGE + K1_T_BYTES, w1p + (size_t)ci * (K1_KC / 8) * INTER * 8, planes * K1_W1_PLANE,
+                  w1_bar + stage);
+  };
+  uint32_t w1_parity = 0;  // bit s: the phase of w1_bar[s] to wait for next
+
+  // rows of g past the 192 the epilogue writes feed only results that are dropped; zero them once
+  for (int v = tid; v < (INTER / 8) * (K1T::G_ROWS - K1_ROWS); v += K1_THREADS)
+    *reinterpret_cast<uint4*>(gs + (v / (K1T::G_ROWS - K1_ROWS)) * K1T::G_PLANE +
+                              (K1_ROWS + v % (K1T::G_ROWS - K1_ROWS)) * 16) = zero;
+  if (ab_staged)
+    for (int c = tid; c < C; c += K1_THREADS) {
+      abs_[c] = a1[c];
+      abs_[K1_MAX_C + c] = b1[c];
+    }
+  if (tid < INTER) {
+    abs_[2 * K1_MAX_C + tid] = a2[tid];
+    abs_[2 * K1_MAX_C + INTER + tid] = b2[tid];
+  }
+  for (int v = tid; v < 2 * (K1_KC / 8) * INTER; v += K1_THREADS)
+    *reinterpret_cast<uint4*>(ring + (v / ((K1_KC / 8) * INTER)) * K1_STAGE + K1_T_BYTES + (v % ((K1_KC / 8) * INTER)) * 16) = zero;
+  stage_w2(w2s, w2r, tid, K1_THREADS);
+  cp_async_commit();
+  if (tid == 0) {
+    mbarrier_init(w1_bar, 1);
+    mbarrier_init(w1_bar + 1, 1);
+  }
+
+  uint4 x0r[4], x1r[4];
+  int tile = blockIdx.x;
+  TileWalk at(tile, gridDim.x, tiles_x, tiles_y);  // the tile whose x is loaded next
+  if (tile < ntiles) {
+    tile_pixels(at.tx, at.ty, at.b);
+    fetch(x0r, 0);
+    if (K1_KC < C) fetch(x1r, K1_KC);
+  }
+  cp_async_wait<0>();   // W2 has landed
+  fence_proxy_async();  // the zeros are visible to the bulk copies, W2 to the tensor core's reads
+  __syncthreads();      // a1 .. b2 are staged, the barriers are set up
+  if (tid == 0) {
+    w1_bulk(0, 0);
+    if (nchunks == 2) w1_bulk(1, 1);
+  }
+  if (w1_resident) {
+    mbarrier_wait(w1_bar, 0);
+    if (nchunks == 2) mbarrier_wait(w1_bar + 1, 0);
+  }
+
+  float acc[64];
+  // two bf16 of x -> round(relu(a*x + b)) as two bf16
+  auto affine_relu = [](uint32_t xw, const float* a, const float* b) {
+    return pack_pair_relu(__uint_as_float(xw << 16) * a[0] + b[0], __uint_as_float(xw & 0xffff0000u) * a[1] + b[1]);
+  };
+  // t of chunk ci from xr into stage ci & 1; then xr sets out for the chunk after next.
+  // Straight code (selects, no branches): it also runs under the conv's products.
+  auto stage_t = [&](int ci, uint4 (&xr)[4]) {
+    const int c = ci * K1_KC + 8 * oct;
+    const float4 none = make_float4(0.f, 0.f, 0.f, 0.f);  // channels past C: t = 0 anyway
+    const float4 av[2] = {c < C ? *reinterpret_cast<const float4*>(a1s + c) : none,
+                          c < C ? *reinterpret_cast<const float4*>(a1s + c + 4) : none};
+    const float4 bv[2] = {c < C ? *reinterpret_cast<const float4*>(b1s + c) : none,
+                          c < C ? *reinterpret_cast<const float4*>(b1s + c + 4) : none};
+    const float a[8] = {av[0].x, av[0].y, av[0].z, av[0].w, av[1].x, av[1].y, av[1].z, av[1].w};
+    const float b[8] = {bv[0].x, bv[0].y, bv[0].z, bv[0].w, bv[1].x, bv[1].y, bv[1].z, bv[1].w};
+    unsigned char* ts = ring + (ci & 1) * K1_STAGE + oct * K1_T_PLANE;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const bool ok = c < C && gp[r] >= 0;  // rows outside the image and channels past C stage t = 0
+      uint4 t;
+      t.x = ok ? affine_relu(xr[r].x, a + 0, b + 0) : 0u;
+      t.y = ok ? affine_relu(xr[r].y, a + 2, b + 2) : 0u;
+      t.z = ok ? affine_relu(xr[r].z, a + 4, b + 4) : 0u;
+      t.w = ok ? affine_relu(xr[r].w, a + 6, b + 6) : 0u;
+      *reinterpret_cast<uint4*>(ts + (srow + 16 * r) * 16) = t;
+    }
+    if (ci + 2 < nchunks) fetch(xr, (ci + 2) * K1_KC);  // in flight over the next step
+  };
+  // the rest of step ci: the products on its staged t and W1 started
+  auto start_products = [&](int ci) {
+    const int stage = ci & 1;
+    wgmma_wait<0>();      // the last step's products are done: its stage may be rewritten after the barrier
+    if (!w1_resident) {   // this chunk of W1 has landed
+      mbarrier_wait(w1_bar + stage, w1_parity >> stage & 1);
+      w1_parity ^= 1u << stage;
+    }
+    fence_proxy_async();  // t is visible to the tensor core's reads
+    __syncthreads();
+    if (!w1_resident && ci + 1 < nchunks && tid == 0) w1_bulk(ci + 1, stage ^ 1);
+    wgmma_fence();
+    const uint64_t da = wgmma_desc(smem_u32(ring + stage * K1_STAGE) + 64 * wg * 16, K1_T_PLANE, CORE_BYTES);
+    const uint64_t db = wgmma_desc(smem_u32(ring + stage * K1_STAGE + K1_T_BYTES), K1_W1_PLANE, CORE_BYTES);
+#pragma unroll
+    for (int ks = 0; ks < K1_KC / 16; ++ks)
+      wgmma_m64n128k16(acc, desc_advance(da, ks * 2 * K1_T_PLANE), desc_advance(db, ks * 2 * K1_W1_PLANE), (ci | ks) != 0);
+    wgmma_commit();
+  };
+
+  stage_t(0, x0r);  // the first tile's first chunk; every later tile's is staged under the conv before it
+  for (; tile < ntiles; tile += gridDim.x) {
+    const int x0 = at.tx * K1_TW, y0 = at.ty * K1T::TH, b = at.b;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    wgmma_fence_acc(acc);
+    for (int ci = 0; ci < nchunks; ci += 2) {
+      if (ci > 0) stage_t(ci, x0r);
+      start_products(ci);
+      if (ci + 1 < nchunks) {
+        stage_t(ci + 1, x1r);
+        start_products(ci + 1);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_acc(acc);
+
+    // x0r and x1r are free: the next tile's first x sets out now and lands under the
+    // epilogue (sent off just before the conv, the loads held its products up)
+    at.advance();
+    if (tile + (int)gridDim.x < ntiles) {
+      tile_pixels(at.tx, at.ty, at.b);
+      fetch(x0r, 0);
+      if (K1_KC < C) fetch(x1r, K1_KC);
+    }
+
+    // g = round(relu(a2*h + b2)), exactly 0 outside the image: that is conv2's
+    // zero padding (a zero x there would leak relu(b1), relu(b2))
+    {
+      bool in[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = 64 * wg + 16 * warp + gq + 8 * half;
+        const int iy = y0 - 1 + row / K1T::HW, ix = x0 - 1 + row % K1T::HW;
+        in[half] = row < K1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W;
+      }
+      // four 8 x 8 blocks of the fragment per store: lane l names row l % 8 of block l / 8,
+      // blocks (plane j, rows +0), (j, +8), (j + 1, +0), (j + 1, +8); a row is 16 bytes of a plane
+      const int lane = lw % 32;
+      const uint32_t grow = smem_u32(gs) + (lane / 16) * K1T::G_PLANE + (64 * wg + 16 * warp + lane % 16) * 16;
+#pragma unroll
+      for (int j = 0; j < INTER / 8; j += 2) {
+        uint32_t v[4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float2 a = *reinterpret_cast<const float2*>(a2s + 8 * (j + jj) + 2 * tq);
+          const float2 bb = *reinterpret_cast<const float2*>(b2s + 8 * (j + jj) + 2 * tq);
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            v[2 * jj + half] = in[half] ? pack_pair_relu(acc[4 * (j + jj) + 2 * half] * a.x + bb.x,
+                                                         acc[4 * (j + jj) + 2 * half + 1] * a.y + bb.y)
+                                        : 0u;
+        }
+        stmatrix_x4(grow + j * K1T::G_PLANE, v);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();  // g is whole; every warpgroup is past its t.W1 products, so the ring is free
+
+    // the next tile's first chunk of W1 sets out while this tile's conv runs
+    if (!w1_resident && tile + (int)gridDim.x < ntiles && tid == 0) w1_bulk(0, 0);
+
+    // A warpgroup per 64-row tile of the conv: all three (K1T::M2 == K1_WGS), so the
+    // block's barrier inside is reached by every thread. The test stays: with
+    // the conv's products in the loop's straight code, ptxas of CUDA 12.9
+    // crashes at -O2 and above.
+    if (wg < K1T::M2) {
+      float acc3[48];
+#pragma unroll
+      for (int i = 0; i < 48; ++i) acc3[i] = 0.f;
+      wgmma_fence_acc(acc3);
+      wgmma_fence();
+      conv2_flat_mma<K1_TW>(acc3, smem_u32(gs), 64 * wg, smem_u32(w2s));
+      wgmma_commit();
+      // under the conv: the next tile's first t (after the last tile: stale values, never read)
+      stage_t(0, x0r);
+      wgmma_wait<0>();
+      wgmma_fence_acc(acc3);
+      float acc2[16];
+      conv2_flat_share(xch, acc3, tid / 32, tid % 32);
+      __syncthreads();
+      conv2_flat_combine(acc2, acc3, xch, tid / 32, tid % 32);
+      conv2_flat_stage<K1_TW>(os, acc2, 64 * wg, lw);
+      warpgroup_sync(wg);
+      conv2_flat_store<K1_TW>(os, out, 64 * wg, b, y0, x0, H, W, lw);
+    }
+    // os is the second stage's t, rows 64 wg .. of it this warpgroup's own: they are next
+    // written in step 1 of the next tile, after step 0's block barrier; g is next
+    // written after every step's barrier, which every thread reaches past its conv
+  }
+}
+
 // K2, bf16. Grid (ceil(npix/192)).
 __global__ void __launch_bounds__(THREADS, 2)
 h_stats_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
@@ -442,8 +756,10 @@ extern "C" {
 // Every entry point returns cudaGetLastError() after its launch (0 = success).
 // x (B,H,W,C) and out (B,H,W,32) are contiguous in the kernel's dtype; a1, b1
 // (C) and a2, b2 (128) are fp32. The f32 kernels take w1 (C,128) and
-// w2 (9*128,32); the bf16 kernels take w1t (128,C) and w2r (9,32,128), and
-// need C % 8 == 0 and 16-byte aligned x, w1t, w2r, a1 and b1.
+// w2 (9*128,32); the bf16 kernels take w2r (9,32,128) and W1 as w1t (128,C),
+// except fdgan_dense_layer_bf16, which takes it as w1p (C/8,128,8), planes of
+// eight input channels: w1p[p][n][k] = W1[8p + k][n]. They need C % 8 == 0
+// and 16-byte aligned x, W1, w2r, a1 and b1.
 
 int fdgan_dense_layer_f32(const void* x, const void* a1, const void* b1, const void* w1,
                           const void* a2, const void* b2, const void* w2, void* out, int B,
@@ -459,9 +775,25 @@ int fdgan_dense_layer_f32(const void* x, const void* a1, const void* b1, const v
 int fdgan_dense_layer_bf16(const void* x, const void* a1, const void* b1, const void* w1,
                            const void* a2, const void* b2, const void* w2, void* out, int B,
                            int H, int W, int C, void* stream) {
-  if (int err = set_smem(dense_layer_bf16_kernel, BF_K1_SMEM)) return err;
+  if (int err = set_smem(dense_layer_bf16_kernel, K1_SMEM)) return err;
+  const long long ntiles = (long long)B * ((H + K1T::TH - 1) / K1T::TH) * ((W + K1_TW - 1) / K1_TW);
+  static int resident[MAX_DEVICES] = {};
+  int grid = 0;
+  if (int err = persistent_grid(dense_layer_bf16_kernel, K1_THREADS, K1_SMEM, ntiles, 1, &grid, resident)) return err;
+  dense_layer_bf16_kernel<<<grid, K1_THREADS, K1_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)a1, (const float*)b1, (const bf16*)w1, (const float*)a2,
+      (const float*)b2, (const bf16*)w2, (bf16*)out, B, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+// the mma.sync body that the wgmma kernel replaced, kept to time old against
+// new in one run; no model path reaches it
+int fdgan_dense_layer_bf16_mma(const void* x, const void* a1, const void* b1, const void* w1,
+                               const void* a2, const void* b2, const void* w2, void* out, int B,
+                               int H, int W, int C, void* stream) {
+  if (int err = set_smem(dense_layer_bf16_mma_kernel, BF_K1_SMEM)) return err;
   const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
-  dense_layer_bf16_kernel<<<grid, THREADS, BF_K1_SMEM, (cudaStream_t)stream>>>(
+  dense_layer_bf16_mma_kernel<<<grid, THREADS, BF_K1_SMEM, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)a1, (const float*)b1, (const bf16*)w1, (const float*)a2,
       (const float*)b2, (const bf16*)w2, (bf16*)out, H, W, C);
   return (int)cudaGetLastError();

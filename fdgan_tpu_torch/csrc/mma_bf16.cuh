@@ -1,7 +1,9 @@
 // Device helpers shared by the bf16 tensor-core kernels of dense_layer.cu and
 // probes.cu: mma.sync m16n8k16 fragments read from padded shared-memory rows,
 // 16-byte asynchronous copies (cp.async), bulk copies with their mbarrier,
-// and the t.W1 product that K1, K2 and the conv1 probe all start with.
+// the t.W1 product that K2, the conv1 probe and the dense layer's mma.sync
+// body start with, and the launch helpers (set_smem, persistent_grid). The
+// wgmma helpers are in wgmma_bf16.cuh.
 //
 // Fragment layout of mma.sync m16n8k16 (bf16 in, fp32 accumulate), for lane
 // = 4*gq + tq of a warp: A holds rows gq and gq+8, k = 2tq, 2tq+1 and
@@ -31,9 +33,18 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// two floats rounded to nearest-even bf16 in one instruction, lo in the low half
 __device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// round(max(lo, 0)), round(max(hi, 0)): the ReLU rides the conversion
+__device__ __forceinline__ uint32_t pack_pair_relu(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
 }
 
 // two bf16 of x -> round(relu(a*x + b)) as two bf16
@@ -212,6 +223,31 @@ __device__ __forceinline__ void gemm1_bf16(XAt x_at, const float* __restrict__ a
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// blocks of ``threads`` for a persistent kernel: as many as the card runs at
+// once, capped per SM, and no more than there are tiles. ``resident``, where
+// given, is the caller's table of that number by device (zeros at first): the
+// occupancy query costs tens of microseconds, which a kernel launched 42
+// times a forward asks once.
+constexpr int MAX_DEVICES = 64;
+
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, size_t smem, long long ntiles, int max_per_sm, int* grid,
+                    int* resident = nullptr) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (int err = (int)cudaGetDevice(&dev)) return err;
+  long long blocks = resident && dev < MAX_DEVICES ? resident[dev] : 0;
+  if (blocks == 0) {
+    if (int err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return err;
+    if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) return err;
+    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+    if (per_sm > max_per_sm) per_sm = max_per_sm;
+    blocks = (long long)sms * per_sm;
+    if (resident && dev < MAX_DEVICES) resident[dev] = (int)blocks;
+  }
+  *grid = (int)(ntiles < blocks ? ntiles : blocks);
+  return 0;
 }
 
 }  // namespace fdgan_dev

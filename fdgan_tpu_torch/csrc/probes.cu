@@ -18,7 +18,7 @@
 // share of the tiles with the next tile's loads (cp.async) in flight under
 // the current tile's products.
 
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -536,26 +536,204 @@ probe_conv2_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w2r, bf1
   cp_async_wait<0>();
 }
 
-// blocks for a persistent kernel: as many as the card runs at once, capped
-// per SM, and no more than there are tiles
-template <typename Kernel>
-int persistent_grid(Kernel kernel, size_t smem, long long ntiles, int max_per_sm, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (int err = (int)cudaGetDevice(&dev)) return err;
-  if (int err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return err;
-  if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) return err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  if (per_sm > max_per_sm) per_sm = max_per_sm;
-  const long long blocks = (long long)sms * per_sm;
-  *grid = (int)(ntiles < blocks ? ntiles : blocks);
-  return 0;
+// -----------------------------------------------------------------------------
+// probe_conv2, third body "wgmma": the same function on Hopper's warpgroup
+// products (wgmma_bf16.cuh has the layout and the reasoning).
+//
+// What held taps9 and packed at 19-20 % of the bound: with mma.sync every warp
+// loads its own A and B fragments from shared memory, 1,536 bytes per 16,384
+// FLOP, three times what the shared memory delivers in the time the tensor
+// cores need for them, and W2 is read again by each of 8 warps. Here the
+// tensor core reads g and W2 from shared memory itself, once per 64 rows, and
+// no fragment load is in the instruction stream.
+//
+// The tile is 8 x TW pixels, its halo stored by flat index so that a tap is a
+// row offset of the A descriptor (no gather); M2 warpgroups each own 64 flat
+// indices and start the 24 products of their rows (N = 96: a kernel row's
+// three taps side by side) back to back under one commit, then bring the
+// three shares of each output together. TW = 22: the halo is 24 wide, 190
+// flat indices hold the 176 outputs, so three 64-row tiles compute 192 rows
+// for 176 results (1.09x the conv's work; TW = 16 would be 192 for 128,
+// 1.5x), and two halo stages, W2 and the staged outputs fit in 220 KB. W2 is
+// resident, halo tiles arrive through the two-stage cp.async ring straight
+// into the descriptor layout (positions outside the image are written as
+// zeros: conv2's zero padding), and the 32 channels leave through shared
+// memory in 16-byte vectors. On an H100 the products of a tile take ~2.2 us
+// of its ~4.9; the rest is the tile's 3,840 16-byte copies being sent off by
+// the threads that also start the products, and the epilogue, neither of
+// which runs under another tile's products.
+// -----------------------------------------------------------------------------
+
+template <int TW>
+constexpr size_t conv2_wgmma_smem() {
+  return W2_BYTES + 2 * (size_t)FlatTile<TW>::G_BYTES + FlatTile<TW>::OS_BYTES +
+         (4 * FlatTile<TW>::M2 + 1) * XCH_WARP * sizeof(float);
+}
+static_assert(conv2_wgmma_smem<22>() <= 232448, "a block's shared memory");
+
+template <int TW>
+__global__ void __launch_bounds__(WG_THREADS * FlatTile<TW>::M2, 1)
+probe_conv2_wgmma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w2r, bf16* __restrict__ out,
+                         int B, int H, int W) {
+  typedef FlatTile<TW> T;
+  constexpr int NT = WG_THREADS * T::M2;
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  unsigned char* w2s = smem_wg;
+  unsigned char* ring = w2s + W2_BYTES;          // [2] halo tiles, [k / 8][flat index][8]
+  unsigned char* os = ring + 2 * T::G_BYTES;     // staged outputs
+  float* xch = reinterpret_cast<float*>(os + T::OS_BYTES);  // rows handed from warp to warp (conv2_flat_share)
+
+  const int tid = threadIdx.x, wg = tid / WG_THREADS;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + T::TH - 1) / T::TH;
+  const int ntiles = B * tiles_y * tiles_x;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  auto load_tile = [&](const TileWalk& at, unsigned char* dst) {
+    const int x0 = at.tx * TW, y0 = at.ty * T::TH, b = at.b;
+    for (int v = tid; v < T::HPIX * (INTER / 8); v += NT) {
+      const int r = v / (INTER / 8), oct = v % (INTER / 8);
+      const int iy = y0 - 1 + r / T::HW, ix = x0 - 1 + r % T::HW;
+      unsigned char* d = dst + oct * T::G_PLANE + r * 16;
+      if (iy >= 0 && iy < H && ix >= 0 && ix < W) cp_async16(d, g + ((size_t)(b * H + iy) * W + ix) * INTER + 8 * oct);
+      else *reinterpret_cast<uint4*>(d) = zero;  // conv2's zero padding
+    }
+  };
+
+  // the rows past the halo feed only results that are dropped; zero them once
+  for (int v = tid; v < 2 * (INTER / 8) * (T::G_ROWS - T::HPIX); v += NT) {
+    const int r = T::HPIX + v % (T::G_ROWS - T::HPIX), plane = v / (T::G_ROWS - T::HPIX);
+    *reinterpret_cast<uint4*>(ring + plane * T::G_PLANE + r * 16) = zero;
+  }
+  stage_w2(w2s, w2r, tid, NT);
+  int tile = blockIdx.x;
+  TileWalk at(tile, gridDim.x, tiles_x, tiles_y);  // the tile that is loaded next
+  if (tile < ntiles) load_tile(at, ring);
+  cp_async_commit();
+
+  for (int it = 0; tile < ntiles; tile += gridDim.x, ++it) {
+    const int x0 = at.tx * TW, y0 = at.ty * T::TH, b = at.b;
+    cp_async_wait<0>();   // this tile (and W2) has landed
+    fence_proxy_async();  // ... and is visible to the tensor core's reads
+    __syncthreads();      // every thread also waited for the last tile's products: its stage is free
+    at.advance();
+    if (tile + (int)gridDim.x < ntiles) load_tile(at, ring + ((it & 1) ^ 1) * T::G_BYTES);
+    cp_async_commit();    // in flight under this tile's products
+
+    // The wait stands in straight code right after the products: with products
+    // in flight across a loop or a branch (the last tile's results stored under
+    // them, say) the compiler adds waits of its own or serialises them all.
+    float acc3[48];
+#pragma unroll
+    for (int i = 0; i < 48; ++i) acc3[i] = 0.f;
+    wgmma_fence_acc(acc3);
+    wgmma_fence();
+    conv2_flat_mma<TW>(acc3, smem_u32(ring + (it & 1) * T::G_BYTES), 64 * wg, smem_u32(w2s));
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_acc(acc3);
+    conv2_flat_share(xch, acc3, tid / 32, tid % 32);
+    __syncthreads();
+    float acc[16];
+    conv2_flat_combine(acc, acc3, xch, tid / 32, tid % 32);
+    // a warpgroup stages and stores its own 64 rows: its barrier, not the block's
+    conv2_flat_stage<TW>(os, acc, 64 * wg, tid % WG_THREADS);
+    warpgroup_sync(wg);
+    conv2_flat_store<TW>(os, out, 64 * wg, b, y0, x0, H, W, tid % WG_THREADS);
+  }
+  cp_async_wait<0>();
+}
+
+// -----------------------------------------------------------------------------
+// The wgmma self-check: d (64, N) fp32 = reps * a[row_off .. row_off + 64] . b^T
+// for a (rows, k) and b (N, k), through the descriptor helper and the
+// m64nNk16 wrappers of wgmma_bf16.cuh, by one warpgroup per block. A wrong LBO
+// or SBO gives wrong numbers, not an error, so the layout the kernels rely on
+// (planes of 8 k values, a_rows >= rows of 16 bytes each; a tile starting at
+// any row) is held against torch.matmul for each N they use (96 and 128) and for N = 32,
+// the conv's shape before its taps were packed, kept for its rate. With reps > 1
+// and many blocks the same launch is a rate measurement: every block repeats
+// the product, so its time over the products started is what one wgmma costs an
+// SM at that N, alignment (row_off, a_rows) and number of warpgroups. Not a
+// kernel of any path.
+// -----------------------------------------------------------------------------
+
+constexpr int SC_MAX_ROWS = 137, SC_MAX_K = 128;
+
+template <int N>
+constexpr size_t selfcheck_smem() { return (SC_MAX_K / 8) * (size_t)(SC_MAX_ROWS + N + 1) * 16; }
+
+template <int N>
+__global__ void __launch_bounds__(WG_THREADS)
+wgmma_selfcheck_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, float* __restrict__ d, int rows, int k,
+                       int row_off, int a_rows, int reps) {
+  constexpr uint32_t B_PLANE = (N + 1) * 16;
+  const uint32_t a_plane = a_rows * 16;
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  unsigned char* as = smem_wg;
+  unsigned char* bs = as + (SC_MAX_K / 8) * SC_MAX_ROWS * 16;
+  const int tid = threadIdx.x, kv = k / 8;
+  for (int v = tid; v < rows * kv; v += WG_THREADS) cp_async16(as + (v % kv) * a_plane + (v / kv) * 16, a + (size_t)v * 8);
+  for (int v = tid; v < N * kv; v += WG_THREADS) cp_async16(bs + (v % kv) * B_PLANE + (v / kv) * 16, b + (size_t)v * 8);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  wgmma_fence_acc(acc);
+  const uint64_t da = wgmma_desc(smem_u32(as) + row_off * 16, a_plane, CORE_BYTES);
+  const uint64_t db = wgmma_desc(smem_u32(bs), B_PLANE, CORE_BYTES);
+  for (int rep = 0; rep < reps; ++rep) {
+    wgmma_fence();
+    for (int ks = 0; ks < k / 16; ++ks) {
+      if constexpr (N == 32) wgmma_m64n32k16(acc, desc_advance(da, ks * 2 * a_plane), desc_advance(db, ks * 2 * B_PLANE), (rep | ks) != 0);
+      else if constexpr (N == 96) wgmma_m64n96k16(acc, desc_advance(da, ks * 2 * a_plane), desc_advance(db, ks * 2 * B_PLANE), (rep | ks) != 0);
+      else wgmma_m64n128k16(acc, desc_advance(da, ks * 2 * a_plane), desc_advance(db, ks * 2 * B_PLANE), (rep | ks) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // one group stays in flight behind the one being started
+  }
+  wgmma_wait<0>();
+  wgmma_fence_acc(acc);
+  if (blockIdx.x != 0) return;
+  const int warp = tid / 32, gq = tid % 32 / 4, tq = tid % 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[(16 * warp + gq + 8 * (e / 2)) * N + 8 * j + 2 * tq + e % 2] = acc[4 * j + e];
+}
+
+template <int N>
+int launch_selfcheck(const void* a, const void* b, void* d, int rows, int k, int row_off, int a_rows, int reps,
+                     int blocks, cudaStream_t stream) {
+  if (int err = set_smem(wgmma_selfcheck_kernel<N>, selfcheck_smem<N>())) return err;
+  wgmma_selfcheck_kernel<N><<<blocks, WG_THREADS, selfcheck_smem<N>(), stream>>>((const bf16*)a, (const bf16*)b, (float*)d,
+                                                                               rows, k, row_off, a_rows, reps);
+  return (int)cudaGetLastError();
+}
+
+constexpr int C2_WGMMA_TW = 22;
+
+template <int TW>
+int launch_conv2_wgmma(const void* g, const void* w2r, void* out, int B, int H, int W, cudaStream_t stream) {
+  typedef FlatTile<TW> T;
+  constexpr int NT = WG_THREADS * T::M2;
+  if (int err = set_smem(probe_conv2_wgmma_kernel<TW>, conv2_wgmma_smem<TW>())) return err;
+  const long long ntiles = (long long)B * ((H + T::TH - 1) / T::TH) * ((W + TW - 1) / TW);
+  int grid = 0;
+  if (int err = persistent_grid(probe_conv2_wgmma_kernel<TW>, NT, conv2_wgmma_smem<TW>(), ntiles, 1, &grid)) return err;
+  probe_conv2_wgmma_kernel<TW><<<grid, NT, conv2_wgmma_smem<TW>(), stream>>>((const bf16*)g, (const bf16*)w2r, (bf16*)out,
+                                                                            B, H, W);
+  return (int)cudaGetLastError();
 }
 
 template <int MI>
 int launch_mm(const void* a, const void* bt, void* y, int m, cudaStream_t stream) {
   if (int err = set_smem(probe_mm_kernel<MI>, mm_smem<MI>())) return err;
   int grid = 0;
-  if (int err = persistent_grid(probe_mm_kernel<MI>, mm_smem<MI>(), (m + 64 * MI - 1) / (64 * MI), 8, &grid)) return err;
+  if (int err = persistent_grid(probe_mm_kernel<MI>, THREADS, mm_smem<MI>(), (m + 64 * MI - 1) / (64 * MI), 8, &grid)) return err;
   probe_mm_kernel<MI><<<grid, THREADS, mm_smem<MI>(), stream>>>((const bf16*)a, (const bf16*)bt, (bf16*)y, m);
   return (int)cudaGetLastError();
 }
@@ -566,7 +744,7 @@ int launch_conv2(const void* g, const void* w2r, void* out, int B, int H, int W,
   if (int err = set_smem(probe_conv2_kernel<PACKED>, T::SMEM)) return err;
   const long long ntiles = (long long)B * ((H + C2_TH - 1) / C2_TH) * ((W + T::TW - 1) / T::TW);
   int grid = 0;
-  if (int err = persistent_grid(probe_conv2_kernel<PACKED>, T::SMEM, ntiles, 1, &grid)) return err;
+  if (int err = persistent_grid(probe_conv2_kernel<PACKED>, THREADS, T::SMEM, ntiles, 1, &grid)) return err;
   probe_conv2_kernel<PACKED><<<grid, THREADS, T::SMEM, stream>>>((const bf16*)g, (const bf16*)w2r, (bf16*)out, B, H, W);
   return (int)cudaGetLastError();
 }
@@ -596,18 +774,18 @@ int fdgan_probe_scale_copy(const void* a, void* y, long long n, int mode, void* 
   const long long nchunks = (n / 8 + ST_CHUNK - 1) / ST_CHUNK;
   if (mode == 1) {
     if (int err = set_smem(probe_scale_copy_staged_kernel, ST_SMEM)) return err;
-    if (int err = persistent_grid(probe_scale_copy_staged_kernel, ST_SMEM, nchunks > 0 ? nchunks : 1, 2, &grid)) return err;
+    if (int err = persistent_grid(probe_scale_copy_staged_kernel, THREADS, ST_SMEM, nchunks > 0 ? nchunks : 1, 2, &grid)) return err;
     probe_scale_copy_staged_kernel<<<grid, THREADS, ST_SMEM, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
   } else if (mode == 2) {
     if (int err = set_smem(probe_scale_copy_bulk_kernel, BULK_SMEM)) return err;
-    if (int err = persistent_grid(probe_scale_copy_bulk_kernel, BULK_SMEM, nchunks > 0 ? nchunks : 1, 2, &grid)) return err;
+    if (int err = persistent_grid(probe_scale_copy_bulk_kernel, THREADS, BULK_SMEM, nchunks > 0 ? nchunks : 1, 2, &grid)) return err;
     probe_scale_copy_bulk_kernel<<<grid, THREADS, BULK_SMEM, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
   } else if (mode != 0) {
     return (int)cudaErrorInvalidValue;
   } else {
     const long long per_block = (long long)THREADS * COPY_UNROLL;
     const long long nblocks = (n / 8 + per_block - 1) / per_block;
-    if (int err = persistent_grid(probe_scale_copy_kernel, 0, nblocks > 0 ? nblocks : 1, 8, &grid)) return err;
+    if (int err = persistent_grid(probe_scale_copy_kernel, THREADS, 0, nblocks > 0 ? nblocks : 1, 8, &grid)) return err;
     probe_scale_copy_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
   }
   return (int)cudaGetLastError();
@@ -632,12 +810,33 @@ int fdgan_probe_conv1(const void* const* segs, const int* widths, int nseg, cons
   return (int)cudaGetLastError();
 }
 
-// g (B,H,W,128), w2r (9,32,128), out (B,H,W,32); packed != 0 takes the
-// tap-packed body
-int fdgan_probe_conv2(const void* g, const void* w2r, void* out, int B, int H, int W, int packed,
+// g (B,H,W,128), w2r (9,32,128), out (B,H,W,32); body 0: taps9, 1: packed,
+// 2: wgmma
+int fdgan_probe_conv2(const void* g, const void* w2r, void* out, int B, int H, int W, int body,
                       void* stream) {
-  return packed ? launch_conv2<true>(g, w2r, out, B, H, W, (cudaStream_t)stream)
-                : launch_conv2<false>(g, w2r, out, B, H, W, (cudaStream_t)stream);
+  switch (body) {
+    case 0: return launch_conv2<false>(g, w2r, out, B, H, W, (cudaStream_t)stream);
+    case 1: return launch_conv2<true>(g, w2r, out, B, H, W, (cudaStream_t)stream);
+    case 2: return launch_conv2_wgmma<C2_WGMMA_TW>(g, w2r, out, B, H, W, (cudaStream_t)stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// d (64, n) fp32 = reps * a[row_off .. row_off + 64] . b^T; a (rows, k), b (n, k)
+// bf16; n 32, 96 or 128, k a multiple of 16 up to 128, row_off + 64 <= rows <=
+// a_rows <= 137 (a_rows: rows of a plane of a in shared memory); every one of
+// ``blocks`` blocks computes it, block 0 writes it
+int fdgan_wgmma_selfcheck(const void* a, const void* b, void* d, int rows, int n, int k, int row_off,
+                          int a_rows, int reps, int blocks, void* stream) {
+  if (k < 16 || k % 16 || k > SC_MAX_K || row_off < 0 || row_off + 64 > rows || rows > a_rows ||
+      a_rows > SC_MAX_ROWS || reps < 1 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  switch (n) {
+    case 32: return launch_selfcheck<32>(a, b, d, rows, k, row_off, a_rows, reps, blocks, (cudaStream_t)stream);
+    case 96: return launch_selfcheck<96>(a, b, d, rows, k, row_off, a_rows, reps, blocks, (cudaStream_t)stream);
+    case 128: return launch_selfcheck<128>(a, b, d, rows, k, row_off, a_rows, reps, blocks, (cudaStream_t)stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

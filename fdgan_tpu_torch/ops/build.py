@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dense_layer.cu", "freq_filters.cu", "probes.cu")
-HEADERS = ("mma_bf16.cuh",)  # included by the sources: part of the build's hash
+HEADERS = ("mma_bf16.cuh", "wgmma_bf16.cuh")  # included by the sources: part of the build's hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,6 +32,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "fdgan_dense_layer_f32": [_P] * 8 + [_I] * 4 + [_P],
     "fdgan_dense_layer_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    "fdgan_dense_layer_bf16_mma": [_P] * 8 + [_I] * 4 + [_P],
     "fdgan_h_stats_f32": [_P] * 6 + [_I] * 2 + [_P],
     "fdgan_h_stats_bf16": [_P] * 6 + [_I] * 2 + [_P],
     "fdgan_h_stats_rows": [],
@@ -41,6 +42,7 @@ _SIGNATURES = {
     "fdgan_probe_scale_copy": [_P, _P, _L, _I, _P],
     "fdgan_probe_conv1": [_P, _P, _I] + [_P] * 4 + [_I, _P],
     "fdgan_probe_conv2": [_P] * 3 + [_I] * 4 + [_P],
+    "fdgan_wgmma_selfcheck": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

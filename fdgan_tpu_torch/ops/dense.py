@@ -113,10 +113,19 @@ def _check_inputs(x, a1, b1, w1) -> int:
 
 
 def _w1_arg(w1, x) -> torch.Tensor:
-    """W1 in the layout the kernel of x's dtype reads: (C, 128) for fp32,
-    transposed to (128, C) for bf16."""
+    """W1 in the layout the kernels built on ``gemm1_bf16`` and the fp32 ones
+    read: (C, 128) for fp32, transposed to (128, C) for bf16."""
     w = _on_device(w1, x, x.dtype)
     return w if x.dtype == torch.float32 else w.t().contiguous()
+
+
+def w1_planes(w1: torch.Tensor) -> torch.Tensor:
+    """W1 (C, 128) as (C/8, 128, 8): planes of eight input channels,
+    ``planes[p, n, k] = w1[8p + k, n]``. It is the shared-memory layout the
+    bf16 K1's ``wgmma`` descriptors name (``csrc/wgmma_bf16.cuh``), so 64
+    channels of W1 are 16 contiguous KB that one bulk copy brings in."""
+    c, n = w1.shape
+    return w1.reshape(c // 8, 8, n).permute(0, 2, 1).contiguous()
 
 
 def _on_device(t: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -127,8 +136,9 @@ def _on_device(t: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
-def _launch_k1(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
-    global k1_launches
+def _run_k1(entry: str, x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
+    """Check the inputs, lay the weights out and call the C entry point
+    ``entry`` of the kernel library; raises on a CUDA error."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_dense_layer runs on cpu or cuda, got {x.device}")
     _check_inputs(x, a1, b1, w1)
@@ -141,12 +151,12 @@ def _launch_k1(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
     lib = build.load()
     bsz, h, w, c = x.shape
     a1k, b1k, a2k, b2k = (_on_device(t, x, torch.float32) for t in (a1, b1, a2, b2))
-    w1k = _w1_arg(w1, x)
+    w1k = w1_planes(_on_device(w1, x, x.dtype)) if entry == "fdgan_dense_layer_bf16" else _w1_arg(w1, x)
     # W2 as (9·128, 32) for fp32; for bf16 as (9, 32, 128), per tap the
     # inputs of each output channel
     w2k = _on_device(w2 if x.dtype == torch.float32 else w2.permute(0, 1, 3, 2), x, x.dtype)
     out = torch.empty((bsz, h, w, GROWTH), device=x.device, dtype=x.dtype)
-    fn = getattr(lib, f"fdgan_dense_layer_{_KERNEL_DTYPES[x.dtype]}")
+    fn = getattr(lib, entry)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
@@ -154,9 +164,27 @@ def _launch_k1(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
             a2k.data_ptr(), b2k.data_ptr(), w2k.data_ptr(), out.data_ptr(),
             bsz, h, w, c, stream,
         )
-    build.check(lib, err, "fdgan_dense_layer")
+    build.check(lib, err, entry)
+    return out
+
+
+def _launch_k1(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
+    global k1_launches
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    out = _run_k1(f"fdgan_dense_layer_{_KERNEL_DTYPES[x.dtype]}", x, a1, b1, w1, a2, b2, w2)
     k1_launches += 1
     return out
+
+
+def _launch_k1_mma(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
+    """K1's earlier bf16 body (``mma.sync`` fragments, one block per tile),
+    kept so that one run can time it beside the ``wgmma`` kernel that
+    ``fused_dense_layer`` launches. No model path calls it and it moves no
+    launch count."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the mma.sync body is bfloat16 only, got {x.dtype}")
+    return _run_k1("fdgan_dense_layer_bf16_mma", x, a1, b1, w1, a2, b2, w2)
 
 
 def _launch_k2(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -24,8 +24,15 @@ and return bf16.
                         (``probe_pallas5.py:69,99``)
 ``conv2``               3×3 conv 128 → 32, zero padding, as nine 32-wide
                         products (``taps9``) or one tap-packed product
-                        (``packed``) (``probe_pallas5.py:158``)
+                        (``packed``) (``probe_pallas5.py:158``), both on
+                        ``mma.sync``; or, a kernel row's three taps side by
+                        side, on Hopper's warpgroup products (``wgmma``),
+                        K1's second stage
 ======================= ===================================================
+
+``wgmma_selfcheck`` multiplies one 64-row tile through the descriptor
+helper and ``wgmma`` wrappers of ``csrc/wgmma_bf16.cuh``: a check of the
+shared-memory layout the ``wgmma`` kernels rely on, not a probe.
 
 ``launches`` counts each kernel's launches in this process; the plain
 versions do not move it.
@@ -43,7 +50,7 @@ INTER = 128   # K1's intermediate width: K and N of probe_mm, conv1's N, conv2's
 GROWTH = 32   # conv2's output channels
 MM_TILES = (64, 128, 256)
 MAX_SEGMENTS = 8
-CONV2_MODES = ("taps9", "packed")
+CONV2_MODES = ("taps9", "packed", "wgmma")  # the C entry's body 0, 1, 2
 
 launches: Dict[str, int] = {
     "probe_mm": 0,
@@ -53,6 +60,7 @@ launches: Dict[str, int] = {
     "probe_conv1": 0,
     "probe_conv2_taps9": 0,
     "probe_conv2_packed": 0,
+    "probe_conv2_wgmma": 0,
 }
 
 
@@ -224,7 +232,10 @@ def conv2(g: torch.Tensor, w2: torch.Tensor, mode: str = "taps9") -> torch.Tenso
     """3×3 conv with zero padding of NHWC g (B,H,W,128) by HWIO w2
     (3,3,128,32) → (B,H,W,32). ``mode`` picks the kernel body: ``taps9``
     accumulates nine 32-wide products, ``packed`` takes the taps side by
-    side in one wide product and adds its slices at their shifts."""
+    side in one wide product and adds its slices at their shifts (both on
+    ``mma.sync``), ``wgmma`` takes a kernel row's three taps side by side in
+    warpgroup products whose operands the tensor core reads from shared
+    memory itself, and adds the three shares of an output at their shifts."""
     if mode not in CONV2_MODES:
         raise ValueError(f"mode must be one of {CONV2_MODES}, got {mode!r}")
     _check(g, "g", (INTER,))
@@ -243,5 +254,45 @@ def conv2(g: torch.Tensor, w2: torch.Tensor, mode: str = "taps9") -> torch.Tenso
     w2r = w2.to(g.dtype).permute(0, 1, 3, 2).contiguous()
     out = torch.empty((bsz, h, w, GROWTH), device=g.device, dtype=g.dtype)
     _launch(f"probe_conv2_{mode}", "fdgan_probe_conv2", g, g.data_ptr(), w2r.data_ptr(), out.data_ptr(),
-            bsz, h, w, int(mode == "packed"))
+            bsz, h, w, CONV2_MODES.index(mode))
     return out
+
+
+SELFCHECK_MAX_ROWS = 137  # rows of a's buffer in the self-check kernel's shared memory
+SELFCHECK_N = (GROWTH, 3 * GROWTH, INTER)  # the wgmma shapes m64nNk16 the kernels use
+
+
+def wgmma_selfcheck(a: torch.Tensor, b: torch.Tensor, row_off: int = 0, a_rows: int = SELFCHECK_MAX_ROWS,
+                    reps: int = 1, blocks: int = 1) -> torch.Tensor:
+    """(64, N) fp32 = reps · a[row_off : row_off + 64] · bᵀ for bf16 a (rows, K)
+    and b (N, K), N 32, 96 or 128, K a multiple of 16 up to 128: one tile through
+    the ``wgmma`` helpers, A starting ``row_off`` rows into a buffer whose
+    planes of 8 k values hold ``a_rows`` rows (137, the default, puts a plane
+    16 bytes past a multiple of 128 as the kernels do; 136 aligns it), as a
+    tap of the 3×3 conv does. ``reps`` and ``blocks`` repeat the product, per
+    block and over blocks: a launch to time. The plain version on the CPU."""
+    _check(a, "a")
+    _check(b, "b")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"a (rows, K) and b (N, K), got {tuple(a.shape)} and {tuple(b.shape)}")
+    rows, k = a.shape
+    n = b.shape[0]
+    if n not in SELFCHECK_N or k % 16 or not 16 <= k <= 128:
+        raise ValueError(f"N must be one of {SELFCHECK_N} and K a multiple of 16 up to 128, got N={n}, K={k}")
+    if not 0 <= row_off <= rows - 64 or not rows <= a_rows <= SELFCHECK_MAX_ROWS:
+        raise ValueError(f"64 rows from row_off={row_off} of a's {rows} rows, in planes of a_rows={a_rows} "
+                         f"(at most {SELFCHECK_MAX_ROWS}), do not fit")
+    if reps < 1 or blocks < 1:
+        raise ValueError(f"reps and blocks must be positive, got {reps} and {blocks}")
+    _same_device(a, b)
+    if a.device.type == "cpu":
+        return reps * (a[row_off:row_off + 64].float() @ b.float().t())
+    from fdgan_tpu_torch.ops import build
+
+    lib = build.load()
+    d = torch.empty((64, n), device=a.device, dtype=torch.float32)
+    with torch.cuda.device(a.device):
+        err = lib.fdgan_wgmma_selfcheck(a.data_ptr(), b.data_ptr(), d.data_ptr(), rows, n, k, row_off, a_rows, reps,
+                                        blocks, torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(lib, err, "fdgan_wgmma_selfcheck")
+    return d

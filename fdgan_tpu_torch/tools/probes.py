@@ -23,7 +23,9 @@ events around 20 launches after a warm-up, and prints one JSON line:
 - ``max_abs_err`` against the plain version, and the tolerance it was held to.
 
 It ends with one line per question the Pallas probes asked, answered for
-this card from the numbers above. Needs a CUDA device and exits non-zero
+this card from the numbers above, and a line with the ``wgmma`` self-check
+(one tile through the helpers of ``csrc/wgmma_bf16.cuh`` against
+``torch.matmul``) and what one ``wgmma`` costs an SM. Needs a CUDA device and exits non-zero
 without one; ``run(device="cpu", size="tiny")`` is the CPU rehearsal the
 tests use, which checks the plain versions' plumbing and reports no time.
 """
@@ -187,6 +189,7 @@ PROBES: Dict[str, Probe] = {
     ),
     "probe_conv2_taps9": _conv2_probe("taps9"),
     "probe_conv2_packed": _conv2_probe("packed"),
+    "probe_conv2_wgmma": _conv2_probe("wgmma"),
 }
 
 
@@ -310,6 +313,48 @@ def run(device="cuda", size: str = "full", only: Optional[Sequence[str]] = None,
     return rows
 
 
+WGMMA_RATE_REPS = 4000  # products of K = 128 (or 64) per block in a rate launch
+
+
+def wgmma_selfcheck(device="cuda", seed: int = 0) -> float:
+    """One 64-row tile through the ``wgmma`` helpers (descriptor, fences,
+    m64n32k16, m64n96k16 and m64n128k16) against ``torch.matmul`` in fp32, for each
+    (N, K) the kernels use and A starting at row offsets a tap of the 3×3 conv
+    produces, in padded and unpadded planes; returns the largest error and
+    raises beyond 1e-3 (fp32 sums of ≤ 128 exact bf16 products of N(0, 1)
+    values in another order differ by ~1e-5)."""
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    for n, k in ((probes.GROWTH, 128), (3 * probes.GROWTH, 128), (probes.INTER, 64), (probes.INTER, 16)):
+        a, b = _normal(rng, (136, k), 1.0, device), _normal(rng, (n, k), 1.0, device)
+        for row_off, a_rows in ((0, 137), (1, 137), (19, 137), (38, 137), (72, 137), (8, 136), (23, 136)):
+            got = probes.wgmma_selfcheck(a, b, row_off, a_rows)
+            err = (got - a[row_off:row_off + 64].float() @ b.float().t()).abs().max().item()
+            if not err <= 1e-3:
+                raise AssertionError(f"wgmma self-check: N={n} K={k} row_off={row_off} a_rows={a_rows}: max_abs_err {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def wgmma_rates(seed: int = 0) -> List[dict]:
+    """What one ``wgmma`` costs an SM, both operands in shared memory: the
+    self-check's product repeated by 1, 2 and 3 warpgroups per SM on every SM
+    (CUDA events around 3 launches). ``ns`` is per instruction per SM; the
+    kernels' products cannot go faster than this. CUDA only."""
+    rng = np.random.default_rng(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for n, k in ((probes.GROWTH, 128), (3 * probes.GROWTH, 128), (probes.INTER, 64)):
+        a, b = _normal(rng, (136, k), 1.0, "cuda"), _normal(rng, (n, k), 1.0, "cuda")
+        for per_sm in (1, 2, 3):
+            ms = cuda_ms(lambda: probes.wgmma_selfcheck(a, b, 19, reps=WGMMA_RATE_REPS, blocks=sms * per_sm),
+                         launches=3, warmup=1)
+            count = WGMMA_RATE_REPS * (k // 16) * per_sm
+            rows.append({"wgmma": f"m64n{n}k16", "warpgroups_per_sm": per_sm, "ns": 1e6 * ms / count,
+                         "tflops": 2 * 64 * n * 16 * count * sms / ms / 1e9})
+    return rows
+
+
 def _verdict(ms: float, other_ms: float, spread: float = 0.03) -> str:
     """'faster', 'slower' or, within the spread between two timings of one
     kernel in one run (~3 %), 'the same'."""
@@ -369,6 +414,14 @@ def answers(rows: List[dict]) -> List[dict]:
             f"taps9 {t9['ms']:.3f} ms = {t9['tflops']:.1f} TFLOP/s, packed {pk['ms']:.3f} ms = "
             f"{pk['tflops']:.1f} TFLOP/s: {_verdict(pk['ms'], t9['ms'])} ({pk['ms'] / t9['ms']:.2f}x taps9's time); bound "
             f"{t9['bound_ms']:.3f} ms ({t9['bound_by']}); {t9['library']} {t9['library_ms']:.3f} ms.")
+        if "probe_conv2_wgmma" in r:
+            wg = r["probe_conv2_wgmma"]
+            say("Does wgmma close conv2's gap to cuDNN? (the third body: the tensor core reads g and W2 from "
+                "shared memory itself, a tap is a row offset of the descriptor, a kernel row's three taps lie side by side)",
+                f"wgmma {wg['ms']:.3f} ms = {wg['tflops']:.1f} TFLOP/s, {100 * wg['share']:.0f} % of the bound: "
+                f"taps9 ({t9['ms']:.3f} ms) takes {t9['ms'] / wg['ms']:.2f}x its time; against {wg['library']} "
+                f"({wg['library_ms']:.3f} ms) it is {_verdict(wg['ms'], wg['library_ms'])}, "
+                f"{wg['ms'] / wg['library_ms']:.2f}x the library's time.")
         if "probe_conv1" in r:
             c1 = r["probe_conv1"]
             npix = c1["operations"] // (2 * sum(SEGMENT_WIDTHS) * probes.INTER)
@@ -421,6 +474,7 @@ def main(argv=None) -> int:
     rows = run("cuda", args.size, only, args.seed, on_row=lambda row: print(json.dumps({**row, "card": card}), flush=True))
     for line in answers(rows):
         print(json.dumps(line), flush=True)
+    print(json.dumps({"wgmma_selfcheck_max_abs_err": wgmma_selfcheck(), "wgmma_rates": wgmma_rates()}), flush=True)
     return 0
 
 

@@ -82,6 +82,47 @@ def test_kernels_match_twins(cuda, exact, shape, dtype):
     torch.testing.assert_close(v, vr, atol=1e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("shape", [
+    (2, 16, 24, 64), (1, 10, 17, 40), (2, 24, 40, 992),   # the shapes above
+    (1, 5, 7, 64),      # smaller than one 8x16 tile
+    (1, 37, 53, 96),    # neither H nor W a multiple of the tile, C not a multiple of a 64-channel step
+    (2, 64, 64, 128),   # more tiles than one round of the persistent blocks' first tiles
+])
+def test_k1_wgmma_matches_twin_and_mma_body(cuda, shape):
+    """K1's bf16 kernel (wgmma) against its twin, and against the mma.sync
+    body it replaced. Old and new round t, g and f at the same points and sum
+    in fp32; the tensor cores' summation order inside a product is not
+    specified for either, so they are held within one bf16 step (2^-7
+    relative at the bottom of a binade) of each other, not bit for bit, though
+    on an H100 every shape here came out equal."""
+    args = _layer_args(shape, 6, cuda, torch.bfloat16)
+    dense.reset_launch_counts()
+    got = dense.fused_dense_layer(*args)
+    assert dense.k1_launches == 1
+    old = dense._launch_k1_mma(*args)
+    torch.cuda.synchronize()
+    assert dense.k1_launches == 1  # the old body moves no count
+    torch.testing.assert_close(got.float(), dense.layer_reference(*args).float(), **K1_TOL_BF16)
+    torch.testing.assert_close(got.float(), old.float(), atol=1e-4, rtol=2.0**-7)
+    assert torch.equal(got, dense.fused_dense_layer(*args))  # no race: the same bits every launch
+
+
+def test_k1_mma_body_is_bf16_only(cuda):
+    args = _layer_args((1, 8, 8, 32), 7, cuda, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16 only"):
+        dense._launch_k1_mma(*args)
+
+
+def test_wgmma_selfcheck_on_the_card(cuda):
+    """One tile through the descriptor helper and the three wgmma shapes against
+    torch.matmul, at the row offsets a conv tap produces, padded planes and
+    unpadded; and the rate launch, which repeats the product."""
+    assert probe_tool.wgmma_selfcheck(device=cuda) <= 1e-3
+    rows = probe_tool.wgmma_rates()
+    assert [(r["wgmma"], r["warpgroups_per_sm"]) for r in rows] == [(f"m64n{n}k16", w) for n in (32, 96, 128) for w in (1, 2, 3)]
+    assert all(r["ns"] > 0 and 0 < r["tflops"] < 1200 for r in rows)
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     x, a1, b1, w1, a2, b2, w2 = _layer_args((1, 8, 8, 32), 7, cuda, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
@@ -215,6 +256,18 @@ def test_prof_train_reports_every_phase(cuda, capsys):
     assert rec["top"] and rec["step"]["device_events"] > 0
 
 
+def test_prof_serve_reports_the_dense_kernels(cuda, capsys):
+    from fdgan_tpu_torch.tools import prof_serve
+
+    assert prof_serve.main(["--batch", "1", "--size", "64", "--impl", "kernels", "--warmup", "1",
+                            "--forwards", "1", "--prof-forwards", "1"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()[1:]]
+    assert [(r["impl"], r["bn_mode"]) for r in recs] == [("kernels", "running"), ("kernels", "batch")]
+    for r in recs:
+        assert r["wall_ms"] > 0 and 0 < r["k1_ms"] < r["device_ms"] and r["cat_ms"] > 0
+        assert (r["k2_ms"] > 0) == (r["bn_mode"] == "batch") and len(r["top"]) == 10
+
+
 @pytest.mark.parametrize("size", ["full", "ragged", "tiny"])
 @pytest.mark.parametrize("name", list(probe_tool.PROBES))
 def test_probe_kernel_matches_plain(cuda, name, size):
@@ -235,9 +288,11 @@ def test_probe_mm_row_tiles_match_plain(cuda, tile_rows):
 
 @pytest.mark.parametrize("size", ["ragged", "tiny"])
 def test_probe_conv2_bodies_agree(cuda, size):
-    """taps9 and packed add the nine terms in different orders: one bf16 step."""
+    """taps9, packed and wgmma add the nine terms in different orders: one bf16 step."""
     g, w2 = probe_tool.make_conv2(size, np.random.default_rng(2), cuda)
-    probe_tool.compare(probes.conv2(g, w2, "packed"), probes.conv2(g, w2, "taps9"), probe_tool.PRODUCT_TOL, "conv2")
+    taps9 = probes.conv2(g, w2, "taps9")
+    for mode in ("packed", "wgmma"):
+        probe_tool.compare(probes.conv2(g, w2, mode), taps9, probe_tool.PRODUCT_TOL, f"conv2 {mode}")
 
 
 @pytest.mark.parametrize("widths", [(160,), (64, 32, 32, 32), (8,) * 8, (24, 104)])
@@ -273,4 +328,5 @@ def test_probe_tool_prints_rows_and_answers(cuda, capsys):
     for r in rows:
         assert r["ms"] > 0 and r["plain_ms"] > 0 and 0 < r["share"] and r["bound_by"] in ("bytes", "operations")
         assert "NVIDIA" in r["card"] and r["device"] == torch.cuda.get_device_name(0)
-    assert len([r for r in lines if "question" in r]) == 7  # P1, P2/P3b, P3a, P4, P5 Q1-Q3
+    assert len([r for r in lines if "question" in r]) == 8  # P1, P2/P3b, P3a, P4, P5 Q1-Q3, wgmma
+    assert lines[-1]["wgmma_selfcheck_max_abs_err"] <= 1e-3 and len(lines[-1]["wgmma_rates"]) == 9

@@ -99,6 +99,27 @@ def test_wrappers_take_the_twin_on_cpu():
     torch.testing.assert_close((m, v), dense.h_stats_reference(t["x"], t["a1"], t["b1"], t["w1"]))
 
 
+@pytest.mark.parametrize("c", [8, 40, 64, 96, 992])
+def test_w1_planes_is_the_kernel_layout(c):
+    """The bf16 K1 takes W1 as planes of eight input channels, (C/8, 128, 8)
+    with planes[p, n, k] = w1[8p + k, n]: the shared-memory layout its wgmma
+    descriptors name, so that a chunk of 64 channels is one contiguous block
+    of 8 planes (16 KB in bf16) at byte offset 16 KB times the chunk's index,
+    and a ragged last chunk is the planes that are left."""
+    w1 = torch.arange(c * 128, dtype=torch.float32).reshape(c, 128).to(torch.bfloat16)
+    planes = dense.w1_planes(w1)
+    assert planes.shape == (c // 8, 128, 8) and planes.is_contiguous() and planes.dtype == w1.dtype
+    p, n, k = np.meshgrid(np.arange(c // 8), np.arange(128), np.arange(8), indexing="ij")
+    assert torch.equal(planes, w1[torch.from_numpy(8 * p + k), torch.from_numpy(n)])
+    flat = planes.reshape(-1)  # element (channel ch, output n) lies at ((ch // 8) * 128 + n) * 8 + ch % 8
+    for ch, out in ((0, 0), (c - 1, 127), (c // 2 + 3, 77)):
+        assert flat[((ch // 8) * 128 + out) * 8 + ch % 8] == w1[ch, out]
+    chunk = 64 * 128  # elements of a 64-channel chunk: chunk i starts at i * 64 * 128
+    for i in range((c + 63) // 64):
+        rows = w1[64 * i:64 * (i + 1)]
+        assert torch.equal(flat[i * chunk:i * chunk + rows.numel()], dense.w1_planes(rows).reshape(-1))
+
+
 def test_fold_bn_and_channel_stats_match_jax(np_rng):
     x = np_rng.standard_normal((2, 5, 4, 6)).astype(np.float32)
     jm, jv = jpd.channel_stats(jnp.asarray(x))

@@ -221,6 +221,38 @@ def test_other_wrappers_reject_bad_inputs():
         probes.conv2(torch.zeros(1, 8, 8, 128, dtype=torch.bfloat16), torch.zeros(3, 3, 128, 16))
 
 
+@pytest.mark.parametrize("n, k, row_off, a_rows", [(32, 128, 0, 137), (32, 128, 38, 137), (96, 128, 18, 137),
+                                                   (128, 64, 19, 136), (128, 16, 72, 137)])
+def test_wgmma_selfcheck_plain_version(n, k, row_off, a_rows):
+    """On the CPU the self-check is its plain version: 64 rows of a from
+    row_off times bᵀ in fp32, held here against a float64 product; the tool's
+    check of every (N, K, offset) the kernels use passes on it."""
+    rng = np.random.default_rng(n + k + row_off)
+    a, b = _bf16(rng.standard_normal((136, k))), _bf16(rng.standard_normal((n, k)))
+    got = probes.wgmma_selfcheck(a, b, row_off, a_rows)
+    assert got.dtype == torch.float32 and got.shape == (64, n)
+    want = a[row_off:row_off + 64].double().numpy() @ b.double().numpy().T
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(probes.wgmma_selfcheck(a, b, row_off, a_rows, reps=3).numpy(), 3 * got.numpy())
+    assert probe_tool.wgmma_selfcheck(device="cpu") <= 1e-3
+
+
+def test_wgmma_selfcheck_rejects_bad_inputs():
+    a, b = torch.zeros(136, 64, dtype=torch.bfloat16), torch.zeros(128, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N must be"):
+        probes.wgmma_selfcheck(a, b[:64])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        probes.wgmma_selfcheck(a[:, :24].contiguous(), b[:, :24].contiguous())
+    with pytest.raises(ValueError, match="do not fit"):
+        probes.wgmma_selfcheck(a, b, row_off=73)
+    with pytest.raises(ValueError, match="do not fit"):
+        probes.wgmma_selfcheck(a, b, a_rows=135)
+    with pytest.raises(ValueError, match="positive"):
+        probes.wgmma_selfcheck(a, b, reps=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        probes.wgmma_selfcheck(a.float(), b)
+
+
 @pytest.mark.parametrize("fn", [create_train_state, load_generator], ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     """Training and checkpoint loading build on the card unless asked for the
@@ -250,7 +282,9 @@ def test_bound_is_the_larger_of_bytes_and_operations(work, want_ms, want_by):
 
 def test_select_maps_pallas_probes_to_kernels():
     assert probe_tool.select("") is None
-    assert probe_tool.select("p1,p5") == ["probe_mm", "probe_conv1", "probe_conv2_taps9", "probe_conv2_packed"]
+    assert probe_tool.select("p1,p5") == ["probe_mm", "probe_conv1", "probe_conv2_taps9", "probe_conv2_packed",
+                                          "probe_conv2_wgmma"]
+    assert probe_tool.select("conv2_wgmma") == probe_tool.select("probe_conv2_wgmma") == ["probe_conv2_wgmma"]
     assert probe_tool.select("P3") == ["probe_mm", "probe_scale_copy"]
     assert probe_tool.select("conv2_packed, p4") == ["probe_conv2_packed", "probe_scale_copy_staged",
                                                      "probe_scale_copy_bulk"]
