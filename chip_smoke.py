@@ -10,11 +10,14 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    the kernels of fdgan_tpu_torch/csrc built from source;
 2. kernels against their plain twins at the dense-layer shapes of the
    8×512² serving path and of the 4×256² train path (fp32 without TF32,
-   and bf16), with CUDA-event times; in bf16 K1 (wgmma) is also held against
+   and bf16), with CUDA-event times; K1 and K2 also from a channel slice of
+   a wider buffer (the dense block's concat), K1 into one, held bit for bit
+   against the contiguous launch; in bf16 K2 (wgmma) is also held against
    and timed beside its earlier mma.sync body;
 3. the full-width FDGAN generator (random weights, seed 0) at 8×512²:
    the kernel path against the plain path in fp32 for both BN modes, the
-   bf16 PSNR check, the launch counts per forward, and img/s in bf16;
+   bf16 PSNR check, the launch counts per forward, and img/s in bf16 for
+   both BN modes;
 4. serving: InferenceEngines (bf16, running and batch BN) behind the
    BatchingFrontend answer ragged uint8 requests from several threads.
    The kernels' launch counters are zeroed just before this phase and read
@@ -28,10 +31,11 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    zeroed just before, read just after), and 3 split G/D steps through an
    ImagePool;
 6. probes: the wgmma self-check (one tile through the helpers of
-   csrc/wgmma_bf16.cuh against torch.matmul), each of the eight probe kernels
+   csrc/wgmma_bf16.cuh against torch.matmul), each of the nine probe kernels
    (csrc/probes.cu) against its plain version at its full shape (2²¹ rows of
    128; 8×512×512 images) and at a ragged one, every row tile of probe_mm,
-   the conv2 bodies against each other, what one wgmma costs an SM; then
+   the conv1 bodies and the conv2 bodies against each other, what one
+   wgmma costs an SM; then
    the path, fdgan_tpu_torch.tools.probes.run() as
    `python -m fdgan_tpu_torch.tools.probes` runs it, with the probes'
    launch counters zeroed just before and read just after: one timed JSON
@@ -118,16 +122,17 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 def device_ms(fn, launches: int = 20) -> float:
     """ms per fn() on the device alone: the calls are queued behind products
     that keep the card busy for longer than the host takes to queue them
-    (~4 ms against 20 × ~0.1 ms), so the time between the two events holds no
-    wait for the host. What a small kernel costs when a forward has queued
-    ahead; cuda_ms above includes the wrapper's host time per launch."""
+    (~20 ms against 20 × ~0.2 ms; behind ~5 ms, K2's wrapper, whose host work
+    is ~0.2 ms, read up to 3x its time), so the time between the two events
+    holds no wait for the host. What a small kernel costs when a forward has
+    queued ahead; cuda_ms above includes the wrapper's host time per launch."""
     import torch
 
     fn()
     busy = torch.empty((8192, 8192), device="cuda", dtype=torch.bfloat16).normal_()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(3):
+    for _ in range(12):
         busy @ busy
     start.record()
     for _ in range(launches):
@@ -201,6 +206,18 @@ def dense_bounds(x, a1, b1, w1, a2, b2, w2):
     return {"k1_bound_ms": k1, "k1_bound_by": k1_by, "k2_bound_ms": k2, "k2_bound_by": k2_by}
 
 
+def buffer_view(x, ld):
+    """x copied into the first C channels of a (B, H, W, ld) buffer, as the
+    slice a dense layer reads, and the 32 channels after it, as the slice it
+    writes."""
+    import torch
+
+    c = x.shape[-1]
+    buf = torch.zeros(tuple(x.shape[:3]) + (ld,), device=x.device, dtype=x.dtype)
+    buf[..., :c] = x
+    return buf[..., :c], buf[..., c:c + 32]
+
+
 def phase_kernels():
     import torch
 
@@ -211,25 +228,34 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         for shape in SHAPES:
             x, a1, b1, w1, a2, b2, w2 = layer_inputs(shape, dtype, gen)
+            bf16 = dtype == torch.bfloat16
+            # a dense block's concat: ld 256 at the timed shape, as block 1's buffer
+            xv, fv = buffer_view(x, max(256, shape[-1] + 32))
             with exact_fp32():
                 f_k = dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2)
                 f_p = dense.layer_reference(x, a1, b1, w1, a2, b2, w2)
                 m_k, v_k = dense.h_batch_stats(x, a1, b1, w1)
                 m_p, v_p = dense.h_stats_reference(x, a1, b1, w1)
+                with torch.inference_mode():
+                    dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv)
+                m_v, v_v = dense.h_batch_stats(xv, a1, b1, w1)
+                m_k2, v_k2 = dense.h_batch_stats(x, a1, b1, w1)
             torch.cuda.synchronize()
             tol = K1_TOL_F32 if dtype == torch.float32 else K1_TOL_BF16
             e1 = (f_k.float() - f_p.float()).abs().max().item()
-            ok_mma, e_mma = True, None
-            if dtype == torch.bfloat16:
-                # the two bodies round at the same points and sum in fp32: within one
-                # bf16 step of each other wherever the sums' orders differ
-                f_m = dense._launch_k1_mma(x, a1, b1, w1, a2, b2, w2)
-                e_mma = (f_k.float() - f_m.float()).abs().max().item()
-                ok_mma = torch.allclose(f_k.float(), f_m.float(), atol=1e-4, rtol=2.0**-7)
-                del f_m
             e2 = max((m_k - m_p).abs().max().item(), (v_k - v_p).abs().max().item())
             ok1 = torch.allclose(f_k.float(), f_p.float(), **tol)
             ok2 = torch.allclose(m_k, m_p, **K2_MEAN_TOL) and torch.allclose(v_k, v_p, **K2_VAR_TOL)
+            # the buffer view changes addresses, not arithmetic: the same bits; and K2's static
+            # tile walk gives the same bits on every launch
+            ok_view = torch.equal(fv, f_k) and torch.equal(m_v, m_k) and torch.equal(v_v, v_k)
+            ok_again = torch.equal(m_k2, m_k) and torch.equal(v_k2, v_k)
+            ok_mma, e_mma = True, None
+            if bf16:
+                # the two K2 bodies sum the same fp32 products in other orders
+                m_m, v_m = dense._launch_k2_mma(x, a1, b1, w1)
+                e_mma = max((m_k - m_m).abs().max().item(), (v_k - v_m).abs().max().item())
+                ok_mma = torch.allclose(m_k, m_m, **K2_MEAN_TOL) and torch.allclose(v_k, v_m, **K2_VAR_TOL)
             if dtype == torch.float32:
                 worst["k1"], worst["k2"] = max(worst["k1"], e1), max(worst["k2"], e2)
             # bf16's twin runs fp32 convs on bf16 values: TF32 holds bf16
@@ -241,24 +267,33 @@ def phase_kernels():
                     "k2_ms": cuda_ms(lambda: dense.h_batch_stats(x, a1, b1, w1)),
                     "k2_plain_ms": cuda_ms(lambda: dense.h_stats_reference(x, a1, b1, w1)),
                 }
-                if dtype == torch.bfloat16:  # old body and new in turns, in one run
-                    t["k1_mma_ms"] = cuda_ms(lambda: dense._launch_k1_mma(x, a1, b1, w1, a2, b2, w2))
-                    t["k1_ms"] = (t["k1_ms"] + cuda_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))) / 2
-                    t["k1_mma_ms"] = (t["k1_mma_ms"] + cuda_ms(lambda: dense._launch_k1_mma(x, a1, b1, w1, a2, b2, w2))) / 2
-                    # on the device alone (the kernel and the wrapper's two weight-layout copies): the
-                    # wrapper's host time, ~0.1 ms, is inside the single-launch times above
-                    t["k1_device_ms"] = device_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))
-                    t["k1_mma_device_ms"] = device_ms(lambda: dense._launch_k1_mma(x, a1, b1, w1, a2, b2, w2))
-            row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                   "k1_max_abs_err": e1, "k2_max_abs_err": e2, "k1_vs_mma_max_abs_err": e_mma, **t,
+                if bf16:  # K2's old body and new in turns, in one run
+                    t["k2_mma_ms"] = cuda_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))
+                    t["k2_ms"] = (t["k2_ms"] + cuda_ms(lambda: dense.h_batch_stats(x, a1, b1, w1))) / 2
+                    t["k2_mma_ms"] = (t["k2_mma_ms"] + cuda_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))) / 2
+                    # on the device alone (the kernel and the wrapper's weight-layout copies and
+                    # reductions): the wrapper's host time, ~0.1 ms, is inside the single-launch times
+                    with torch.inference_mode():
+                        t["k1_device_ms"] = device_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))
+                        t["k1_view_device_ms"] = device_ms(
+                            lambda: dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv))
+                        t["k1_device_ms"] = (t["k1_device_ms"] + device_ms(
+                            lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))) / 2
+                        t["k1_view_device_ms"] = (t["k1_view_device_ms"] + device_ms(
+                            lambda: dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv))) / 2
+                    t["k2_device_ms"] = device_ms(lambda: dense.h_batch_stats(x, a1, b1, w1))
+                    t["k2_mma_device_ms"] = device_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))
+            row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "ld": xv.stride(2),
+                   "k1_max_abs_err": e1, "k2_max_abs_err": e2, "k2_vs_mma_max_abs_err": e_mma, **t,
                    **dense_bounds(x, a1, b1, w1, a2, b2, w2)}
             rows.append(row)
             log(json.dumps(row))
-            if not (ok1 and ok2 and ok_mma):
-                raise AssertionError(f"kernel disagrees with its twin at {shape} {dtype}: "
-                                     f"K1 ok={ok1} err={e1}, K2 ok={ok2} err={e2}, K1 vs its mma.sync body "
-                                     f"ok={ok_mma} err={e_mma}")
-            del x, f_k, f_p
+            if not (ok1 and ok2 and ok_mma and ok_view and ok_again):
+                raise AssertionError(f"kernel disagrees at {shape} {dtype}: K1 vs twin ok={ok1} err={e1}, K2 vs twin "
+                                     f"ok={ok2} err={e2}, K2 vs its mma.sync body ok={ok_mma} err={e_mma}, "
+                                     f"from a buffer view the same bits ok={ok_view}, K2 twice the same bits "
+                                     f"ok={ok_again}")
+            del x, xv, fv, f_k, f_p
             torch.cuda.empty_cache()
     return rows, worst
 
@@ -327,15 +362,16 @@ def phase_generator():
             out[f"bf16_{mode}_psnr_kernels_db"], out[f"bf16_{mode}_psnr_plain_db"] = p_k, p_p
         del ref32
         torch.cuda.empty_cache()
-        # img/s at 8×512², bf16, running BN; in turns: plain, kernels, kernels, plain
-        times = {"kernels": [], "plain": []}
-        for impl in ("plain", "kernels", "kernels", "plain"):
-            times[impl].append(cuda_ms(lambda: model_bf(xb, bn_mode="running", impl=impl), reps=5, warmup=1))
-        for impl, ts in times.items():
-            ms = sum(ts) / len(ts)
-            out[f"bf16_running_{impl}_ms"] = ms
-            out[f"bf16_running_{impl}_img_s"] = 8 * 1000.0 / ms
-            log(f"generator bf16 running 8x512^2 {impl}: {ms:.2f} ms/batch, {8000.0 / ms:.2f} img/s")
+        # img/s at 8×512², bf16, per BN mode; in turns: plain, kernels, kernels, plain
+        for mode in ("running", "batch"):
+            times = {"kernels": [], "plain": []}
+            for impl in ("plain", "kernels", "kernels", "plain"):
+                times[impl].append(cuda_ms(lambda: model_bf(xb, bn_mode=mode, impl=impl), reps=5, warmup=1))
+            for impl, ts in times.items():
+                ms = sum(ts) / len(ts)
+                out[f"bf16_{mode}_{impl}_ms"] = ms
+                out[f"bf16_{mode}_{impl}_img_s"] = 8 * 1000.0 / ms
+                log(f"generator bf16 {mode} 8x512^2 {impl}: {ms:.2f} ms/batch, {8000.0 / ms:.2f} img/s")
     return model, out
 
 
@@ -627,6 +663,12 @@ def phase_probes():
         err = tool.compare(ops.probe_mm(a, b, tile), want, tool.PRODUCT_TOL, f"probe_mm, row tile {tile}")
         log(f"probe_mm row tile {tile} vs plain: max_abs_err {err}")
     del a, b, want
+    for size in ("full", "ragged"):
+        segs, a1, b1, w1 = tool.make_conv1(size, np.random.default_rng(3), "cuda")
+        err = tool.compare(ops.conv1_segments(segs, a1, b1, w1, "wgmma"), ops.conv1_segments(segs, a1, b1, w1, "mma"),
+                           tool.CONV1_TOL, f"conv1 wgmma vs mma at {size}")
+        log(f"probe_conv1 wgmma vs mma at {size}: max_abs_err {err}")
+        del segs, a1, b1, w1
     g, w2 = tool.make_conv2("ragged", np.random.default_rng(2), "cuda")
     taps9 = ops.conv2(g, w2, "taps9")
     for mode in ("packed", "wgmma"):
@@ -687,8 +729,8 @@ def main() -> int:
          "launches_by_path": by_path("k1"),
          "max_abs_err": worst["k1"], "ms": timed["k1_ms"], "plain_ms": timed["k1_plain_ms"],
          "bound_ms": timed["k1_bound_ms"], "bound_by": timed["k1_bound_by"], "library_ms": None,
-         "mma_ms": timed["k1_mma_ms"],  # the mma.sync body the wgmma kernel replaced, same run
-         "device_ms": timed["k1_device_ms"], "mma_device_ms": timed["k1_mma_device_ms"],
+         "device_ms": timed["k1_device_ms"],
+         "view_device_ms": timed["k1_view_device_ms"],  # x and out channel slices of a buffer of ld 256
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
         {"name": "h_batch_stats (K2)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
@@ -696,6 +738,9 @@ def main() -> int:
          "launches_by_path": by_path("k2"),
          "max_abs_err": worst["k2"], "ms": timed["k2_ms"], "plain_ms": timed["k2_plain_ms"],
          "bound_ms": timed["k2_bound_ms"], "bound_by": timed["k2_bound_by"], "library_ms": None,
+         "device_ms": timed["k2_device_ms"],
+         "mma_ms": timed["k2_mma_ms"],  # the mma.sync body the wgmma kernel replaced, same run
+         "mma_device_ms": timed["k2_mma_device_ms"],
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
         {"name": "frequency_fuse (K3)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/freq_filters.cu",

@@ -11,12 +11,19 @@
 //
 // K2  fdgan_h_stats_{f32,bf16}
 //     Replaces pallas_dense.py::_h_stats_pallas (kernel body _phase_a_kernel):
-//     per-block fp32 partial sums of h and h*h over the block's pixels, for
+//     per-block partial sums of h and h*h over the block's pixels, for
 //     norm2's batch statistics. No atomics: every block writes its own row of
-//     a (n_blocks, 128) buffer and the wrapper reduces the rows in float64,
-//     so the result does not depend on block scheduling. K1 consumes the
+//     a (blocks, 128) buffer and the wrapper reduces the rows in float64, so
+//     the result does not depend on block scheduling. K1 consumes the
 //     statistics K2 produces, so K2 must finish over the whole batch before
 //     K1 starts; it cannot ride K1's epilogue.
+//
+// The concat. A dense block's layers read a growing concat of channels; the
+// kernels take x with a pixel stride ldx >= C (the elements from one pixel to
+// the next) and K1 writes its 32 channels with a pixel stride ldo, so that a
+// block's layers read and write channel slices of one buffer and no layer
+// copies the concat (ops/dense.py::dense_block_fused). A pixel's 64-channel
+// chunk stays 128 contiguous bytes, so the reads stay whole lines.
 //
 // What bounds them on an H100: K1 does 2*C*128 + 2*9*128*32 FLOP per output
 // pixel against C+32 values read and written. In bf16 that is ~470 FLOP per
@@ -25,42 +32,48 @@
 // 240..160 FLOP/B, below the ridge: memory-bound. The design keeps h and g on
 // chip (the Pallas kernel's point), reads x once per tile plus a one-pixel
 // halo ring (180 rows of t.W1 for 128 outputs), and writes only the 32 new
-// channels.
+// channels. K2 does 128 FLOP per byte at every C: bound by reading x.
 // - bf16 K1 (dense_layer_bf16_kernel): both products are wgmma, Hopper's
 //   warpgroup products, whose operands the tensor core reads from shared
-//   memory itself (wgmma_bf16.cuh). Its mma.sync predecessor (kept below as
-//   dense_layer_bf16_mma_kernel to time old against new) was held at 9-14 %
-//   of the bound by what surrounds the products: every warp loaded its own A
-//   and B fragments from shared memory (1,536 bytes per 16,384 FLOP, three
-//   times what shared memory delivers in the tensor cores' time), W1 and W2
-//   were restaged per 128 outputs with two block barriers per chunk and per
-//   tap, and 16 warps per SM had little to hide the loads behind. The wgmma
-//   kernel is persistent (W2 staged once per block, all nine taps resident),
-//   takes the 3x3 conv as 24 products of N = 96 per 64 rows with the tap
-//   shift as an address, brings W1 in by bulk copies that no thread's load
-//   queue sees, and has one block barrier per 64-channel step. On an H100
-//   80GB HBM3 at 700 W it takes 0.4-0.7 of the mma.sync body's time on the
-//   device at the encoder's shapes (PERF.md has the table) and reaches 30 %
-//   of the bound at 8x512x512x64. What holds it now, from clock64 stamps per
-//   phase: the products need ~45 % of a tile's time at C = 64 and ~30 % of a
-//   step's at large C. The rest is the warps' own work (affine, ReLU and
-//   rounding of t, the epilogue of g, the conv's shift-add), which all
-//   twelve warps do at the same time, and x arriving as 16-byte loads per
-//   thread; a step's products, started before that work, are not done until
-//   well after it, so the work also slows them (every instruction taken out
-//   of stage_t showed in the kernel's time).
-// - bf16 K2 and the conv1 probe: mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate), fragments read straight from padded shared-memory rows
-//   (gemm1_bf16 of mma_bf16.cuh), operands staged in 16-byte vectors with the
-//   next chunk prefetched into registers, two blocks per SM.
+//   memory itself (wgmma_bf16.cuh). Its mma.sync predecessor was held at
+//   9-14 % of the bound by what surrounds the products: every warp loaded its
+//   own A and B fragments from shared memory, W1 and W2 were restaged per 128
+//   outputs with block barriers per chunk and per tap. The wgmma kernel is
+//   persistent (W2 staged once per block, all nine taps resident), takes the
+//   3x3 conv as 24 products of N = 96 per 64 rows with the tap shift as an
+//   address, brings W1 in by bulk copies that no thread's load queue sees,
+//   and has one block barrier per 64-channel step. On an H100 80GB HBM3 at
+//   700 W it took 0.4-0.7 of the mma.sync body's time on the device at the
+//   encoder's shapes (PERF.md has the table) and reaches 30 % of the bound at
+//   8x512x512x64. What holds it now, from clock64 stamps per phase: the
+//   products need ~45 % of a tile's time at C = 64 and ~30 % of a step's at
+//   large C. The rest is the warps' own work (affine, ReLU and rounding of t,
+//   the epilogue of g, the conv's shift-add), which all twelve warps do at
+//   the same time, and x arriving as 16-byte loads per thread; a step's
+//   products, started before that work, are not done until well after it, so
+//   the work also slows them (every instruction taken out of stage_t showed
+//   in the kernel's time).
+// - bf16 K2 (h_stats_bf16_kernel): the t.W1 stage of wgmma_bf16.cuh
+//   (tw1_stream: persistent blocks of two warpgroups over 128-pixel tiles, x
+//   by cp.async three steps ahead, t computed straight into the A fragments
+//   of register-A wgmma, W1 resident up to C = 384 and by a ring of bulk
+//   copies past that), and an epilogue that never leaves registers per tile:
+//   each thread adds its fragment's two rows into running fp32 sums of its
+//   32 columns; every 16 tiles, and at the end, a butterfly over the 8 lanes
+//   that share columns and a pass through shared memory bring them into one
+//   float64 total per column and block. One row of partials per block. Its
+//   mma.sync body (h_stats_bf16_mma_kernel: 192-pixel blocks, W1 restaged
+//   from L2 in 32-channel chunks with block barriers, fragments loaded by
+//   every warp, one row of partials per 192 pixels) is kept to time old
+//   against new; no model path reaches it.
 // - fp32: plain FMAs on the CUDA cores, so fp32 keeps full precision (no
 //   TF32); its bound is the shared-memory read rate of the register-tiled
 //   GEMM loops. It serves checkpoint-parity runs, not the serving default.
 //
 // Tiles: an 8x16 output tile (K1; a 256-thread block each in fp32, walked by
-// persistent 384-thread blocks in bf16) or 192 flat pixels per 256-thread
-// block (K2); the ragged last chunk of C is zero-filled. All take
-// NHWC-contiguous x.
+// persistent 384-thread blocks in bf16), 192 flat pixels per 256-thread block
+// (fp32 K2 and the mma.sync K2) or 128 flat pixels walked by persistent
+// 256-thread blocks (bf16 K2); the ragged last chunk of C is zero-filled.
 
 #include "wgmma_bf16.cuh"
 
@@ -91,8 +104,9 @@ static_assert(2 * 16 * INTER <= TS_WORDS, "K2's reduction must fit in the t stag
 
 // acc[r][j] = h[row][col] for the thread's rows row = pg + 16*r and columns
 // col = cg + 16*j, where h[row] = relu(a1*x[pix[row]] + b1) . W1 and h = 0
-// for rows whose pix is -1. pix must be written before the call.
-__device__ __forceinline__ void gemm1_f32(const float* __restrict__ x, const float* __restrict__ a1,
+// for rows whose pix is -1; pixel p of x starts at x + p * ldx. pix must be
+// written before the call.
+__device__ __forceinline__ void gemm1_f32(const float* __restrict__ x, int ldx, const float* __restrict__ a1,
                                           const float* __restrict__ b1, const float* __restrict__ w1,
                                           int C, const int* pix, float* ts, float* w1s,
                                           float acc[ROWS_PER_T][CH_PER_T]) {
@@ -113,7 +127,7 @@ __device__ __forceinline__ void gemm1_f32(const float* __restrict__ x, const flo
       const float b = cok ? b1[c] : 0.f;
       for (int row = tid / KC; row < NPIX; row += THREADS / KC) {
         const int gp = pix[row];
-        ts[k * TS_LD + row] = (cok && gp >= 0) ? fmaxf(x[(size_t)gp * C + c] * a + b, 0.f) : 0.f;
+        ts[k * TS_LD + row] = (cok && gp >= 0) ? fmaxf(x[(size_t)gp * ldx + c] * a + b, 0.f) : 0.f;
       }
     }
     for (int e = tid; e < KC * INTER; e += THREADS) {
@@ -153,7 +167,8 @@ __global__ void __launch_bounds__(THREADS)
 dense_layer_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1,
                        const float* __restrict__ b1, const float* __restrict__ w1,
                        const float* __restrict__ a2, const float* __restrict__ b2,
-                       const float* __restrict__ w2, float* __restrict__ out, int H, int W, int C) {
+                       const float* __restrict__ w2, float* __restrict__ out, int H, int W, int C, int ldx,
+                       int ldo) {
   extern __shared__ float smem[];
   float* gs = smem;
   float* ts = gs + GS_WORDS;
@@ -166,7 +181,7 @@ dense_layer_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1
   halo_pixels(pix, b, y0, x0, H, W);
 
   float acc[ROWS_PER_T][CH_PER_T];
-  gemm1_f32(x, a1, b1, w1, C, pix, ts, w1s, acc);
+  gemm1_f32(x, ldx, a1, b1, w1, C, pix, ts, w1s, acc);
 
   // g = relu(a2*h + b2), exactly 0 outside the image: that is conv2's zero
   // padding (a zero x there would leak relu(b1), relu(b2) through the affines)
@@ -223,7 +238,7 @@ dense_layer_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1
     const int q = qg + 32 * m;
     const int oy = y0 + q / TILE_W, ox = x0 + q % TILE_W;
     if (oy < H && ox < W) {
-      float* o = out + ((size_t)(b * H + oy) * W + ox) * GROWTH;
+      float* o = out + ((size_t)(b * H + oy) * W + ox) * ldo;
 #pragma unroll
       for (int j = 0; j < 4; ++j) o[fq + 8 * j] = acc2[m][j];
     }
@@ -232,7 +247,7 @@ dense_layer_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1
 
 // K2, fp32. Grid (ceil(npix/192)); block n covers flat pixels [192n, 192n+192).
 __global__ void __launch_bounds__(THREADS)
-h_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1,
+h_stats_f32_kernel(const float* __restrict__ x, int ldx, const float* __restrict__ a1,
                    const float* __restrict__ b1, const float* __restrict__ w1,
                    float* __restrict__ psum, float* __restrict__ psq, int npix, int C) {
   extern __shared__ float smem[];
@@ -245,7 +260,7 @@ h_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1,
   for (int row = tid; row < NPIX; row += THREADS) pix[row] = p0 + row < npix ? p0 + row : -1;
 
   float acc[ROWS_PER_T][CH_PER_T];
-  gemm1_f32(x, a1, b1, w1, C, pix, ts, w1s, acc);
+  gemm1_f32(x, ldx, a1, b1, w1, C, pix, ts, w1s, acc);
 
   // rows past the end hold h = 0, so they add nothing to either sum
   const int pg = tid / 16, cg = tid % 16;
@@ -274,127 +289,83 @@ h_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1,
   }
 }
 
-// --- the bf16 path: tensor cores ----------------------------------------------
+// --- K2 bf16, the mma.sync body ------------------------------------------------
 //
-// Warp w of 8, lane = 4*gq + tq. GEMM1 (192 x 128, K = C) is gemm1_bf16<3>
-// of mma_bf16.cuh: warp w owns rows 48*(w%4) .. +48 (three m16 tiles) and
-// columns 64*(w/4) .. +64 (eight n8 tiles). GEMM2 (128 x 32, K = 9*128):
-// warp w owns output row w of the tile (one m16 tile: pixels x = gq and
-// gq+8) and all four n8 tiles.
-// Operands are staged in 16-byte vectors, and the next chunk of x and W1 (or
-// the next W2 tap) is loaded into registers while the tensor cores work on
-// the current one. Shared rows are padded by 8 bf16 (16 bytes) so that the
-// eight rows a fragment load touches fall in distinct banks. C must be a
-// multiple of 8 (every dense layer's is a multiple of 32).
-// Weights arrive as w1t (128, C) = W1 transposed, and w2r (9, 32, 128) =
-// per tap, per output channel, the 128 inputs: both are torch's OIHW order.
+// Kept to time old against new in one run; no model path reaches it. Warp w
+// of 8, lane = 4*gq + tq: the t.W1 product (192 x 128, K = C) is
+// gemm1_bf16<3> of mma_bf16.cuh, warp w owning rows 48*(w%4) .. +48 (three
+// m16 tiles) and columns 64*(w/4) .. +64 (eight n8 tiles). x and W1 are
+// staged in 16-byte vectors, the next chunk loaded into registers while the
+// tensor cores work on the current one; shared rows are padded by 8 bf16 so
+// that the eight rows a fragment load touches fall in distinct banks. W1
+// arrives as w1t (128, C), W1 transposed. C must be a multiple of 8.
 
-constexpr int GB_LD = INTER + 8;    // g [row][i] and one W2 tap [f][i], in bf16
-constexpr int BF_GS = NPIX * GB_LD;         // bf16 elements
 constexpr int BF_TS = NPIX * TB_LD;
 constexpr int BF_W1S = INTER * TB_LD;
-constexpr size_t BF_K1_SMEM = 2 * (BF_GS + BF_TS + BF_W1S) + 4 * NPIX;
 constexpr size_t BF_K2_SMEM = 2 * (BF_TS + BF_W1S) + 4 * NPIX;
-static_assert(GROWTH * GB_LD <= BF_TS, "a W2 tap must fit in the t staging area");
 static_assert(2 * 4 * INTER * 2 <= BF_TS, "K2's reduction (fp32) must fit in the t staging area");
-static_assert(NPIX == 3 * 64 && NPIX * (KC / 8) == 3 * THREADS && INTER * (KC / 8) == 2 * THREADS &&
-                  GROWTH * (INTER / 8) == 2 * THREADS,
-              "each thread stages 3 x vectors, 2 W1 vectors and 2 W2 vectors");
+static_assert(NPIX == 3 * 64 && NPIX * (KC / 8) == 3 * THREADS && INTER * (KC / 8) == 2 * THREADS,
+              "each thread stages 3 x vectors and 2 W1 vectors");
 
-// K1, bf16, the mma.sync body. Grid (ceil(W/16), ceil(H/8), B).
+// Grid (ceil(npix/192)).
 __global__ void __launch_bounds__(THREADS, 2)
-dense_layer_bf16_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
-                        const float* __restrict__ b1, const bf16* __restrict__ w1t,
-                        const float* __restrict__ a2, const float* __restrict__ b2,
-                        const bf16* __restrict__ w2r, bf16* __restrict__ out, int H, int W, int C) {
+h_stats_bf16_mma_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ a1,
+                    const float* __restrict__ b1, const bf16* __restrict__ w1t,
+                    float* __restrict__ psum, float* __restrict__ psq, int npix, int C) {
   extern __shared__ float smem[];
-  bf16* gs = reinterpret_cast<bf16*>(smem);
-  bf16* ts = gs + BF_GS;
+  bf16* ts = reinterpret_cast<bf16*>(smem);
   bf16* w1s = ts + BF_TS;
   int* pix = reinterpret_cast<int*>(w1s + BF_W1S);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
-  halo_pixels(pix, b, y0, x0, H, W);
+  const int p0 = blockIdx.x * NPIX;
+  for (int row = tid; row < NPIX; row += THREADS) pix[row] = p0 + row < npix ? p0 + row : -1;
 
   float acc[3][8][4];
-  gemm1_bf16<3>([=](int gp, int c) { return x + (size_t)gp * C + c; }, a1, b1, w1t, C, pix, ts,
+  gemm1_bf16<3>([=](int gp, int c) { return x + (size_t)gp * ldx + c; }, a1, b1, w1t, C, pix, ts,
                 w1s, acc);
 
-  // the first W2 tap loads while the epilogue runs: f = sr2 + 16*r, inputs 8*iq ..
-  const int sr2 = tid / 16, iq = tid % 16;
-  uint4 w2v[2];
-  auto fetch_tap = [&](int tap) {
+  // rows past the end hold h = 0. Sum the thread's 6 rows, then the 8 lanes
+  // of a column (shuffles over gq), then the 4 row-warps in a fixed order.
+  float* red = reinterpret_cast<float*>(ts);  // [2][4][INTER]; ts is consumed
+  const int wm = warp % 4, n0 = 64 * (warp / 4);
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      w2v[r] = *reinterpret_cast<const uint4*>(w2r + ((size_t)tap * GROWTH + sr2 + 16 * r) * INTER + 8 * iq);
-  };
-  fetch_tap(0);
-
-  // g = round(relu(a2*h + b2)), exactly 0 outside the image: that is conv2's
-  // zero padding (a zero x there would leak relu(b1), relu(b2))
-  {
-    const int m0 = 48 * (warp % 4), n0 = 64 * (warp / 4);
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = n0 + 8 * j + 2 * tq;
-      const float a[2] = {a2[i], a2[i + 1]}, bb[2] = {b2[i], b2[i + 1]};
+    for (int e = 0; e < 2; ++e) {
+      float s = 0.f, q = 0.f;
 #pragma unroll
       for (int mi = 0; mi < 3; ++mi)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int row = m0 + 16 * mi + gq + 8 * half;
-          const bool in = pix[row] >= 0;
-          const float lo = in ? fmaxf(acc[mi][j][2 * half] * a[0] + bb[0], 0.f) : 0.f;
-          const float hi = in ? fmaxf(acc[mi][j][2 * half + 1] * a[1] + bb[1], 0.f) : 0.f;
-          *reinterpret_cast<uint32_t*>(gs + row * GB_LD + i) = pack_pair(lo, hi);
+          const float v = acc[mi][j][2 * half + e];
+          s += v;
+          q = fmaf(v, v, q);
         }
-    }
-  }
-
-  float acc2[4][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc2[j][e] = 0.f;
-
-  bf16* w2s = ts;  // one W2 tap at a time, [f][i], in the t staging area
-  for (int tap = 0; tap < 9; ++tap) {
-    __syncthreads();  // g is written / the previous tap is consumed
-#pragma unroll
-    for (int r = 0; r < 2; ++r) *reinterpret_cast<uint4*>(w2s + (sr2 + 16 * r) * GB_LD + 8 * iq) = w2v[r];
-    __syncthreads();
-    if (tap < 8) fetch_tap(tap + 1);
-    const int dy = tap / 3, dx = tap % 3;
-    const bf16* g_lo = gs + ((warp + dy) * HALO_W + gq + dx) * GB_LD + 2 * tq;  // pixel x = gq
-    const bf16* g_hi = g_lo + 8 * GB_LD;                                          // pixel x = gq + 8
-#pragma unroll
-    for (int ks = 0; ks < INTER; ks += 16) {
-      const uint32_t afr[4] = {ld_pair(g_lo + ks), ld_pair(g_hi + ks), ld_pair(g_lo + ks + 8),
-                               ld_pair(g_hi + ks + 8)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* p = w2s + (8 * j + gq) * GB_LD + ks + 2 * tq;
-        const uint32_t bfr[2] = {ld_pair(p), ld_pair(p + 8)};
-        mma_bf16_16816(acc2[j], afr, bfr);
+      for (int off = 4; off < 32; off *= 2) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        q += __shfl_xor_sync(0xffffffffu, q, off);
+      }
+      if (gq == 0) {
+        const int col = n0 + 8 * j + 2 * tq + e;
+        red[wm * INTER + col] = s;
+        red[(4 + wm) * INTER + col] = q;
       }
     }
-  }
-
-  const int oy = y0 + warp;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int ox = x0 + gq + 8 * half;
-    if (oy < H && ox < W) {
-      bf16* o = out + ((size_t)(b * H + oy) * W + ox) * GROWTH + 2 * tq;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_pair(acc2[j][2 * half], acc2[j][2 * half + 1]);
+  __syncthreads();
+  if (tid < INTER) {
+    float s = 0.f, q = 0.f;
+    for (int r = 0; r < 4; ++r) {
+      s += red[r * INTER + tid];
+      q += red[(4 + r) * INTER + tid];
     }
+    psum[(size_t)blockIdx.x * INTER + tid] = s;
+    psq[(size_t)blockIdx.x * INTER + tid] = q;
   }
 }
+
 
 // --- K1 bf16 on wgmma ----------------------------------------------------------
 //
@@ -453,7 +424,8 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
 dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
                         const float* __restrict__ b1, const bf16* __restrict__ w1p,
                         const float* __restrict__ a2, const float* __restrict__ b2,
-                        const bf16* __restrict__ w2r, bf16* __restrict__ out, int B, int H, int W, int C) {
+                        const bf16* __restrict__ w2r, bf16* __restrict__ out, int B, int H, int W, int C,
+                        int ldx, int ldo) {
   extern __shared__ __align__(128) unsigned char smem_wg[];
   unsigned char* w2s = smem_wg;
   unsigned char* gs = w2s + W2_BYTES;            // g of the halo tile, [k / 8][flat index][8]
@@ -492,7 +464,7 @@ dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1
     const int c = c0 + 8 * oct;
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      xr[r] = (c < C && gp[r] >= 0) ? __ldcg(reinterpret_cast<const uint4*>(x + (size_t)gp[r] * C + c)) : zero;
+      xr[r] = (c < C && gp[r] >= 0) ? __ldcg(reinterpret_cast<const uint4*>(x + (size_t)gp[r] * ldx + c)) : zero;
   };
   // Chunk ci of W1 into a stage, by one thread: w1p (C / 8, 128, 8) is the stage's own
   // layout, so a chunk is one bulk copy of up to 16 KB that no thread's load queue
@@ -550,32 +522,16 @@ dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1
   }
 
   float acc[64];
-  // two bf16 of x -> round(relu(a*x + b)) as two bf16
-  auto affine_relu = [](uint32_t xw, const float* a, const float* b) {
-    return pack_pair_relu(__uint_as_float(xw << 16) * a[0] + b[0], __uint_as_float(xw & 0xffff0000u) * a[1] + b[1]);
-  };
   // t of chunk ci from xr into stage ci & 1; then xr sets out for the chunk after next.
   // Straight code (selects, no branches): it also runs under the conv's products.
   auto stage_t = [&](int ci, uint4 (&xr)[4]) {
     const int c = ci * K1_KC + 8 * oct;
-    const float4 none = make_float4(0.f, 0.f, 0.f, 0.f);  // channels past C: t = 0 anyway
-    const float4 av[2] = {c < C ? *reinterpret_cast<const float4*>(a1s + c) : none,
-                          c < C ? *reinterpret_cast<const float4*>(a1s + c + 4) : none};
-    const float4 bv[2] = {c < C ? *reinterpret_cast<const float4*>(b1s + c) : none,
-                          c < C ? *reinterpret_cast<const float4*>(b1s + c + 4) : none};
-    const float a[8] = {av[0].x, av[0].y, av[0].z, av[0].w, av[1].x, av[1].y, av[1].z, av[1].w};
-    const float b[8] = {bv[0].x, bv[0].y, bv[0].z, bv[0].w, bv[1].x, bv[1].y, bv[1].z, bv[1].w};
+    float a[8], b[8];
+    affine8(a1s, b1s, c, C, a, b);
     unsigned char* ts = ring + (ci & 1) * K1_STAGE + oct * K1_T_PLANE;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const bool ok = c < C && gp[r] >= 0;  // rows outside the image and channels past C stage t = 0
-      uint4 t;
-      t.x = ok ? affine_relu(xr[r].x, a + 0, b + 0) : 0u;
-      t.y = ok ? affine_relu(xr[r].y, a + 2, b + 2) : 0u;
-      t.z = ok ? affine_relu(xr[r].z, a + 4, b + 4) : 0u;
-      t.w = ok ? affine_relu(xr[r].w, a + 6, b + 6) : 0u;
-      *reinterpret_cast<uint4*>(ts + (srow + 16 * r) * 16) = t;
-    }
+    for (int r = 0; r < 4; ++r)  // rows outside the image and channels past C stage t = 0
+      *reinterpret_cast<uint4*>(ts + (srow + 16 * r) * 16) = affine_relu8(xr[r], a, b, c < C && gp[r] >= 0);
     if (ci + 2 < nchunks) fetch(xr, (ci + 2) * K1_KC);  // in flight over the next step
   };
   // the rest of step ci: the products on its staged t and W1 started
@@ -682,7 +638,7 @@ dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1
       conv2_flat_combine(acc2, acc3, xch, tid / 32, tid % 32);
       conv2_flat_stage<K1_TW>(os, acc2, 64 * wg, lw);
       warpgroup_sync(wg);
-      conv2_flat_store<K1_TW>(os, out, 64 * wg, b, y0, x0, H, W, lw);
+      conv2_flat_store<K1_TW>(os, out, ldo, 64 * wg, b, y0, x0, H, W, lw);
     }
     // os is the second stage's t, rows 64 wg .. of it this warpgroup's own: they are next
     // written in step 1 of the next tile, after step 0's block barrier; g is next
@@ -690,91 +646,127 @@ dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1
   }
 }
 
-// K2, bf16. Grid (ceil(npix/192)).
-__global__ void __launch_bounds__(THREADS, 2)
-h_stats_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
-                    const float* __restrict__ b1, const bf16* __restrict__ w1t,
-                    float* __restrict__ psum, float* __restrict__ psq, int npix, int C) {
-  extern __shared__ float smem[];
-  bf16* ts = reinterpret_cast<bf16*>(smem);
-  bf16* w1s = ts + BF_TS;
-  int* pix = reinterpret_cast<int*>(w1s + BF_W1S);
+// --- K2 bf16 on wgmma ----------------------------------------------------------
+//
+// tw1_stream (wgmma_bf16.cuh) computes h tile by tile; the epilogue below
+// turns each tile's accumulators into column sums without leaving registers.
+// A thread's fragment holds two rows of 32 columns (col = 8j + 2tq + e), the
+// same columns on every tile, so it adds them into running fp32 sums of h
+// and h*h (64 registers). Every K2_FLUSH tiles, and at the end, the sums are
+// reduced: a butterfly over the 8 lanes that share columns (lane bits 2-4,
+// 56 shuffles) leaves each lane 8 of the warp's 256 sums, the 8 warps meet
+// in shared memory, and thread i (statistic i / 128, column i % 128) adds
+// their fp32 sum, in warp order, into its float64 total for the block. So an
+// fp32 sum never spans more than 2 * K2_FLUSH rows before the lane tree (the
+// mma.sync body's spanned 192 rows), the reduction costs ~4 shuffles a tile,
+// and the block writes one row of float64 partials: 132 rows on an H100,
+// not one per 192 pixels. Rows past npix hold h = 0 (tw1_stream stages t = 0
+// there), so they add nothing. The walk is static and every sum is taken in
+// a fixed order: a launch gives the same bits every time on one machine.
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4;
-  const int p0 = blockIdx.x * NPIX;
-  for (int row = tid; row < NPIX; row += THREADS) pix[row] = p0 + row < npix ? p0 + row : -1;
-
-  float acc[3][8][4];
-  gemm1_bf16<3>([=](int gp, int c) { return x + (size_t)gp * C + c; }, a1, b1, w1t, C, pix, ts,
-                w1s, acc);
-
-  // rows past the end hold h = 0. Sum the thread's 6 rows, then the 8 lanes
-  // of a column (shuffles over gq), then the 4 row-warps in a fixed order.
-  float* red = reinterpret_cast<float*>(ts);  // [2][4][INTER]; ts is consumed
-  const int wm = warp % 4, n0 = 64 * (warp / 4);
+// One step of a reduce-scatter across the lanes that differ in ``bit``: of the
+// first 2N values, the lower lane keeps [0, N) and the upper [N, 2N), each
+// adding the other's half. N is a template constant so that every index is.
+template <int N>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[64], int lane, int bit) {
+  const bool upper = lane & bit;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float s = 0.f, q = 0.f;
-#pragma unroll
-      for (int mi = 0; mi < 3; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float v = acc[mi][j][2 * half + e];
-          s += v;
-          q = fmaf(v, v, q);
-        }
-#pragma unroll
-      for (int off = 4; off < 32; off *= 2) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        q += __shfl_xor_sync(0xffffffffu, q, off);
-      }
-      if (gq == 0) {
-        const int col = n0 + 8 * j + 2 * tq + e;
-        red[wm * INTER + col] = s;
-        red[(4 + wm) * INTER + col] = q;
-      }
-    }
-  __syncthreads();
-  if (tid < INTER) {
-    float s = 0.f, q = 0.f;
-    for (int r = 0; r < 4; ++r) {
-      s += red[r * INTER + tid];
-      q += red[(4 + r) * INTER + tid];
-    }
-    psum[(size_t)blockIdx.x * INTER + tid] = s;
-    psq[(size_t)blockIdx.x * INTER + tid] = q;
+  for (int i = 0; i < N; ++i) {
+    const float keep = upper ? v[N + i] : v[i], send = upper ? v[i] : v[N + i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
   }
+}
+
+constexpr int K2_RES = 6;     // W1 chunks resident: all of W1 for C <= 384 (what fits beside the x ring)
+constexpr int K2_FLUSH = 16;  // tiles between two reductions of the running sums
+typedef TW1Smem<K2_RES> K2S;
+constexpr int K2_WARPS = TW1_THREADS / 32;
+constexpr size_t K2_SMEM = K2S::BYTES + K2_WARPS * 2 * INTER * sizeof(float);
+static_assert(K2_SMEM <= 232448, "a block's shared memory");
+static_assert(TW1_THREADS == 2 * INTER, "a thread per (statistic, column) keeps the block's float64 total");
+
+__global__ void __launch_bounds__(TW1_THREADS, 1)
+h_stats_bf16_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ a1, const float* __restrict__ b1,
+                    const bf16* __restrict__ w1p, double* __restrict__ psum, double* __restrict__ psq, int npix,
+                    int C) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  float* red = reinterpret_cast<float*>(smem_wg + K2S::BYTES);  // [warp][statistic][column]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, tq = lane % 4;
+
+  float run[64];  // run[2j + e]: sum of h at column 8j + 2tq + e over the thread's rows; run[32 + 2j + e]: of h*h
+#pragma unroll
+  for (int i = 0; i < 64; ++i) run[i] = 0.f;
+  double total = 0.0;  // statistic tid / 128 of column tid % 128 over the block's tiles
+  int since_flush = 0;
+  auto flush = [&]() {
+    // reduce-scatter over lane bits 4, 3, 2 (constant indices throughout: run stays in registers)
+    reduce_scatter_step<32>(run, lane, 16);
+    reduce_scatter_step<16>(run, lane, 8);
+    reduce_scatter_step<8>(run, lane, 4);
+    // lane holds run[32 b4 + 16 b3 + 8 b2 + i], i < 8, summed over the warp's 16 rows (b_k = bit k of lane)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = 16 * (lane >> 3 & 1) + 8 * (lane >> 2 & 1) + i;  // 2j + e
+      red[(warp * 2 + (lane >> 4)) * INTER + 8 * (k >> 1) + 2 * tq + (k & 1)] = run[i];
+    }
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < K2_WARPS; ++w) s += red[w * 2 * INTER + tid];
+    total += (double)s;
+    __syncthreads();  // red is free again
+#pragma unroll
+    for (int i = 0; i < 64; ++i) run[i] = 0.f;
+  };
+  auto accumulate = [&](const float (&acc)[64], int) {
+#pragma unroll
+    for (int j = 0; j < INTER / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];  // rows gq and gq + 8
+        run[2 * j + e] += v0 + v1;
+        run[32 + 2 * j + e] = fmaf(v1, v1, fmaf(v0, v0, run[32 + 2 * j + e]));
+      }
+    if (++since_flush == K2_FLUSH) {  // the same count in every thread: the barriers inside are reached by all
+      flush();
+      since_flush = 0;
+    }
+  };
+  tw1_stream<K2_RES>(StridedX{x, ldx}, a1, b1, w1p, npix, C, smem_wg, accumulate);
+  if (since_flush > 0) flush();
+  (tid < INTER ? psum : psq)[(size_t)blockIdx.x * INTER + tid % INTER] = total;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Every entry point returns cudaGetLastError() after its launch (0 = success).
-// x (B,H,W,C) and out (B,H,W,32) are contiguous in the kernel's dtype; a1, b1
-// (C) and a2, b2 (128) are fp32. The f32 kernels take w1 (C,128) and
-// w2 (9*128,32); the bf16 kernels take w2r (9,32,128) and W1 as w1t (128,C),
-// except fdgan_dense_layer_bf16, which takes it as w1p (C/8,128,8), planes of
-// eight input channels: w1p[p][n][k] = W1[8p + k][n]. They need C % 8 == 0
-// and 16-byte aligned x, W1, w2r, a1 and b1.
+// Every entry point returns a CUDA error code (0 = success): that of its
+// set-up calls, or cudaGetLastError() after its launch. x (B,H,W,C) holds
+// pixel p at x + p * ldx (ldx >= C), out (B,H,W,32) at out + p * ldo, both in
+// the kernel's dtype; a1, b1 (C) and a2, b2 (128) are fp32. The f32 kernels
+// take w1 (C,128) and w2 (9*128,32); the bf16 kernels take w2r (9,32,128)
+// and W1 as w1p (C/8,128,8), planes of eight input channels: w1p[p][n][k] =
+// W1[8p + k][n] (K1), the same with the rows zero-padded to a multiple of
+// 64 and permuted within each 64 into the TW1 order of wgmma_bf16.cuh
+// (fdgan_h_stats_bf16), or W1 transposed, w1t (128,C)
+// (fdgan_h_stats_bf16_mma). The bf16 kernels need C, ldx and ldo multiples of 8 and 16-byte
+// aligned x, out, W1, w2r, a1 and b1.
 
 int fdgan_dense_layer_f32(const void* x, const void* a1, const void* b1, const void* w1,
                           const void* a2, const void* b2, const void* w2, void* out, int B,
-                          int H, int W, int C, void* stream) {
+                          int H, int W, int C, int ldx, int ldo, void* stream) {
   if (int err = set_smem(dense_layer_f32_kernel, F32_K1_SMEM)) return err;
   const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
   dense_layer_f32_kernel<<<grid, THREADS, F32_K1_SMEM, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)a1, (const float*)b1, (const float*)w1, (const float*)a2,
-      (const float*)b2, (const float*)w2, (float*)out, H, W, C);
+      (const float*)b2, (const float*)w2, (float*)out, H, W, C, ldx, ldo);
   return (int)cudaGetLastError();
 }
 
 int fdgan_dense_layer_bf16(const void* x, const void* a1, const void* b1, const void* w1,
                            const void* a2, const void* b2, const void* w2, void* out, int B,
-                           int H, int W, int C, void* stream) {
+                           int H, int W, int C, int ldx, int ldo, void* stream) {
   if (int err = set_smem(dense_layer_bf16_kernel, K1_SMEM)) return err;
   const long long ntiles = (long long)B * ((H + K1T::TH - 1) / K1T::TH) * ((W + K1_TW - 1) / K1_TW);
   static int resident[MAX_DEVICES] = {};
@@ -782,43 +774,74 @@ int fdgan_dense_layer_bf16(const void* x, const void* a1, const void* b1, const 
   if (int err = persistent_grid(dense_layer_bf16_kernel, K1_THREADS, K1_SMEM, ntiles, 1, &grid, resident)) return err;
   dense_layer_bf16_kernel<<<grid, K1_THREADS, K1_SMEM, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)a1, (const float*)b1, (const bf16*)w1, (const float*)a2,
-      (const float*)b2, (const bf16*)w2, (bf16*)out, B, H, W, C);
-  return (int)cudaGetLastError();
-}
-
-// the mma.sync body that the wgmma kernel replaced, kept to time old against
-// new in one run; no model path reaches it
-int fdgan_dense_layer_bf16_mma(const void* x, const void* a1, const void* b1, const void* w1,
-                               const void* a2, const void* b2, const void* w2, void* out, int B,
-                               int H, int W, int C, void* stream) {
-  if (int err = set_smem(dense_layer_bf16_mma_kernel, BF_K1_SMEM)) return err;
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
-  dense_layer_bf16_mma_kernel<<<grid, THREADS, BF_K1_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)a1, (const float*)b1, (const bf16*)w1, (const float*)a2,
-      (const float*)b2, (const bf16*)w2, (bf16*)out, H, W, C);
+      (const float*)b2, (const bf16*)w2, (bf16*)out, B, H, W, C, ldx, ldo);
   return (int)cudaGetLastError();
 }
 
 // psum, psq: fp32 (ceil(npix/192), 128); npix = B*H*W
 int fdgan_h_stats_f32(const void* x, const void* a1, const void* b1, const void* w1, void* psum,
-                      void* psq, int npix, int C, void* stream) {
+                      void* psq, int npix, int C, int ldx, void* stream) {
   if (int err = set_smem(h_stats_f32_kernel, F32_K2_SMEM)) return err;
   h_stats_f32_kernel<<<(npix + NPIX - 1) / NPIX, THREADS, F32_K2_SMEM, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)a1, (const float*)b1, (const float*)w1, (float*)psum,
+      (const float*)x, ldx, (const float*)a1, (const float*)b1, (const float*)w1, (float*)psum,
       (float*)psq, npix, C);
   return (int)cudaGetLastError();
 }
 
+static int k2_resident[MAX_DEVICES] = {};
+
+static int k2_grid(int npix, int* grid) {
+  if (int err = set_smem(h_stats_bf16_kernel, K2_SMEM)) return err;
+  return persistent_grid(h_stats_bf16_kernel, TW1_THREADS, K2_SMEM, (npix + TW1_ROWS - 1) / TW1_ROWS, 1, grid,
+                         k2_resident);
+}
+
+// the rows of partials fdgan_h_stats_bf16 writes for npix pixels on the current
+// device (its grid), or minus a CUDA error code
+int fdgan_h_stats_bf16_blocks(int npix) {
+  int grid = 0;
+  if (int err = k2_grid(npix, &grid)) return -err;
+  return grid;
+}
+
+// psum, psq: float64 (fdgan_h_stats_bf16_blocks(npix), 128)
 int fdgan_h_stats_bf16(const void* x, const void* a1, const void* b1, const void* w1,
-                       void* psum, void* psq, int npix, int C, void* stream) {
-  if (int err = set_smem(h_stats_bf16_kernel, BF_K2_SMEM)) return err;
-  h_stats_bf16_kernel<<<(npix + NPIX - 1) / NPIX, THREADS, BF_K2_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)a1, (const float*)b1, (const bf16*)w1, (float*)psum,
+                       void* psum, void* psq, int npix, int C, int ldx, void* stream) {
+  int grid = 0;
+  if (int err = k2_grid(npix, &grid)) return err;
+  h_stats_bf16_kernel<<<grid, TW1_THREADS, K2_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, ldx, (const float*)a1, (const float*)b1, (const bf16*)w1, (double*)psum, (double*)psq, npix, C);
+  return (int)cudaGetLastError();
+}
+
+// the mma.sync body that the wgmma kernel replaced, kept to time old against
+// new in one run; no model path reaches it. psum, psq: fp32 (ceil(npix/192), 128)
+int fdgan_h_stats_bf16_mma(const void* x, const void* a1, const void* b1, const void* w1,
+                           void* psum, void* psq, int npix, int C, int ldx, void* stream) {
+  if (int err = set_smem(h_stats_bf16_mma_kernel, BF_K2_SMEM)) return err;
+  h_stats_bf16_mma_kernel<<<(npix + NPIX - 1) / NPIX, THREADS, BF_K2_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, ldx, (const float*)a1, (const float*)b1, (const bf16*)w1, (float*)psum,
       (float*)psq, npix, C);
   return (int)cudaGetLastError();
 }
 
 int fdgan_h_stats_rows(void) { return NPIX; }
+
+// K2's tw1_stamps (wgmma_bf16.cuh) into out (16 values), then zeroed where
+// reset; cudaErrorNotSupported unless the library was built with -DFDGAN_TW1_STAMPS
+int fdgan_tw1_stamps(void* out, int reset) {
+#ifdef FDGAN_TW1_STAMPS
+  if (int err = (int)cudaMemcpyFromSymbol(out, tw1_stamps, sizeof(tw1_stamps))) return err;
+  if (reset) {
+    const unsigned long long zeros[16] = {};
+    if (int err = (int)cudaMemcpyToSymbol(tw1_stamps, zeros, sizeof(tw1_stamps))) return err;
+  }
+  return 0;
+#else
+  (void)out, (void)reset;
+  return (int)cudaErrorNotSupported;
+#endif
+}
 
 const char* fdgan_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -1,9 +1,9 @@
 // Device helpers shared by the bf16 tensor-core kernels of dense_layer.cu and
 // probes.cu: mma.sync m16n8k16 fragments read from padded shared-memory rows,
 // 16-byte asynchronous copies (cp.async), bulk copies with their mbarrier,
-// the t.W1 product that K2, the conv1 probe and the dense layer's mma.sync
-// body start with, and the launch helpers (set_smem, persistent_grid). The
-// wgmma helpers are in wgmma_bf16.cuh.
+// the t.W1 product of K2's and the conv1 probe's mma.sync bodies, and the
+// launch helpers (set_smem, persistent_grid). The wgmma helpers are in
+// wgmma_bf16.cuh.
 //
 // Fragment layout of mma.sync m16n8k16 (bf16 in, fp32 accumulate), for lane
 // = 4*gq + tq of a warp: A holds rows gq and gq+8, k = 2tq, 2tq+1 and

@@ -16,7 +16,8 @@
 // does. The kernels that keep an operand resident (probe_mm's B, conv2's
 // W2) run as persistent blocks, as many as fit the card, each walking its
 // share of the tiles with the next tile's loads (cp.async) in flight under
-// the current tile's products.
+// the current tile's products. The "wgmma" bodies of conv1 and conv2 are the
+// dense layer's stages on Hopper's warpgroup products (wgmma_bf16.cuh).
 
 #include "wgmma_bf16.cuh"
 
@@ -290,18 +291,23 @@ probe_scale_copy_bulk_kernel(const bf16* __restrict__ a, bf16* __restrict__ y, s
 // probe_conv1: out = round(relu(cat(s0..s_{n-1}).a + b)) . W1, (P,C) -> (P,128).
 //
 // Replaces tools/probe_pallas5.py:69 seg_conv1 (body _seg_kernel :58) and :99
-// mono_conv1 (body _mono_kernel :91): one kernel that takes 1 to 8 segment
+// mono_conv1 (body _mono_kernel :91): a kernel that takes 1 to 8 segment
 // arrays (P, width_i) by pointer and width and never forms their concat in
 // device memory; with one segment it reads the concatenated array. It is
-// K1's first stage, gemm1_bf16 of mma_bf16.cuh, with the x loader finding
-// each 8-channel vector's segment; a and b are indexed by the channel's
-// place in the virtual concat.
+// the dense layer's t.W1 stage with the x loader finding each 8-channel
+// vector's segment; a and b are indexed by the channel's place in the
+// virtual concat. Two bodies:
+// - "mma": gemm1_bf16 of mma_bf16.cuh (mma.sync fragments loaded by every
+//   warp); one block per 128 pixels, two per SM; W1 staged chunk by chunk
+//   from L2 with block barriers.
+// - "wgmma": K2's body, tw1_stream of wgmma_bf16.cuh (persistent blocks of
+//   two warpgroups, W1 resident, t staged under the products), with an
+//   epilogue that rounds h and stores it.
+// Both results leave through shared memory in 16-byte rows.
 //
 // Bound on an H100: memory, 2*P*(C + 128) bytes against 2*P*C*128 FLOP (71
 // FLOP per byte at C = 160). Segments change nothing in the bytes, only the
-// row stride of each read, which is what the probe measures. One block per
-// 128 pixels, two per SM; W1 is staged chunk by chunk from L2, as in K1;
-// the result leaves through shared memory in 16-byte rows.
+// row stride of each read, which is what the probe measures.
 // -----------------------------------------------------------------------------
 
 constexpr int MAX_SEGS = 8;
@@ -311,22 +317,26 @@ struct Segments {
   const bf16* ptr[MAX_SEGS];
   int width[MAX_SEGS];
   int n;
+  // where the 8 channels c .. c+7 of the virtual concat lie; every width is
+  // a multiple of 8, so they lie in one segment
+  __device__ __forceinline__ XColumn column(int c) const {
+    XColumn col = {ptr[0], width[0]};
+    int start = 0;
+#pragma unroll
+    for (int i = 0; i < MAX_SEGS; ++i) {
+      const int w = i < n ? width[i] : 0;
+      if (c >= start && c < start + w) col = {ptr[i] + (c - start), w};
+      start += w;
+    }
+    return col;
+  }
 };
 
 struct SegmentAt {
   const Segments& s;
-  // the 8 channels c .. c+8 of the virtual concat, at pixel gp; every width
-  // is a multiple of 8, so they lie in one segment
   __device__ __forceinline__ const bf16* operator()(int gp, int c) const {
-    const bf16* p = nullptr;
-    int start = 0;
-#pragma unroll
-    for (int i = 0; i < MAX_SEGS; ++i) {
-      const int w = i < s.n ? s.width[i] : 0;
-      if (c >= start && c < start + w) p = s.ptr[i] + (size_t)gp * w + (c - start);
-      start += w;
-    }
-    return p;
+    const XColumn col = s.column(c);
+    return col.base + (size_t)gp * col.ld;
   }
 };
 
@@ -359,6 +369,44 @@ probe_conv1_kernel(const __grid_constant__ Segments segs, const float* __restric
       *reinterpret_cast<uint4*>(out + (size_t)(p0 + r) * INTER + 8 * kq) =
           *reinterpret_cast<const uint4*>(os + r * ROW_LD + 8 * kq);
   }
+}
+
+constexpr int C1W_RES = 4;                        // W1 chunks resident: C <= 256 (the probe's C is 160)
+typedef TW1Smem<C1W_RES> C1WS;
+constexpr uint32_t C1W_OS = (C1WS::BYTES + 127) / 128 * 128;  // the staged rows of h
+constexpr uint32_t C1W_OS_LD = 2 * INTER + 16;    // bytes of a staged row, padded: conflict-free stmatrix
+constexpr size_t C1W_SMEM = C1W_OS + TW1_ROWS * C1W_OS_LD;
+static_assert(C1W_SMEM <= 232448, "a block's shared memory");
+
+__global__ void __launch_bounds__(TW1_THREADS, 1)
+probe_conv1_wgmma_kernel(const __grid_constant__ Segments segs, const float* __restrict__ a,
+                         const float* __restrict__ b, const bf16* __restrict__ w1p, bf16* __restrict__ out, int npix,
+                         int C) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  unsigned char* os = smem_wg + C1W_OS;
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, lw = tid % WG_THREADS, warp = lw / 32, lane = tid % 32;
+  // the warpgroup's 64 rows of h, rounded, into os by stmatrix (the blocks as in
+  // conv2_flat_stage), then 16-byte rows to out; a warpgroup stores what it staged
+  auto store = [&](const float (&acc)[64], int tile) {
+    const uint32_t orow = smem_u32(os) + (64 * wg + 16 * warp + lane % 16) * C1W_OS_LD + (lane / 16) * 16;
+#pragma unroll
+    for (int j = 0; j < INTER / 8; j += 2) {
+      const uint32_t v[4] = {pack_pair(acc[4 * j], acc[4 * j + 1]), pack_pair(acc[4 * j + 2], acc[4 * j + 3]),
+                             pack_pair(acc[4 * j + 4], acc[4 * j + 5]), pack_pair(acc[4 * j + 6], acc[4 * j + 7])};
+      stmatrix_x4(orow + j * 16, v);
+    }
+    warpgroup_sync(wg);
+#pragma unroll
+    for (int v = lw; v < 64 * (INTER / 8); v += WG_THREADS) {
+      const int row = 64 * wg + v / (INTER / 8), part = v % (INTER / 8);
+      const int p = tile * TW1_ROWS + row;
+      if (p < npix)
+        *reinterpret_cast<uint4*>(out + (size_t)p * INTER + 8 * part) =
+            *reinterpret_cast<const uint4*>(os + row * C1W_OS_LD + 16 * part);
+    }
+    // os is next written in the next tile's epilogue, after at least one block barrier
+  };
+  tw1_stream<C1W_RES>(segs, a, b, w1p, npix, C, smem_wg, store);
 }
 
 // -----------------------------------------------------------------------------
@@ -638,7 +686,7 @@ probe_conv2_wgmma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w2
     // a warpgroup stages and stores its own 64 rows: its barrier, not the block's
     conv2_flat_stage<TW>(os, acc, 64 * wg, tid % WG_THREADS);
     warpgroup_sync(wg);
-    conv2_flat_store<TW>(os, out, 64 * wg, b, y0, x0, H, W, tid % WG_THREADS);
+    conv2_flat_store<TW>(os, out, GROWTH, 64 * wg, b, y0, x0, H, W, tid % WG_THREADS);
   }
   cp_async_wait<0>();
 }
@@ -792,9 +840,10 @@ int fdgan_probe_scale_copy(const void* a, void* y, long long n, int mode, void* 
 }
 
 // segs: nseg (1..8) pointers to (npix, widths[i]) arrays, widths multiples of
-// 8 summing to C; a, b fp32 (C); w1t = W1 transposed (128, C); out (npix,128)
+// 8 summing to C; a, b fp32 (C); out (npix,128). body 0: mma, with w1 = W1
+// transposed (128, C); 1: wgmma, with w1 = W1 as planes (C/8, 128, 8)
 int fdgan_probe_conv1(const void* const* segs, const int* widths, int nseg, const void* a,
-                      const void* b, const void* w1t, void* out, int npix, void* stream) {
+                      const void* b, const void* w1, void* out, int npix, int body, void* stream) {
   if (nseg < 1 || nseg > MAX_SEGS) return (int)cudaErrorInvalidValue;
   Segments s = {};
   int C = 0;
@@ -804,9 +853,22 @@ int fdgan_probe_conv1(const void* const* segs, const int* widths, int nseg, cons
     C += widths[i];
   }
   s.n = nseg;
-  if (int err = set_smem(probe_conv1_kernel, C1_SMEM)) return err;
-  probe_conv1_kernel<<<(npix + C1_ROWS - 1) / C1_ROWS, THREADS, C1_SMEM, (cudaStream_t)stream>>>(
-      s, (const float*)a, (const float*)b, (const bf16*)w1t, (bf16*)out, npix, C);
+  if (body == 1) {
+    if (int err = set_smem(probe_conv1_wgmma_kernel, C1W_SMEM)) return err;
+    static int resident[MAX_DEVICES] = {};
+    int grid = 0;
+    if (int err = persistent_grid(probe_conv1_wgmma_kernel, TW1_THREADS, C1W_SMEM, (npix + TW1_ROWS - 1) / TW1_ROWS, 1,
+                                  &grid, resident))
+      return err;
+    probe_conv1_wgmma_kernel<<<grid, TW1_THREADS, C1W_SMEM, (cudaStream_t)stream>>>(
+        s, (const float*)a, (const float*)b, (const bf16*)w1, (bf16*)out, npix, C);
+  } else if (body == 0) {
+    if (int err = set_smem(probe_conv1_kernel, C1_SMEM)) return err;
+    probe_conv1_kernel<<<(npix + C1_ROWS - 1) / C1_ROWS, THREADS, C1_SMEM, (cudaStream_t)stream>>>(
+        s, (const float*)a, (const float*)b, (const bf16*)w1, (bf16*)out, npix, C);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -30,17 +30,19 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (all return an int: cudaGetLastError() after launch)
 _SIGNATURES = {
-    "fdgan_dense_layer_f32": [_P] * 8 + [_I] * 4 + [_P],
-    "fdgan_dense_layer_bf16": [_P] * 8 + [_I] * 4 + [_P],
-    "fdgan_dense_layer_bf16_mma": [_P] * 8 + [_I] * 4 + [_P],
-    "fdgan_h_stats_f32": [_P] * 6 + [_I] * 2 + [_P],
-    "fdgan_h_stats_bf16": [_P] * 6 + [_I] * 2 + [_P],
+    "fdgan_dense_layer_f32": [_P] * 8 + [_I] * 6 + [_P],
+    "fdgan_dense_layer_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "fdgan_h_stats_f32": [_P] * 6 + [_I] * 3 + [_P],
+    "fdgan_h_stats_bf16": [_P] * 6 + [_I] * 3 + [_P],
+    "fdgan_h_stats_bf16_mma": [_P] * 6 + [_I] * 3 + [_P],
+    "fdgan_h_stats_bf16_blocks": [_I],
     "fdgan_h_stats_rows": [],
+    "fdgan_tw1_stamps": [_P, _I],
     "fdgan_freq_filters_f32": [_P] * 3 + [_I] * 3 + [_P],
     "fdgan_freq_filters_bf16": [_P] * 3 + [_I] * 3 + [_P],
     "fdgan_probe_mm": [_P] * 3 + [_I] * 2 + [_P],
     "fdgan_probe_scale_copy": [_P, _P, _L, _I, _P],
-    "fdgan_probe_conv1": [_P, _P, _I] + [_P] * 4 + [_I, _P],
+    "fdgan_probe_conv1": [_P, _P, _I] + [_P] * 4 + [_I, _I, _P],
     "fdgan_probe_conv2": [_P] * 3 + [_I] * 4 + [_P],
     "fdgan_wgmma_selfcheck": [_P] * 3 + [_I] * 7 + [_P],
 }

@@ -9,6 +9,9 @@ rounding points. A CUDA launch that fails raises; nothing falls back.
 Tensors here are in the JAX layout, NHWC: the generator passes the NHWC
 view of its channels_last activations, which costs no copy. Weights are
 ``w1`` (C, 128), the 1×1 conv as a matrix, and ``w2`` (3, 3, 128, 32), HWIO.
+x, and K1's output ``out=``, may be channel slices of one wider NHWC buffer
+(the kernels take a pixel stride): ``dense_block_fused`` keeps a block's
+concat in one buffer that way when autograd records nothing.
 
 Both ops are ``torch.autograd.Function``s, as the JAX ops are
 ``jax.custom_vjp``s (``pallas_dense.py:247-262``, ``:293-307``): the forward
@@ -92,40 +95,83 @@ def h_stats_reference(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _check_inputs(x, a1, b1, w1) -> int:
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC (B, H, W, C), got shape {tuple(x.shape)}")
+def pixel_stride(t: torch.Tensor, name: str = "x") -> int:
+    """The elements from one pixel of the NHWC tensor ``t`` to the next: C
+    where t is NHWC-contiguous, more where t is a channel slice of a wider
+    NHWC-contiguous buffer (strides (H·W·ld, W·ld, ld, 1), ld ≥ C). The
+    kernels address pixel p at p·ld; any other layout raises."""
+    if t.dim() != 4:
+        raise ValueError(f"{name} must be NHWC (B, H, W, C), got shape {tuple(t.shape)}")
+    b, h, w, c = t.shape
+    s = t.stride()
+    ld = s[2] if w > 1 else s[1] if h > 1 else s[0] if b > 1 else c
+    if not ((c == 1 or s[3] == 1) and (h == 1 or s[1] == w * ld) and (b == 1 or s[0] == h * w * ld)):
+        raise ValueError(f"{name} must be NHWC-contiguous or a channel slice of an NHWC-contiguous buffer, "
+                         f"got strides {s} for shape {tuple(t.shape)}")
+    if ld < c:
+        raise ValueError(f"{name} has a pixel stride ld={ld} below its C={c} channels")
+    if t.numel() and (t.numel() // c - 1) * ld + c >= 2**31:
+        raise ValueError(f"{name} is too large for the kernels' 32-bit pixel indices")
+    return ld
+
+
+def _check_inputs(x, a1, b1, w1) -> Tuple[int, int]:
+    """(C, ld) of x; raises on what the kernels do not take, on any device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the dense-layer ops run on cpu or cuda, got {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be NHWC-contiguous")
+    ld = pixel_stride(x)
     c = x.shape[-1]
     if tuple(w1.shape) != (c, INTER):
         raise ValueError(f"w1 must be ({c}, {INTER}), got {tuple(w1.shape)}")
     if a1.numel() != c or b1.numel() != c:
         raise ValueError(f"a1, b1 must have {c} entries")
-    if x.numel() >= 2**31:
-        raise ValueError("x is too large for the kernels' 32-bit pixel indices")
-    if x.dtype == torch.bfloat16 and (c % 8 or x.data_ptr() % 16):
-        # the bf16 kernels stage x in 16-byte vectors of 8 channels
-        raise ValueError(f"bf16 x needs C % 8 == 0 and 16-byte alignment, got C={c}")
-    return c
+    if x.dtype == torch.bfloat16 and (c % 8 or ld % 8 or x.data_ptr() % 16):
+        # the bf16 kernels load x in 16-byte vectors of 8 channels
+        raise ValueError(f"bf16 x needs C % 8 == 0, a pixel stride ld % 8 == 0 and 16-byte alignment, "
+                         f"got C={c}, ld={ld}")
+    return c, ld
 
 
-def _w1_arg(w1, x) -> torch.Tensor:
-    """W1 in the layout the kernels built on ``gemm1_bf16`` and the fp32 ones
-    read: (C, 128) for fp32, transposed to (128, C) for bf16."""
-    w = _on_device(w1, x, x.dtype)
-    return w if x.dtype == torch.float32 else w.t().contiguous()
+def _check_out(out, x) -> int:
+    """out's pixel stride; raises unless out is a (B, H, W, 32) tensor of x's
+    dtype and device that K1 can write."""
+    want = tuple(x.shape[:3]) + (GROWTH,)
+    if tuple(out.shape) != want or out.dtype != x.dtype or out.device != x.device:
+        raise ValueError(f"out must be {want} {x.dtype} on {x.device}, got {tuple(out.shape)} {out.dtype} "
+                         f"on {out.device}")
+    ldo = pixel_stride(out, "out")
+    if x.dtype == torch.bfloat16 and (ldo % 8 or out.data_ptr() % 16):
+        raise ValueError(f"bf16 out needs a pixel stride ldo % 8 == 0 and 16-byte alignment, got ldo={ldo}")
+    return ldo
 
 
 def w1_planes(w1: torch.Tensor) -> torch.Tensor:
     """W1 (C, 128) as (C/8, 128, 8): planes of eight input channels,
     ``planes[p, n, k] = w1[8p + k, n]``. It is the shared-memory layout the
-    bf16 K1's ``wgmma`` descriptors name (``csrc/wgmma_bf16.cuh``), so 64
+    bf16 kernels' ``wgmma`` descriptors name (``csrc/wgmma_bf16.cuh``), so 64
     channels of W1 are 16 contiguous KB that one bulk copy brings in."""
     c, n = w1.shape
     return w1.reshape(c // 8, 8, n).permute(0, 2, 1).contiguous()
+
+
+def w1_tw1_planes(w1: torch.Tensor) -> torch.Tensor:
+    """W1 (C, 128) for the ``tw1_stream`` kernels (bf16 K2, the conv1 probe's
+    ``wgmma`` body; ``csrc/wgmma_bf16.cuh``): its rows zero-padded to a
+    multiple of 64, permuted within each 64 into the order in which those
+    kernels take a chunk's channels (logical k = 16s + kk is channel
+    16·(kk % 8 // 2) + 4s + 2·(kk // 8) + kk % 2, which puts a thread's
+    A-fragment elements of the ``wgmma`` on 16 consecutive channels of its
+    rows), as planes of eight (``w1_planes``): a chunk of 64 channels is 16
+    contiguous KB, and the padding multiplies a t of 0."""
+    c, n = w1.shape
+    c64 = -(-c // 64) * 64
+    padded = torch.cat([w1, w1.new_zeros(c64 - c, n)]) if c64 > c else w1
+    # channel 16·tq + 4s + 2·hi + e of a chunk is logical k 16s + 8·hi + 2·tq + e, which lies
+    # in plane 2s + hi at place 2·tq + e: a view and one copy on W1's own device (an index
+    # tensor built on the host would stall the stream at every call)
+    return padded.reshape(c64 // 64, 4, 4, 2, 2, n).permute(0, 2, 3, 5, 1, 4).reshape(c64 // 8, n, 8)
 
 
 def _on_device(t: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -136,86 +182,96 @@ def _on_device(t: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
-def _run_k1(entry: str, x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
-    """Check the inputs, lay the weights out and call the C entry point
-    ``entry`` of the kernel library; raises on a CUDA error."""
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Check the inputs, lay the weights out and launch K1, into ``out``
+    (a (B,H,W,32) tensor, possibly a channel slice of a wider buffer) or a
+    new tensor; raises on a CUDA error."""
+    global k1_launches
     if x.device.type != "cuda":
-        raise ValueError(f"fused_dense_layer runs on cpu or cuda, got {x.device}")
-    _check_inputs(x, a1, b1, w1)
+        raise ValueError(f"fused_dense_layer runs its kernel on cuda, got {x.device}")
+    c, ldx = _check_inputs(x, a1, b1, w1)
     if tuple(w2.shape) != (3, 3, INTER, GROWTH):
         raise ValueError(f"w2 must be (3, 3, {INTER}, {GROWTH}), got {tuple(w2.shape)}")
     if a2.numel() != INTER or b2.numel() != INTER:
         raise ValueError(f"a2, b2 must have {INTER} entries")
+    if out is None:
+        out = torch.empty(tuple(x.shape[:3]) + (GROWTH,), device=x.device, dtype=x.dtype)
+    ldo = _check_out(out, x)
     from fdgan_tpu_torch.ops import build
 
     lib = build.load()
-    bsz, h, w, c = x.shape
+    bsz, h, w, _ = x.shape
     a1k, b1k, a2k, b2k = (_on_device(t, x, torch.float32) for t in (a1, b1, a2, b2))
-    w1k = w1_planes(_on_device(w1, x, x.dtype)) if entry == "fdgan_dense_layer_bf16" else _w1_arg(w1, x)
     # W2 as (9·128, 32) for fp32; for bf16 as (9, 32, 128), per tap the
     # inputs of each output channel
     w2k = _on_device(w2 if x.dtype == torch.float32 else w2.permute(0, 1, 3, 2), x, x.dtype)
-    out = torch.empty((bsz, h, w, GROWTH), device=x.device, dtype=x.dtype)
-    fn = getattr(lib, entry)
+    entry = f"fdgan_dense_layer_{_KERNEL_DTYPES[x.dtype]}"
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
+        w1k = _on_device(w1, x, x.dtype)
+        w1k = w1k if x.dtype == torch.float32 else w1_planes(w1k)
+        err = getattr(lib, entry)(
             x.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
             a2k.data_ptr(), b2k.data_ptr(), w2k.data_ptr(), out.data_ptr(),
-            bsz, h, w, c, stream,
+            bsz, h, w, c, ldx, ldo, _stream(x),
         )
     build.check(lib, err, entry)
-    return out
-
-
-def _launch_k1(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
-    global k1_launches
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    out = _run_k1(f"fdgan_dense_layer_{_KERNEL_DTYPES[x.dtype]}", x, a1, b1, w1, a2, b2, w2)
     k1_launches += 1
     return out
 
 
-def _launch_k1_mma(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
-    """K1's earlier bf16 body (``mma.sync`` fragments, one block per tile),
-    kept so that one run can time it beside the ``wgmma`` kernel that
-    ``fused_dense_layer`` launches. No model path calls it and it moves no
-    launch count."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the mma.sync body is bfloat16 only, got {x.dtype}")
-    return _run_k1("fdgan_dense_layer_bf16_mma", x, a1, b1, w1, a2, b2, w2)
-
-
-def _launch_k2(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
-    global k2_launches
+def _run_k2(x, a1, b1, w1, mma: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2 (bf16: its ``wgmma`` kernel, or with ``mma`` its
+    ``mma.sync`` body) and reduce its per-block partials; raises on a CUDA
+    error."""
     if x.device.type != "cuda":
-        raise ValueError(f"h_batch_stats runs on cpu or cuda, got {x.device}")
-    c = _check_inputs(x, a1, b1, w1)
+        raise ValueError(f"h_batch_stats runs its kernel on cuda, got {x.device}")
+    c, ldx = _check_inputs(x, a1, b1, w1)
     from fdgan_tpu_torch.ops import build
 
     lib = build.load()
     npix = x.numel() // c
-    rows = lib.fdgan_h_stats_rows()
-    nblk = -(-npix // rows)
     a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
-    w1k = _w1_arg(w1, x)
-    psum = torch.empty((nblk, INTER), device=x.device, dtype=torch.float32)
-    psq = torch.empty_like(psum)
-    fn = getattr(lib, f"fdgan_h_stats_{_KERNEL_DTYPES[x.dtype]}")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
-            psum.data_ptr(), psq.data_ptr(), npix, c, stream,
-        )
-    build.check(lib, err, "fdgan_h_stats")
-    k2_launches += 1
+        if x.dtype == torch.bfloat16 and not mma:
+            entry, w1k, partial = "fdgan_h_stats_bf16", w1_tw1_planes(_on_device(w1, x, x.dtype)), torch.float64
+            rows = lib.fdgan_h_stats_bf16_blocks(npix)  # one row per persistent block
+            build.check(lib, -min(rows, 0), "fdgan_h_stats_bf16_blocks")
+        else:
+            entry, partial = f"fdgan_h_stats_{_KERNEL_DTYPES[x.dtype]}{'_mma' if mma else ''}", torch.float32
+            w1k = _on_device(w1, x, x.dtype)
+            w1k = w1k.t().contiguous() if mma else w1k  # the mma.sync body stages W1 as (128, C)
+            rows = -(-npix // lib.fdgan_h_stats_rows())  # one row per block of 192 pixels
+        part = torch.empty((2, rows, INTER), device=x.device, dtype=partial)  # sums of h, of h·h
+        err = getattr(lib, entry)(x.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
+                                  part[0].data_ptr(), part[1].data_ptr(), npix, c, ldx, _stream(x))
+    build.check(lib, err, entry)
     # the partials are reduced in float64: at 8×512² the count is 2.1 M, and
     # E[h²]−μ² in fp32 would lose the variance to cancellation
-    mean = psum.double().sum(dim=0) / npix
-    var = (psq.double().sum(dim=0) / npix - mean.square()).clamp_min(0.0)
-    return mean.float(), var.float()
+    mom = part.double().sum(dim=1).div_(npix)
+    mom[1].addcmul_(mom[0], mom[0], value=-1.0).clamp_min_(0.0)
+    mean, var = mom.float()
+    return mean, var
+
+
+def _launch_k2(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
+    global k2_launches
+    stats = _run_k2(x, a1, b1, w1)
+    k2_launches += 1
+    return stats
+
+
+def _launch_k2_mma(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's earlier bf16 body (``mma.sync`` fragments, one block per 192
+    pixels), kept so that one run can time it beside the ``wgmma`` kernel
+    that ``h_batch_stats`` launches. No model path calls it and it moves no
+    launch count."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the mma.sync body is bfloat16 only, got {x.dtype}")
+    return _run_k2(x, a1, b1, w1, mma=True)
 
 
 def twin_vjp(twin, ctx, cts):
@@ -237,6 +293,7 @@ class _FusedLayer(torch.autograd.Function):
     def forward(ctx, x, a1, b1, w1, a2, b2, w2):
         ctx.save_for_backward(x, a1, b1, w1, a2, b2, w2)
         if x.device.type == "cpu":
+            _check_inputs(x, a1, b1, w1)
             return layer_reference(x, a1, b1, w1, a2, b2, w2)
         return _launch_k1(x, a1, b1, w1, a2, b2, w2)
 
@@ -250,6 +307,7 @@ class _HStats(torch.autograd.Function):
     def forward(ctx, x, a1, b1, w1):
         ctx.save_for_backward(x, a1, b1, w1)
         if x.device.type == "cpu":
+            _check_inputs(x, a1, b1, w1)
             return h_stats_reference(x, a1, b1, w1)
         return _launch_k2(x, a1, b1, w1)
 
@@ -258,18 +316,32 @@ class _HStats(torch.autograd.Function):
         return twin_vjp(h_stats_reference, ctx, (ct_mean, ct_var))
 
 
-def fused_dense_layer(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
+def fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused dense layer (differentiable): x (B,H,W,C) → f (B,H,W,32)
     in x's dtype.
 
     a1, b1 (C) and a2, b2 (128) are the folded norm1 and norm2 affines,
-    w1 (C, 128), w2 (3, 3, 128, 32)."""
-    return _FusedLayer.apply(x, a1, b1, w1, a2, b2, w2)
+    w1 (C, 128), w2 (3, 3, 128, 32). x may be a channel slice of a wider
+    NHWC buffer (``pixel_stride``). With ``out``, a (B,H,W,32) tensor that
+    may be such a slice too, f is written into it and ``out`` is returned:
+    a write in place, which autograd cannot record, so it raises where
+    autograd would record the call."""
+    if out is None:
+        return _FusedLayer.apply(x, a1, b1, w1, a2, b2, w2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a1, b1, w1, a2, b2, w2, out)):
+        raise RuntimeError("fused_dense_layer(out=...) writes in place, which autograd cannot record: "
+                           "call it under torch.no_grad() or torch.inference_mode()")
+    if x.device.type == "cpu":
+        _check_inputs(x, a1, b1, w1)
+        _check_out(out, x)
+        return out.copy_(layer_reference(x, a1, b1, w1, a2, b2, w2))
+    return _launch_k1(x, a1, b1, w1, a2, b2, w2, out=out)
 
 
 def h_batch_stats(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
     """norm2's batch statistics (differentiable): per-channel fp32 (mean,
-    biased var) of h = relu(a1·x + b1)·W1 over B, H and W."""
+    biased var) of h = relu(a1·x + b1)·W1 over B, H and W. x may be a
+    channel slice of a wider NHWC buffer (``pixel_stride``)."""
     return _HStats.apply(x, a1, b1, w1)
 
 
@@ -289,6 +361,16 @@ def dense_block_fused(
     modules (norm1, conv1, norm2, conv2). Returns the concat of x and every
     layer's 32 new channels.
 
+    Where autograd records nothing (``torch.is_grad_enabled()`` is false, as
+    under ``torch.inference_mode``, the serving path), the concat is one
+    buffer of C0 + 32·L channels: x is copied into its first C0 channels once,
+    each layer reads the channel slice before its own and writes its 32
+    channels after it (``fused_dense_layer(out=...)``), and no layer copies
+    the concat. With grad enabled (the train step) each layer's concat is a
+    new tensor from ``torch.cat``: autograd saves every layer's input, and a
+    later layer's write into a buffer those inputs were views of would bump
+    the buffer's version and fail the backward.
+
     In batch mode, norm1's statistics are the per-channel statistics of the
     concat, kept per segment as it grows (channels partition, so each
     segment is reduced once), and norm2's come from K2. With ``stats_out``,
@@ -304,6 +386,12 @@ def dense_block_fused(
     else:
         raise ValueError(f"unknown impl {impl!r}")
     n = x.shape[0] * x.shape[1] * x.shape[2]
+    buf = None
+    if not torch.is_grad_enabled():
+        c0 = x.shape[-1]
+        buf = torch.empty(tuple(x.shape[:3]) + (c0 + GROWTH * len(layers),), device=x.device, dtype=x.dtype)
+        buf[..., :c0] = x
+        x = buf[..., :c0]
     if mode == "batch":
         mean_cat, var_cat = channel_stats(x)
     for i, layer in enumerate(layers):
@@ -322,10 +410,19 @@ def dense_block_fused(
             key = f"{prefix}denselayer{i + 1}"
             stats_out[f"{key}.norm1"] = (m1.detach(), unbiased(v1.detach(), n))
             stats_out[f"{key}.norm2"] = (m2.detach(), unbiased(v2.detach(), n))
-        f = layer_fn(x, a1, b1, w1, a2, b2, layer.conv2.weight.permute(2, 3, 1, 0))
+        w2 = layer.conv2.weight.permute(2, 3, 1, 0)
+        if buf is None:
+            f = layer_fn(x, a1, b1, w1, a2, b2, w2)
+        else:
+            c = x.shape[-1]
+            f = buf[..., c:c + GROWTH]
+            if impl == "kernels":
+                fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out=f)
+            else:
+                f.copy_(layer_reference(x, a1, b1, w1, a2, b2, w2))
         if mode == "batch":
             mf, vf = channel_stats(f)
             mean_cat = torch.cat([mean_cat, mf])
             var_cat = torch.cat([var_cat, vf])
-        x = torch.cat([x, f], dim=-1)
+        x = torch.cat([x, f], dim=-1) if buf is None else buf[..., :c + GROWTH]
     return x

@@ -21,7 +21,8 @@ and return bf16.
                         ``mbarrier``: a second answer to the same probe
 ``conv1_segments``      relu(cat(segments)·a + b) rounded, ·W1, from 1 to 8
                         segment arrays without forming the concat
-                        (``probe_pallas5.py:69,99``)
+                        (``probe_pallas5.py:69,99``), on ``mma.sync``
+                        (``mma``) or, K2's body, on ``wgmma`` (``wgmma``)
 ``conv2``               3×3 conv 128 → 32, zero padding, as nine 32-wide
                         products (``taps9``) or one tap-packed product
                         (``packed``) (``probe_pallas5.py:158``), both on
@@ -46,10 +47,13 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 
+from fdgan_tpu_torch.ops.dense import w1_tw1_planes
+
 INTER = 128   # K1's intermediate width: K and N of probe_mm, conv1's N, conv2's K
 GROWTH = 32   # conv2's output channels
 MM_TILES = (64, 128, 256)
 MAX_SEGMENTS = 8
+CONV1_MODES = ("mma", "wgmma")  # the C entry's body 0, 1
 CONV2_MODES = ("taps9", "packed", "wgmma")  # the C entry's body 0, 1, 2
 
 launches: Dict[str, int] = {
@@ -58,6 +62,7 @@ launches: Dict[str, int] = {
     "probe_scale_copy_staged": 0,
     "probe_scale_copy_bulk": 0,
     "probe_conv1": 0,
+    "probe_conv1_wgmma": 0,
     "probe_conv2_taps9": 0,
     "probe_conv2_packed": 0,
     "probe_conv2_wgmma": 0,
@@ -190,11 +195,15 @@ def scale_copy_bulk(a: torch.Tensor) -> torch.Tensor:
     return _scale_copy(a, 2)
 
 
-def conv1_segments(segments: Sequence[torch.Tensor], a, b, w1) -> torch.Tensor:
+def conv1_segments(segments: Sequence[torch.Tensor], a, b, w1, mode: str = "mma") -> torch.Tensor:
     """relu(cat(segments, -1)·a + b) rounded to bf16, times W1 (C,128), from
     1 to 8 segment arrays (..., width_i) that share their leading shape; a, b
     (C) are indexed by the channel's place in the concat, which is never
-    formed on the card. Returns (..., 128)."""
+    formed on the card. Returns (..., 128). ``mode`` picks the kernel body:
+    ``mma`` (``mma.sync`` fragments, one block per 128 pixels) or ``wgmma``
+    (K2's body: persistent warpgroups, W1 resident, ``wgmma`` products)."""
+    if mode not in CONV1_MODES:
+        raise ValueError(f"mode must be one of {CONV1_MODES}, got {mode!r}")
     segments = list(segments)
     if not 1 <= len(segments) <= MAX_SEGMENTS:
         raise ValueError(f"1 to {MAX_SEGMENTS} segments, got {len(segments)}")
@@ -219,12 +228,15 @@ def conv1_segments(segments: Sequence[torch.Tensor], a, b, w1) -> torch.Tensor:
     if npix >= 2**31 - INTER:
         raise ValueError("too many pixels for the kernel's 32-bit pixel index")
     ak, bk = (t.to(torch.float32).contiguous() for t in (a, b))
-    w1t = w1.to(x.dtype).t().contiguous()
+    w1k = w1.to(x.dtype)
+    # the mma.sync body stages W1 as (128, C); the wgmma body reads it as K2 does
+    w1k = w1k.t().contiguous() if mode == "mma" else w1_tw1_planes(w1k)
     out = torch.empty(lead + (INTER,), device=x.device, dtype=x.dtype)
     ptrs = (ctypes.c_void_p * MAX_SEGMENTS)(*[s.data_ptr() for s in segments])
     widths = (ctypes.c_int * MAX_SEGMENTS)(*[s.shape[-1] for s in segments])
-    _launch("probe_conv1", "fdgan_probe_conv1", x, ptrs, widths, len(segments), ak.data_ptr(), bk.data_ptr(),
-            w1t.data_ptr(), out.data_ptr(), npix)
+    name = "probe_conv1" if mode == "mma" else "probe_conv1_wgmma"
+    _launch(name, "fdgan_probe_conv1", x, ptrs, widths, len(segments), ak.data_ptr(), bk.data_ptr(),
+            w1k.data_ptr(), out.data_ptr(), npix, CONV1_MODES.index(mode))
     return out
 
 

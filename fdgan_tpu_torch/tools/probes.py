@@ -152,6 +152,14 @@ def _conv2_library_args(g, w2):
     return g.permute(0, 3, 1, 2), w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
+def _conv1_probe(mode: str) -> Probe:
+    return Probe(
+        ids=("P5a", "P5b"), replaces="tools/probe_pallas5.py:69", make=make_conv1,
+        kernel=lambda segs, a, b, w1: probes.conv1_segments(segs, a, b, w1, mode), plain=probes.conv1_reference,
+        work=_conv1_work, tol=CONV1_TOL,
+    )
+
+
 def _conv2_probe(mode: str) -> Probe:
     return Probe(
         ids=("P5c",), replaces="tools/probe_pallas5.py:158", make=make_conv2,
@@ -183,10 +191,8 @@ PROBES: Dict[str, Probe] = {
         plain=probes.scale_copy_reference, work=_copy_work, tol=COPY_TOL, tensor_cores=False,
         library=("torch.mul(a, 2)", lambda a: (a,), lambda a: torch.mul(a, 2)),
     ),
-    "probe_conv1": Probe(
-        ids=("P5a", "P5b"), replaces="tools/probe_pallas5.py:69", make=make_conv1, kernel=probes.conv1_segments,
-        plain=probes.conv1_reference, work=_conv1_work, tol=CONV1_TOL,
-    ),
+    "probe_conv1": _conv1_probe("mma"),
+    "probe_conv1_wgmma": _conv1_probe("wgmma"),
     "probe_conv2_taps9": _conv2_probe("taps9"),
     "probe_conv2_packed": _conv2_probe("packed"),
     "probe_conv2_wgmma": _conv2_probe("wgmma"),
@@ -260,12 +266,12 @@ def _timings(name: str, probe: Probe, inputs) -> Dict[str, object]:
         del args
     else:
         out["library"], out["library_ms"] = None, None
-    if name == "probe_conv1":
+    if name.startswith("probe_conv1"):
         # the same kernel from one concatenated array, and the concat's own cost
         segs, a, b, w1 = inputs
         out["cat_ms"] = cuda_ms(lambda: torch.cat(segs, dim=-1))
         x = torch.cat(segs, dim=-1)
-        out["mono_ms"] = cuda_ms(lambda: probes.conv1_segments([x], a, b, w1))
+        out["mono_ms"] = cuda_ms(lambda: probe.kernel([x], a, b, w1))
         del x
     out["plain_ms"] = cuda_ms(lambda: probe.plain(*inputs), launches=2, warmup=1)
     return out
@@ -399,14 +405,15 @@ def answers(rows: List[dict]) -> List[dict]:
                 f"against the plain copy's {cp['ms']:.3f} ms = {cp['gbs']:.0f} GB/s: " + "; ".join(
                     f"{st['name']} {st['ms']:.3f} ms = {st['gbs']:.0f} GB/s, {_verdict(st['ms'], cp['ms'])} "
                     f"({st['ms'] / cp['ms']:.2f}x its time)" for st in staged) + ".")
-    if "probe_conv1" in r:
-        c1 = r["probe_conv1"]
+    conv1 = [r[n] for n in ("probe_conv1", "probe_conv1_wgmma") if n in r]
+    if conv1:
         say("P5 Q1 (probe_pallas5.py seg_conv1, mono_conv1): does reading the concat as separate segment "
             "arrays cost anything?",
-            f"conv1 from {len(c1['shape'])} segments {c1['ms']:.3f} ms, from one concatenated array "
-            f"{c1['mono_ms']:.3f} ms: {_verdict(c1['ms'], c1['mono_ms'])} ({c1['ms'] / c1['mono_ms']:.2f}x); torch.cat of the segments alone "
-            f"{c1['cat_ms']:.3f} ms, which the segment read would remove. The kernel reaches "
-            f"{100 * c1['share']:.0f} % of its {c1['bound_by']} bound ({c1['bound_ms']:.3f} ms).")
+            "; ".join(f"{c1['name']}: from {len(c1['shape'])} segments {c1['ms']:.3f} ms, from one concatenated "
+                      f"array {c1['mono_ms']:.3f} ms, {_verdict(c1['ms'], c1['mono_ms'])} "
+                      f"({c1['ms'] / c1['mono_ms']:.2f}x), {100 * c1['share']:.0f} % of its {c1['bound_by']} bound "
+                      f"({c1['bound_ms']:.3f} ms)" for c1 in conv1) +
+            f"; torch.cat of the segments alone {conv1[0]['cat_ms']:.3f} ms, which the segment read would remove.")
     if "probe_conv2_taps9" in r and "probe_conv2_packed" in r:
         t9, pk = r["probe_conv2_taps9"], r["probe_conv2_packed"]
         say("P5 Q2 (probe_pallas5.py conv2): does conv2 as one tap-packed N=288 product beat the nine-tap "

@@ -13,8 +13,10 @@ weights from seed 0, randomised running statistics, bf16) and after
   forwards, ``idle_share`` = 1 − device_ms / wall_ms (one stream, so device
   events do not overlap) and ``device_events`` per forward;
 - ``k1_ms``, ``k2_ms``, ``cat_ms``: the device time per forward of the dense
-  layer's kernels (by their names in ``csrc/dense_layer.cu``) and of the
-  copies that grow the dense blocks' concats (``CatArrayBatchedCopy``);
+  layer's kernels (by their names in ``csrc/dense_layer.cu``) and of every
+  ``torch.cat``'s copies (``CatArrayBatchedCopy``): the dense blocks' concats
+  where each layer concatenates, only the decoder's and the statistics'
+  where a block keeps its concat in one buffer (``inference_mode``, as here);
 - ``top``: the 10 device events with the most time per forward.
 
 Needs a CUDA device; raises without one.

@@ -89,28 +89,77 @@ def test_kernels_match_twins(cuda, exact, shape, dtype):
     (2, 64, 64, 128),   # more tiles than one round of the persistent blocks' first tiles
 ])
 def test_k1_wgmma_matches_twin_and_mma_body(cuda, shape):
-    """K1's bf16 kernel (wgmma) against its twin, and against the mma.sync
-    body it replaced. Old and new round t, g and f at the same points and sum
-    in fp32; the tensor cores' summation order inside a product is not
-    specified for either, so they are held within one bf16 step (2^-7
-    relative at the bottom of a binade) of each other, not bit for bit, though
-    on an H100 every shape here came out equal."""
+    """K1's bf16 kernel (wgmma) against its twin, the same bits on every
+    launch. (Its mma.sync body, which it was also held against, is gone.)"""
     args = _layer_args(shape, 6, cuda, torch.bfloat16)
     dense.reset_launch_counts()
     got = dense.fused_dense_layer(*args)
-    assert dense.k1_launches == 1
-    old = dense._launch_k1_mma(*args)
     torch.cuda.synchronize()
-    assert dense.k1_launches == 1  # the old body moves no count
+    assert dense.k1_launches == 1
     torch.testing.assert_close(got.float(), dense.layer_reference(*args).float(), **K1_TOL_BF16)
-    torch.testing.assert_close(got.float(), old.float(), atol=1e-4, rtol=2.0**-7)
     assert torch.equal(got, dense.fused_dense_layer(*args))  # no race: the same bits every launch
 
 
-def test_k1_mma_body_is_bf16_only(cuda):
+def _buffer_view(x, ld):
+    """x as the first C channels of a (B, H, W, ld) buffer, and the 32 after them."""
+    c = x.shape[-1]
+    buf = torch.full(tuple(x.shape[:3]) + (ld,), 3.0, device=x.device, dtype=x.dtype)
+    buf[..., :c] = x
+    return buf, buf[..., :c], buf[..., c:c + 32]
+
+
+# chip_smoke.SHAPES: a layer per dense block of the 8x512^2 serving path, a ragged
+# C and a ragged W, and the 4x256^2 train path's blocks
+SHAPES = [(8, 512, 512, 64), (8, 256, 256, 128), (8, 128, 128, 256), (8, 128, 128, 992), (8, 120, 200, 64),
+          (4, 256, 256, 64), (4, 128, 128, 128), (4, 64, 64, 256), (4, 64, 64, 992)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 5, 7, 96), (1, 37, 53, 544), (3, 17, 29, 32)])
+def test_k2_wgmma_matches_twin_and_mma_body(cuda, shape):
+    """K2's bf16 kernel (wgmma) against its twin and its mma.sync body, at
+    the tolerances of test_pallas_dense.py:67-68 (the bodies sum the same fp32
+    products in other orders); from a buffer view and on a second launch the
+    same bits: the addresses change, not the arithmetic, and the tile walk is
+    static. C = 544 and 992 bring W1 past its resident 512 channels in through
+    the ring; C = 96 and 544 end in a half chunk; 5x7 and 17x29 images end in
+    a partial tile."""
+    args = _layer_args(shape, 8, cuda, torch.bfloat16)[:4]
+    dense.reset_launch_counts()
+    m, v = dense.h_batch_stats(*args)
+    assert dense.k2_launches == 1
+    mo, vo = dense._launch_k2_mma(*args)
+    assert dense.k2_launches == 1  # the old body moves no count
+    mr, vr = dense.h_stats_reference(*args)
+    for mean, var in ((mr, vr), (mo, vo)):
+        torch.testing.assert_close(m, mean, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(v, var, atol=1e-4, rtol=1e-3)
+    _, xv, _ = _buffer_view(args[0], max(256, shape[-1] + 32))
+    for got in (dense.h_batch_stats(xv, *args[1:]), dense.h_batch_stats(*args)):
+        assert torch.equal(got[0], m) and torch.equal(got[1], v)
+
+
+def test_k2_mma_body_is_bf16_only(cuda):
     args = _layer_args((1, 8, 8, 32), 7, cuda, torch.float32)
     with pytest.raises(TypeError, match="bfloat16 only"):
-        dense._launch_k1_mma(*args)
+        dense._launch_k2_mma(*args[:4])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64), (1, 37, 53, 96), (2, 24, 40, 992)])
+def test_k1_into_a_buffer_slice_is_bit_exact(cuda, shape, dtype):
+    """K1 reading x as a channel slice of a buffer and writing its 32
+    channels after it: the bits of the contiguous launch, and nothing else of
+    the buffer written."""
+    args = _layer_args(shape, 9, cuda, dtype)
+    want = dense.fused_dense_layer(*args)
+    buf, xv, out = _buffer_view(args[0], shape[-1] + 64)
+    before = buf.clone()
+    with torch.inference_mode():
+        dense.fused_dense_layer(xv, *args[1:], out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    c = shape[-1]
+    assert torch.equal(buf[..., :c], before[..., :c]) and torch.equal(buf[..., c + 32:], before[..., c + 32:])
 
 
 def test_wgmma_selfcheck_on_the_card(cuda):
@@ -135,6 +184,20 @@ def test_wrappers_reject_bad_inputs(cuda):
         dense.h_batch_stats(x[..., :28].contiguous().bfloat16(), a1[:28], b1[:28], w1[:28].bfloat16())
     with pytest.raises(ValueError, match="x on cuda"):
         dense.fused_dense_layer(x, a1.cpu(), b1, w1, a2, b2, w2)
+
+
+@pytest.mark.parametrize("mode", ["batch", "running"])
+def test_generator_buffer_path_matches_cat_path(cuda, exact, mode):
+    """The generator with each dense block's concat in one buffer
+    (inference_mode) against the same forward with grad enabled, where every
+    layer concatenates: the same kernels on the same values, addressed
+    differently."""
+    model = FDGAN(device=cuda, generator=torch.Generator().manual_seed(0))
+    x = torch.tensor(np.random.default_rng(2).uniform(size=(2, 40, 56, 3)), dtype=torch.float32, device=cuda)
+    with torch.inference_mode():
+        buffered = model(x, bn_mode=mode)
+    concatenated = model(x, bn_mode=mode).detach()
+    torch.testing.assert_close(buffered, concatenated, atol=5e-4, rtol=1e-3)  # test_pallas_dense.py:132
 
 
 @pytest.mark.parametrize("mode", ["batch", "running"])
@@ -256,6 +319,24 @@ def test_prof_train_reports_every_phase(cuda, capsys):
     assert rec["top"] and rec["step"]["device_events"] > 0
 
 
+def test_stamp_k2_reports_every_phase(cuda):
+    """The stamped build runs in a process of its own (this one has the
+    kernels loaded without stamps)."""
+    import subprocess
+    import sys
+
+    from fdgan_tpu_torch.tools import stamp_k2
+
+    out = subprocess.run([sys.executable, "-m", "fdgan_tpu_torch.tools.stamp_k2", "--shapes", "1,40,56,96",
+                          "4,64,64,544", "--launches", "2"], capture_output=True, text=True, timeout=600, check=True)
+    rows = [json.loads(line) for line in out.stdout.strip().splitlines()[1:]]
+    assert [r["shape"] for r in rows] == [[1, 40, 56, 96], [4, 64, 64, 544]]
+    for r in rows:
+        assert list(r["cycles_per_step"]) == list(stamp_k2.PHASES) and r["ms"] > 0
+        assert r["kernel_cycles_per_warp"] > sum(r["cycles_per_step"].values()) and r["steps_per_warp"] >= 2
+    assert rows[1]["cycles_per_step"]["w1_ring"] > 0  # C = 544 reads W1 past its resident chunks
+
+
 def test_prof_serve_reports_the_dense_kernels(cuda, capsys):
     from fdgan_tpu_torch.tools import prof_serve
 
@@ -295,15 +376,26 @@ def test_probe_conv2_bodies_agree(cuda, size):
         probe_tool.compare(probes.conv2(g, w2, mode), taps9, probe_tool.PRODUCT_TOL, f"conv2 {mode}")
 
 
-@pytest.mark.parametrize("widths", [(160,), (64, 32, 32, 32), (8,) * 8, (24, 104)])
-def test_probe_conv1_segmentations_agree(cuda, widths):
-    """The same 160 (or 64, or 128) channels cut differently give the same result bit for bit:
-    the segments change the reads, not the arithmetic."""
+@pytest.mark.parametrize("mode", probes.CONV1_MODES)
+@pytest.mark.parametrize("widths", [(160,), (64, 32, 32, 32), (8,) * 8, (24, 104), (256, 256, 32)])
+def test_probe_conv1_segmentations_agree(cuda, widths, mode):
+    """The same channels cut differently give the same result bit for bit:
+    the segments change the reads, not the arithmetic. 544 channels take the
+    wgmma body past its 256 resident channels of W1."""
     segs, a, b, w1 = probe_tool.make_conv1("ragged", np.random.default_rng(3), cuda, widths)
-    got = probes.conv1_segments(segs, a, b, w1)
-    mono = probes.conv1_segments([torch.cat(segs, dim=-1)], a, b, w1)
+    got = probes.conv1_segments(segs, a, b, w1, mode)
+    mono = probes.conv1_segments([torch.cat(segs, dim=-1)], a, b, w1, mode)
     assert torch.equal(got, mono)
     probe_tool.compare(got, probes.conv1_reference(segs, a, b, w1), probe_tool.CONV1_TOL, "conv1")
+
+
+@pytest.mark.parametrize("size", ["full", "ragged", "tiny"])
+def test_probe_conv1_bodies_agree(cuda, size):
+    """wgmma and mma round the same fp32 sums of the same products once; a
+    fused multiply-add in t can differ by a step: CONV1_TOL."""
+    segs, a, b, w1 = probe_tool.make_conv1(size, np.random.default_rng(4), cuda)
+    probe_tool.compare(probes.conv1_segments(segs, a, b, w1, "wgmma"), probes.conv1_segments(segs, a, b, w1, "mma"),
+                       probe_tool.CONV1_TOL, "conv1 wgmma vs mma")
 
 
 def test_probe_wrappers_launch_or_raise_on_cuda(cuda):

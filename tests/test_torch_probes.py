@@ -102,11 +102,12 @@ def conv2_case(p5):
 
 @pytest.mark.parametrize("reader", ["seg", "mono"])
 @pytest.mark.parametrize("cut", ["segments", "concat"])
-def test_conv1_matches_pallas_probe(conv1_case, reader, cut):
+@pytest.mark.parametrize("mode", probes.CONV1_MODES)
+def test_conv1_matches_pallas_probe(conv1_case, reader, cut, mode):
     (segs, a, b, w1), refs = conv1_case
     if cut == "concat":
         segs = [torch.cat(segs, dim=-1)]
-    got = probes.conv1_segments(segs, a, b, w1)
+    got = probes.conv1_segments(segs, a, b, w1, mode)
     assert got.dtype == torch.bfloat16 and got.shape == refs[reader].shape
     np.testing.assert_allclose(_f32(got), refs[reader], **CONV1_STEP)
 
@@ -203,6 +204,8 @@ def test_conv1_rejects_wrong_dtype_and_shapes():
         probes.conv1_segments(segs, a, b, w1[:16])
     with pytest.raises(ValueError, match="leading shape"):
         probes.conv1_segments([segs[0], segs[1][:1]], a, b, w1)
+    with pytest.raises(ValueError, match="mode"):
+        probes.conv1_segments(segs, a, b, w1, "taps9")
 
 
 def test_other_wrappers_reject_bad_inputs():
@@ -282,8 +285,9 @@ def test_bound_is_the_larger_of_bytes_and_operations(work, want_ms, want_by):
 
 def test_select_maps_pallas_probes_to_kernels():
     assert probe_tool.select("") is None
-    assert probe_tool.select("p1,p5") == ["probe_mm", "probe_conv1", "probe_conv2_taps9", "probe_conv2_packed",
-                                          "probe_conv2_wgmma"]
+    assert probe_tool.select("p1,p5") == ["probe_mm", "probe_conv1", "probe_conv1_wgmma", "probe_conv2_taps9",
+                                          "probe_conv2_packed", "probe_conv2_wgmma"]
+    assert probe_tool.select("conv1_wgmma") == ["probe_conv1_wgmma"]
     assert probe_tool.select("conv2_wgmma") == probe_tool.select("probe_conv2_wgmma") == ["probe_conv2_wgmma"]
     assert probe_tool.select("P3") == ["probe_mm", "probe_scale_copy"]
     assert probe_tool.select("conv2_packed, p4") == ["probe_conv2_packed", "probe_scale_copy_staged",
