@@ -14,22 +14,36 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    a wider buffer (the dense block's concat), K1 into one, held bit for bit
    against the contiguous launch; in bf16 K2 (wgmma) is also held against
    and timed beside its earlier mma.sync body;
-3. the full-width FDGAN generator (random weights, seed 0) at 8×512²:
-   the kernel path against the plain path in fp32 for both BN modes, the
-   bf16 PSNR check, the launch counts per forward, and img/s in bf16 for
-   both BN modes;
-4. serving: InferenceEngines (bf16, running and batch BN) behind the
-   BatchingFrontend answer ragged uint8 requests from several threads.
+2b. channel_stats (csrc/channel_stats.cu) against its twin, and on a second
+   launch (the same bits), at the shapes both paths give it: the 45 a
+   batch-BN forward reduces (3 block inputs and 42 new 32-channel slices,
+   from views of the blocks' concat buffers) at 8×512² (serving) and at
+   4×256² (training), D's three BatchNorm inputs from D's own convs on a
+   fused 4×256² batch (training), and a ragged shape; its gradient (the
+   closed-form VJP) against the exact one and the twin's at the ragged shape
+   and at D's widest input; its times;
+3. the full-width FDGAN generator (random weights, seed 0) at 8×512², through
+   both forwards, ``models.fdgan_fast.apply`` (what the engine and the train
+   step run) and ``FDGAN.forward``: the kernel path against the plain path in
+   fp32 for both BN modes, the fast forward against the module forward, the
+   bf16 PSNR check, the launch counts per bf16 forward, img/s in bf16 for
+   both BN modes and both forwards in turns, and the peak memory of the
+   batch-BN forward;
+4. serving: InferenceEngines (bf16, running and batch BN, the fast forward)
+   behind the BatchingFrontend answer ragged uint8 requests from several
+   threads.
    The kernels' launch counters are zeroed just before this phase and read
    just after it: every kernel must have run in it;
 5. training: K3 against its plain version at the train path's shape and
-   others (fp32 without TF32, and bf16), gradients through K1, K2 and K3
+   others (fp32 bit for bit, and bf16), with its time on the device alone
+   beside its bound, gradients through K1, K2 and K3
    against the plain path, one fp32 train step with the kernels against one
    without, then the path itself: the adversarial train step at 4×256²,
    bf16, no perceptual term, 10 steps with the kernels and 10 plain, in
    turns, with img/s, peak memory and the launches per step (counters
-   zeroed just before, read just after), and 3 split G/D steps through an
-   ImagePool;
+   zeroed just before, read just after: K1 42, K2 42, K3 3 and
+   channel_stats 45 for G and 3 for each of D's three forwards), and 3 split
+   G/D steps through an ImagePool;
 6. probes: the wgmma self-check (one tile through the helpers of
    csrc/wgmma_bf16.cuh against torch.matmul), each of the nine probe kernels
    (csrc/probes.cu) against its plain version at its full shape (2²¹ rows of
@@ -82,13 +96,19 @@ K2_VAR_TOL = dict(atol=1e-4, rtol=1e-3)
 # floor of 1e-2 for values near zero.
 K1_TOL_BF16 = dict(atol=1e-2, rtol=1.6e-2)
 GEN_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_pallas_dense.py:132
-K3_SHAPES = [(4, 256, 256, 3), (8, 512, 512, 3), (1, 24, 40, 3), (2, 120, 200, 3)]  # the path's first
+K3_SHAPES = [(4, 256, 256, 3), (8, 512, 512, 3), (1, 24, 40, 3), (2, 120, 200, 3), (1, 130, 135, 3)]  # the path's first
 # K3 and its plain version normalise in x's dtype and sum in fp32 in the same
-# order without fused multiply-adds, so they should agree bit for bit; fp32
-# is held at the JAX suite's atol (tests/test_pallas_filters.py:17), bf16 at
-# one bf16 step (2^-8 relative) in case an fp32 sum lands on the other side
-# of a rounding boundary.
-K3_TOL = {"float32": dict(atol=2e-4, rtol=0), "bfloat16": dict(atol=2.0**-8, rtol=2.0**-8)}
+# order without fused multiply-adds: fp32 is held bit for bit; bf16 at one
+# bf16 step (2^-8 relative) in case an fp32 sum lands on the other side of a
+# rounding boundary.
+K3_TOL = {"float32": dict(atol=0, rtol=0), "bfloat16": dict(atol=2.0**-8, rtol=2.0**-8)}
+# channel_stats against its twin (the one-pass formula in fp32 on the card):
+# tests/test_pallas_dense.py:67-68's statistics tolerances; the kernel's float64
+# partials are the more exact of the two
+STATS_MEAN_TOL = dict(atol=1e-4, rtol=1e-4)
+STATS_VAR_TOL = dict(atol=1e-4, rtol=1e-3)
+# the dense blocks of the 8×512² serving path: (H, block input C, layers)
+BLOCKS = [(512, 64, 6), (256, 128, 12), (128, 256, 24)]
 TRAIN_SHAPE = (4, 256, 256)  # bench.py:65-78: 4 images of 256², bf16, no perceptual term
 TRAIN_STEPS = 10
 LR = 2e-4
@@ -103,7 +123,8 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of fn() in ms."""
+    """Median CUDA-event time of fn() in ms, the wrapper's host time
+    included (``tools/timing.py::device_ms`` times the device alone)."""
     import torch
 
     for _ in range(warmup):
@@ -117,29 +138,6 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def device_ms(fn, launches: int = 20) -> float:
-    """ms per fn() on the device alone: the calls are queued behind products
-    that keep the card busy for longer than the host takes to queue them
-    (~20 ms against 20 × ~0.2 ms; behind ~5 ms, K2's wrapper, whose host work
-    is ~0.2 ms, read up to 3x its time), so the time between the two events
-    holds no wait for the host. What a small kernel costs when a forward has
-    queued ahead; cuda_ms above includes the wrapper's host time per launch."""
-    import torch
-
-    fn()
-    busy = torch.empty((8192, 8192), device="cuda", dtype=torch.bfloat16).normal_()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(12):
-        busy @ busy
-    start.record()
-    for _ in range(launches):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / launches
 
 
 def exact_fp32():
@@ -222,6 +220,7 @@ def phase_kernels():
     import torch
 
     from fdgan_tpu_torch.ops import dense
+    from fdgan_tpu_torch.tools.timing import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, worst = [], {"k1": 0.0, "k2": 0.0}
@@ -298,6 +297,139 @@ def phase_kernels():
     return rows, worst
 
 
+def stats_views(b, h, c0, layers, gen):
+    """A dense block's concat buffer (b, h, h, c0 + 32·layers) bf16 and the
+    views channel_stats reduces in a batch-BN forward: the block input, then
+    each layer's 32 new channels."""
+    import torch
+
+    ld = c0 + 32 * layers
+    buf = (torch.randn((b, h, h, ld), generator=gen, device="cuda") * 1.5 + 0.3).bfloat16()
+    return buf, [buf[..., :c0]] + [buf[..., c:c + 32] for c in range(c0, ld, 32)]
+
+
+def discriminator_bn_inputs():
+    """The inputs of D's three BatchNorms in a train step at 4×256² bf16, from
+    D's own convs (random weights, seed 0) on a fused batch (K3 of a train
+    batch): NCHW channels_last conv outputs 4×128×64×64, 4×256×32×32 and
+    4×512×31×31, as NHWC views, the layout batch_stats hands channel_stats."""
+    import torch
+
+    from fdgan_tpu_torch.models.discriminators import NLayerDiscriminator
+    from fdgan_tpu_torch.nn.layers import BatchNorm
+    from fdgan_tpu_torch.ops import freq
+
+    d = NLayerDiscriminator(device="cuda", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    outs = []
+    hooks = [d.model[str(int(k) - 1)].register_forward_hook(lambda mod, inp, out: outs.append(out))
+             for k, m in d.model.items() if isinstance(m, BatchNorm)]
+    b, size, _ = TRAIN_SHAPE
+    haze, _ = train_batch(b, size, 100)
+    with torch.no_grad():
+        d(freq.frequency_fuse(haze.bfloat16()))
+    for hk in hooks:
+        hk.remove()
+    del d
+    return [o.permute(0, 2, 3, 1) for o in outs]
+
+
+def check_stats_grad(x, what):
+    """channel_stats' backward (the closed-form VJP) at x against the exact
+    VJP in float64 at the same statistics, and against the twin's VJP by
+    autograd; tolerances as tests/test_torch_stats.py states them: one bf16
+    rounding of the exact value (2^-8) plus fp32's error on b + a·x, and
+    against the twin, whose two terms are rounded before they are added,
+    2^-8·(|T1| + |T2|) + 2^-7·|dx|. Returns the largest error against the
+    exact VJP."""
+    import torch
+
+    from fdgan_tpu_torch.ops import stats
+
+    c, n = x.shape[-1], x.numel() // x.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cm, cv = torch.randn(c, generator=gen, device="cuda"), torch.randn(c, generator=gen, device="cuda")
+    xg, xt = x.detach().clone().requires_grad_(True), x.detach().clone().requires_grad_(True)
+    mean, var = stats.channel_stats(xg)
+    (mean * cm + var * cv).sum().backward()
+    m, v = stats.one_pass_reference(xt)
+    (m * cm + v * cv).sum().backward()
+    xd, md = x.detach().double(), mean.detach().double()
+    exact = cm.double() / n + cv.double() * 2 * (xd - md) / n
+    scale = exact.abs().max().item()
+    terms = ((cm.double() - 2 * cv.double() * md).abs().max() + (2 * cv.double() * xd).abs().max()).item() / n
+    err = (xg.grad.double() - exact).abs().max().item()
+    ok = (xg.grad.dtype == x.dtype
+          and torch.allclose(xg.grad.double(), exact, rtol=2.0**-8, atol=2.0**-16 * scale)
+          and torch.allclose(xg.grad.double(), xt.grad.double(), rtol=2.0**-7, atol=2.0**-8 * terms))
+    if not ok:
+        raise AssertionError(f"channel_stats' gradient at {what} disagrees: max_abs_err {err} against the exact "
+                             f"VJP, {(xg.grad.double() - xt.grad.double()).abs().max().item()} against the twin's")
+    return err
+
+
+def phase_channel_stats():
+    """channel_stats against its twin, twice (the same bits), at the views it
+    reduces on both paths: the 45 of a batch-BN forward at 8×512² (serving),
+    the 45 of one at 4×256² and D's three BatchNorm inputs (training); then a
+    ragged shape, the gradient at the ragged shape and at D's widest input,
+    and times at one view of each kind of the serving path."""
+    import torch
+
+    from fdgan_tpu_torch.ops import stats
+    from fdgan_tpu_torch.tools.probes import bound_ms, nbytes
+    from fdgan_tpu_torch.tools.timing import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst, n_views, timed = 0.0, {"serving": 0, "training": 0, "ragged": 0}, {}
+
+    def check(v, path):
+        nonlocal worst
+        mean, var = stats.channel_stats(v)
+        again = stats.channel_stats(v)
+        mr, vr = stats.one_pass_reference(v)
+        err = max((mean - mr).abs().max().item(), (var - vr).abs().max().item())
+        ok = (torch.allclose(mean, mr, **STATS_MEAN_TOL) and torch.allclose(var, vr, **STATS_VAR_TOL)
+              and torch.equal(again[0], mean) and torch.equal(again[1], var))
+        if not ok:
+            raise AssertionError(f"channel_stats disagrees with its twin at {tuple(v.shape)} ld {v.stride(2)}: "
+                                 f"err {err}, same bits twice {torch.equal(again[0], mean)}")
+        worst, n_views[path] = max(worst, err), n_views[path] + 1
+        return err
+
+    for path, b, scale in (("serving", 8, 1), ("training", TRAIN_SHAPE[0], 2)):
+        for h, c0, layers in BLOCKS:
+            buf, views = stats_views(b, h // scale, c0, layers, gen)
+            for i, v in enumerate(views):
+                err = check(v, path)
+                if path == "serving" and i <= 1:  # the block input and one 32-channel slice
+                    bound, by = bound_ms(3 * v.numel(), nbytes(v) + 2 * v.shape[-1] * 4, tensor_cores=False)
+                    row = {"shape": list(v.shape), "ld": v.stride(2), "max_abs_err": err,
+                           "ms": cuda_ms(lambda: stats.channel_stats(v)),
+                           "device_ms": device_ms(lambda: stats.channel_stats(v)),
+                           "plain_ms": cuda_ms(lambda: stats.one_pass_reference(v)),
+                           # one PyTorch call on the same view: the fp32 norm reads bf16 x once
+                           "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(v, dim=(0, 1, 2),
+                                                                                  dtype=torch.float32)),
+                           "bound_ms": bound, "bound_by": by}
+                    timed[f"{h}_{'input' if i == 0 else 'slice'}"] = row
+                    log(json.dumps({"channel_stats": row}))
+            del buf, views
+            torch.cuda.empty_cache()
+    d_inputs = discriminator_bn_inputs()
+    for v in d_inputs:
+        check(v, "training")
+    # a ragged view: 5 channel groups, a pixel count that ends inside a tile
+    x = torch.randn((3, 17, 29, 48), generator=gen, device="cuda").bfloat16()[..., 8:48]
+    check(x, "ragged")
+    grad_err = max(check_stats_grad(x, "a ragged view"), check_stats_grad(d_inputs[-1], "D's 4x31x31x512 input"))
+    log(f"channel_stats vs twin: {n_views} views (serving: 8x512^2 forward; training: 4x256^2 forward and D's "
+        f"{[tuple(v.shape) for v in d_inputs]}) and a ragged one, max_abs_err {worst:.3e}; gradient against the "
+        f"exact VJP max_abs_err {grad_err:.3e}, within the twin's bound")
+    if n_views != {"serving": 45, "training": 48, "ragged": 1}:
+        raise AssertionError(f"expected 45 serving, 45 + 3 training and 1 ragged view, checked {n_views}")
+    return timed, worst
+
+
 def psnr(a, b) -> float:
     mse = (a.double() - b.double()).square().mean().item()
     return float("inf") if mse == 0 else 10 * np.log10(4.0 / mse)  # range [-1, 1]
@@ -322,63 +454,101 @@ def randomise_running_stats(model, seed: int = 1) -> None:
 def phase_generator():
     import torch
 
+    from fdgan_tpu_torch.models import fdgan_fast
     from fdgan_tpu_torch.models.fdgan import FDGAN
-    from fdgan_tpu_torch.ops import dense
+    from fdgan_tpu_torch.ops import dense, stats
+    from fdgan_tpu_torch.tools.timing import peak_gib
 
     model = FDGAN(device="cuda", generator=torch.Generator().manual_seed(0))
     randomise_running_stats(model)
     x_np = np.random.default_rng(0).uniform(size=(8, 512, 512, 3)).astype(np.float32)
     x = torch.from_numpy(x_np).cuda()
+    forwards = {  # fdgan_fast.apply is what the engine and the train step run
+        "fast": lambda m, xx, mode, impl: fdgan_fast.apply(m, xx, bn_mode=mode, impl=impl),
+        "module": lambda m, xx, mode, impl: m(xx, bn_mode=mode, impl=impl),
+    }
     out = {}
     ref32 = {}
     with torch.inference_mode():
         with exact_fp32():
             for mode in ("batch", "running"):
-                dense.reset_launch_counts()
-                y_k = model(x, bn_mode=mode, impl="kernels")
-                torch.cuda.synchronize()
-                launches = (dense.k1_launches, dense.k2_launches)
-                y_p = model(x, bn_mode=mode, impl="plain")
-                err = (y_k - y_p).abs().max().item()
-                ok = torch.allclose(y_k, y_p, **GEN_TOL) and bool(torch.isfinite(y_k).all())
-                log(f"generator fp32 {mode}: kernels vs plain max_abs_err {err:.3e} "
-                    f"launches K1 {launches[0]} K2 {launches[1]} ok={ok}")
-                want = (42, 42 if mode == "batch" else 0)
-                if not ok or tuple(y_k.shape) != (8, 512, 512, 3):
-                    raise AssertionError(f"generator kernel path disagrees in fp32 {mode} mode")
-                if launches != want:
-                    raise AssertionError(f"launches per {mode} forward {launches}, expected {want}")
-                out[f"fp32_{mode}_max_abs_err"] = err
-                ref32[mode] = y_p
+                ys = {}
+                for name, fwd in forwards.items():
+                    dense.reset_launch_counts()
+                    y_k = fwd(model, x, mode, "kernels")
+                    torch.cuda.synchronize()
+                    launches = (dense.k1_launches, dense.k2_launches)
+                    y_p = fwd(model, x, mode, "plain")
+                    err = (y_k - y_p).abs().max().item()
+                    ok = torch.allclose(y_k, y_p, **GEN_TOL) and bool(torch.isfinite(y_k).all())
+                    log(f"generator {name} fp32 {mode}: kernels vs plain max_abs_err {err:.3e} "
+                        f"launches K1 {launches[0]} K2 {launches[1]} ok={ok}")
+                    want = (42, 42 if mode == "batch" else 0)
+                    if not ok or tuple(y_k.shape) != (8, 512, 512, 3):
+                        raise AssertionError(f"generator {name} kernel path disagrees in fp32 {mode} mode")
+                    if launches != want:
+                        raise AssertionError(f"launches per {name} {mode} forward {launches}, expected {want}")
+                    out[f"{name}_fp32_{mode}_max_abs_err"] = err
+                    ys[name] = y_k
+                    if name == "module":
+                        ref32[mode] = y_p
+                # the fast forward reassociates the transitions: the same function to fp32 rounding
+                err = (ys["fast"] - ys["module"]).abs().max().item()
+                log(f"generator fp32 {mode}: fast vs module forward max_abs_err {err:.3e}")
+                if not torch.allclose(ys["fast"], ys["module"], **GEN_TOL):
+                    raise AssertionError(f"the fast forward disagrees with FDGAN.forward in {mode} mode")
+                out[f"fp32_{mode}_fast_vs_module_max_abs_err"] = err
+                del ys
         model_bf = FDGAN(device="cuda", dtype=torch.bfloat16)
         model_bf.load_state_dict(model.state_dict())
         xb = x.bfloat16()
         for mode in ("batch", "running"):
-            p_k = psnr(model_bf(xb, bn_mode=mode, impl="kernels").float(), ref32[mode])
-            p_p = psnr(model_bf(xb, bn_mode=mode, impl="plain").float(), ref32[mode])
-            log(f"generator bf16 {mode}: PSNR vs fp32 plain: kernels {p_k:.2f} dB, plain {p_p:.2f} dB")
-            if not p_k >= p_p - 1.0:
-                raise AssertionError(f"bf16 kernel path loses {p_p - p_k:.2f} dB in {mode} mode")
-            out[f"bf16_{mode}_psnr_kernels_db"], out[f"bf16_{mode}_psnr_plain_db"] = p_k, p_p
+            for name, fwd in forwards.items():
+                dense.reset_launch_counts()
+                stats.reset_launch_count()
+                y = fwd(model_bf, xb, mode, "kernels")
+                torch.cuda.synchronize()
+                launches = (dense.k1_launches, dense.k2_launches, stats.launches)
+                p_k = psnr(y.float(), ref32[mode])
+                p_p = psnr(fwd(model_bf, xb, mode, "plain").float(), ref32[mode])
+                log(f"generator {name} bf16 {mode}: PSNR vs fp32 plain: kernels {p_k:.2f} dB, plain {p_p:.2f} dB; "
+                    f"launches K1 {launches[0]} K2 {launches[1]} channel_stats {launches[2]}")
+                if not p_k >= p_p - 1.0:
+                    raise AssertionError(f"bf16 {name} kernel path loses {p_p - p_k:.2f} dB in {mode} mode")
+                # batch mode: 3 block inputs and 42 new slices; FDGAN.forward's transitions reduce
+                # their concats again (3 more), the fast forward's reuse the blocks' statistics
+                want = (42, 42, 45 if name == "fast" else 48) if mode == "batch" else (42, 0, 0)
+                if launches != want:
+                    raise AssertionError(f"launches per bf16 {name} {mode} forward {launches}, expected {want}")
+                out[f"bf16_{name}_{mode}_psnr_kernels_db"], out[f"bf16_{name}_{mode}_psnr_plain_db"] = p_k, p_p
+                out[f"bf16_{name}_{mode}_launches"] = launches
         del ref32
         torch.cuda.empty_cache()
-        # img/s at 8×512², bf16, per BN mode; in turns: plain, kernels, kernels, plain
+        # peak memory of one batch-BN forward, above what was allocated before it
+        for name, fwd in forwards.items():
+            out[f"bf16_{name}_batch_peak_gib"] = peak_gib(lambda: fwd(model_bf, xb, "batch", "kernels"))
+            log(f"generator {name} bf16 batch 8x512^2: peak {out[f'bf16_{name}_batch_peak_gib']:.3f} GiB")
+        # img/s at 8×512², bf16, per BN mode, in turns: the kernel path of both forwards and
+        # the plain path of the fast forward (fast, module, plain, plain, module, fast)
         for mode in ("running", "batch"):
-            times = {"kernels": [], "plain": []}
-            for impl in ("plain", "kernels", "kernels", "plain"):
-                times[impl].append(cuda_ms(lambda: model_bf(xb, bn_mode=mode, impl=impl), reps=5, warmup=1))
-            for impl, ts in times.items():
+            times = {"fast": [], "module": [], "plain": []}
+            for name in ("fast", "module", "plain", "plain", "module", "fast"):
+                fwd, impl = (forwards["fast"], "plain") if name == "plain" else (forwards[name], "kernels")
+                times[name].append(cuda_ms(lambda: fwd(model_bf, xb, mode, impl), reps=5, warmup=1))
+            for name, ts in times.items():
                 ms = sum(ts) / len(ts)
-                out[f"bf16_{mode}_{impl}_ms"] = ms
-                out[f"bf16_{mode}_{impl}_img_s"] = 8 * 1000.0 / ms
-                log(f"generator bf16 {mode} 8x512^2 {impl}: {ms:.2f} ms/batch, {8000.0 / ms:.2f} img/s")
+                out[f"bf16_{mode}_{name}_ms"] = ms
+                out[f"bf16_{mode}_{name}_img_s"] = 8 * 1000.0 / ms
+                out[f"bf16_{mode}_{name}_turns_ms"] = ts
+                log(f"generator bf16 {mode} 8x512^2 {name}: {ms:.2f} ms/batch, {8000.0 / ms:.2f} img/s "
+                    f"(turns {', '.join(f'{t:.2f}' for t in ts)} ms)")
     return model, out
 
 
 def phase_serving(model):
     import torch
 
-    from fdgan_tpu_torch.ops import dense
+    from fdgan_tpu_torch.ops import dense, stats
     from fdgan_tpu_torch.serve import InferenceEngine
     from fdgan_tpu_torch.serve_http import BatchingFrontend
 
@@ -408,12 +578,13 @@ def phase_serving(model):
     try:
         # the main path's run: counters from 0, read right after
         dense.reset_launch_counts()
+        stats.reset_launch_count()
         t0 = time.perf_counter()
         results = {"running": submit_all(fronts["running"], images),
                    "batch": submit_all(fronts["batch"], images[:4])}
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"k1": dense.k1_launches, "k2": dense.k2_launches}
+        launches = {"k1": dense.k1_launches, "k2": dense.k2_launches, "channel_stats": stats.launches}
         lat = fronts["running"].latency_stats()
     finally:
         for fe in fronts.values():
@@ -434,7 +605,7 @@ def phase_serving(model):
     if max_d > SERVE_TOL["atol"] or mean_d > SERVE_TOL["mean"]:
         raise AssertionError("frontend results disagree with predict_batch")
     eng_batches = sum(e.stats["batches"] for e in engines.values())
-    if launches["k1"] == 0 or launches["k2"] == 0:
+    if 0 in launches.values():
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
     return launches, {"wall_s": wall, "batches_total": eng_batches, **lat}
 
@@ -449,16 +620,17 @@ def train_batch(b, size, seed, device="cuda"):
 
 
 def reset_all_counts():
-    from fdgan_tpu_torch.ops import dense, freq
+    from fdgan_tpu_torch.ops import dense, freq, stats
 
     dense.reset_launch_counts()
     freq.reset_launch_count()
+    stats.reset_launch_count()
 
 
 def all_counts():
-    from fdgan_tpu_torch.ops import dense, freq
+    from fdgan_tpu_torch.ops import dense, freq, stats
 
-    return {"k1": dense.k1_launches, "k2": dense.k2_launches, "k3": freq.k3_launches}
+    return {"k1": dense.k1_launches, "k2": dense.k2_launches, "k3": freq.k3_launches, "channel_stats": stats.launches}
 
 
 def phase_k3():
@@ -466,6 +638,7 @@ def phase_k3():
 
     from fdgan_tpu_torch.ops import filters, freq
     from fdgan_tpu_torch.tools.probes import bound_ms, nbytes
+    from fdgan_tpu_torch.tools.timing import device_ms
 
     rows, worst = [], 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -480,10 +653,13 @@ def phase_k3():
                 # per pixel and channel: two 15-tap passes (a multiply and an add
                 # each) and the 9-term Laplacian, all outside the tensor cores
                 bound, by = bound_ms(x.numel() * (2 * 30 + 9), nbytes(x, got), tensor_cores=False)
-                row = {"shape": list(shape), "dtype": name, "k3_max_abs_err": err,
+                row = {"shape": list(shape), "dtype": name, "k3_max_abs_err": err, "k3_bit_equal": torch.equal(got, want),
                        "k3_ms": cuda_ms(lambda: freq.frequency_fuse(x)),
                        "k3_plain_ms": cuda_ms(lambda: filters.frequency_fuse(x)),
                        "k3_bound_ms": bound, "k3_bound_by": by}
+                if shape in K3_SHAPES[:2]:  # the kernel alone, and its share of the bound
+                    row["k3_device_ms"] = device_ms(lambda: freq.frequency_fuse(x), launches=40)
+                    row["k3_device_share"] = bound / row["k3_device_ms"]
             rows.append(row)
             worst = max(worst, err)
             log(json.dumps(row))
@@ -511,7 +687,7 @@ def phase_gradients():
         for impl in ("kernels", "plain"):
             block.zero_grad(set_to_none=True)
             xi, xf = x.clone().requires_grad_(True), xs.clone().requires_grad_(True)
-            y = dense.dense_block_fused(list(block.children()), xi, mode="batch", impl=impl)
+            y, _ = dense.dense_block_fused(list(block.children()), xi, mode="batch", impl=impl)
             y.square().mean().backward()
             fuse = freq.frequency_fuse if impl == "kernels" else filters.frequency_fuse
             (fuse(xf) * ct).sum().backward()
@@ -624,8 +800,9 @@ def phase_training():
         log(f"train bf16 {b}x{size}^2 {impl}: {json.dumps(out[impl])}")
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     log(f"train launches {launches} per step {per_step}")
-    if per_step != {"k1": 42, "k2": 42, "k3": 3}:
-        raise AssertionError(f"launches per train step {per_step}, expected K1 42, K2 42, K3 3")
+    # channel_stats: G's 3 block inputs and 42 slices, and D's 3 BNs in each of its 3 forwards
+    if per_step != {"k1": 42, "k2": 42, "k3": 3, "channel_stats": 45 + 3 * 3}:
+        raise AssertionError(f"launches per train step {per_step}, expected K1 42, K2 42, K3 3, channel_stats 54")
 
     # split G/D steps through an ImagePool (misc.py:140-161)
     state = runs["kernels"]["state"]
@@ -703,6 +880,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     rows, worst = phase_kernels()
+    stats_timed, stats_worst = phase_channel_stats()
     model, gen = phase_generator()
     log(json.dumps({"generator": gen}))
     launches, serving = phase_serving(model)
@@ -742,13 +920,24 @@ def main() -> int:
          "mma_ms": timed["k2_mma_ms"],  # the mma.sync body the wgmma kernel replaced, same run
          "mma_device_ms": timed["k2_mma_device_ms"],
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
+        {"name": "channel_stats", "route": "cuda",
+         "source": "fdgan_tpu_torch/csrc/channel_stats.cu",
+         "replaces": "none: XLA's fused reduction, fdgan_tpu/nn/layers.py:125-145",
+         "launches": train_launches["channel_stats"], "launches_by_path": by_path("channel_stats"),
+         "max_abs_err": stats_worst, "ms": stats_timed["512_slice"]["ms"],
+         "plain_ms": stats_timed["512_slice"]["plain_ms"], "bound_ms": stats_timed["512_slice"]["bound_ms"],
+         "bound_by": stats_timed["512_slice"]["bound_by"], "library_ms": stats_timed["512_slice"]["library_ms"],
+         "device_ms": stats_timed["512_slice"]["device_ms"],
+         "timed_at": stats_timed["512_slice"]["shape"] + ["bfloat16", f"ld {stats_timed['512_slice']['ld']}"],
+         "err_of": "bf16, the 45 views of a batch-BN forward"},
         {"name": "frequency_fuse (K3)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/freq_filters.cu",
          "replaces": "fdgan_tpu/ops/pallas_filters.py:81", "launches": train_launches["k3"],
          "launches_by_path": by_path("k3"),
          "max_abs_err": k3_worst, "ms": k3_timed["k3_ms"], "plain_ms": k3_timed["k3_plain_ms"],
          "bound_ms": k3_timed["k3_bound_ms"], "bound_by": k3_timed["k3_bound_by"], "library_ms": None,
-         "timed_at": list(K3_SHAPES[0]) + ["bfloat16"], "err_of": "fp32 and bf16, all shapes"},
+         "device_ms": k3_timed["k3_device_ms"],
+         "timed_at": list(K3_SHAPES[0]) + ["bfloat16"], "err_of": "fp32 (bit for bit) and bf16, all shapes"},
     ]
     for name, row in probe_rows.items():
         kernels.append({

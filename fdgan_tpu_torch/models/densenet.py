@@ -42,7 +42,7 @@ class DenseBlock(nn.Module):
                 stats_out: StatsOut = None, prefix: str = "") -> torch.Tensor:
         """x NCHW (channels_last) → the concat of x and every layer's output.
         ``stats_out`` collects the BN statistics under ``{prefix}denselayerN.normK``."""
-        y = dense_block_fused(
+        y, _ = dense_block_fused(
             list(self.children()), x.permute(0, 2, 3, 1).contiguous(), mode=bn_mode, impl=impl,
             stats_out=stats_out, prefix=prefix,
         )
@@ -58,6 +58,6 @@ class Transition(nn.Module):
         self.conv = Conv2d(in_ch, out_ch, 1, bias=False, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, bn_mode: str = "batch", stats_out: StatsOut = None,
-                prefix: str = "") -> torch.Tensor:
-        h = batch_norm(self.norm, x, bn_mode, stats_out=stats_out, stats_key=f"{prefix}norm")
+                prefix: str = "", impl: str = "kernels") -> torch.Tensor:
+        h = batch_norm(self.norm, x, bn_mode, stats_out=stats_out, stats_key=f"{prefix}norm", impl=impl)
         return avg_pool(self.conv(relu(h)), 2)

@@ -45,12 +45,13 @@ class NLayerDiscriminator(nn.Module):
         self.to_empty(device=device if device is not None else "cpu")
         torch_style_init(self, generator if generator is not None else torch.Generator().manual_seed(0))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "kernels") -> torch.Tensor:
+        """``impl`` picks the BNs' batch statistics (``nn.layers.batch_stats``)."""
         h = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         h = leaky_relu(self.model["0"](h))
         idx = 2
         for _ in range(self.n_layers):
-            h = leaky_relu(batch_norm(self.model[str(idx + 1)], self.model[str(idx)](h), "batch"))
+            h = leaky_relu(batch_norm(self.model[str(idx + 1)], self.model[str(idx)](h), "batch", impl=impl))
             idx += 3
         h = self.model[str(idx)](h)
         if h.shape[2] == 0 or h.shape[3] == 0:
@@ -61,10 +62,11 @@ class NLayerDiscriminator(nn.Module):
 
 def fusion_apply(d: NLayerDiscriminator, x: torch.Tensor, impl: str = "kernels") -> torch.Tensor:
     """D(concat[RGB, Gaussian LF, Laplacian HF] of NHWC x). ``impl='kernels'``
-    builds the input with K3 (``ops.freq``; its plain version for a CPU
-    tensor), ``impl='plain'`` with the plain version on any device."""
+    builds the input with K3 (``ops.freq``) and D's batch statistics with
+    ``channel_stats`` (``ops.stats``), their plain versions for a CPU tensor;
+    ``impl='plain'`` runs the plain versions on any device."""
     if impl == "kernels":
-        return d(freq.frequency_fuse(x))
+        return d(freq.frequency_fuse(x), impl)
     if impl == "plain":
-        return d(filters.frequency_fuse(x))
+        return d(filters.frequency_fuse(x), impl)
     raise ValueError(f"unknown impl {impl!r}")

@@ -5,7 +5,10 @@ Counterpart of ``fdgan_tpu/models/fdgan.py`` (reference
 and 24 dense layers at H, H/2 and H/4) with multi-scale skip fusions and a
 tanh output in [-1, 1]. The forward follows ``fdgan.apply(impl="pallas")``:
 the 42 encoder dense layers run through kernel K1, and in batch-BN mode
-their norm2 statistics come from kernel K2 (``ops/dense.py``).
+their norm2 statistics come from kernel K2 (``ops/dense.py``) and bf16
+batch statistics from ``channel_stats`` (``ops/stats.py``). The engine and
+the train step run ``models/fdgan_fast.py`` over the same parameters, the
+counterpart of the forward the JAX entry points run.
 
 The attribute names are the reference's, dead parameters included
 (densenet ``conv0``, ``dense_block31``, ``dense_norm31`` and the BNs inside
@@ -70,8 +73,9 @@ class FDGAN(nn.Module):
         """``bn_mode='batch'`` normalises with batch statistics (the
         reference's published inference mode), ``'running'`` with the
         stored ones. ``impl='kernels'`` runs the encoder's dense layers
-        through K1/K2 (their plain twins for a CPU tensor); ``impl='plain'``
-        runs the twins on any device. In batch mode ``stats_out`` collects
+        through K1/K2 and bf16 batch statistics through ``channel_stats``
+        (their plain twins for a CPU tensor); ``impl='plain'`` runs the
+        twins on any device. In batch mode ``stats_out`` collects
         every BN's (mean, unbiased var) under its module path, which is the
         JAX key (``dense_block1.denselayer1.norm1``, ``trans_block1.norm``)."""
         if x.dim() != 4 or x.shape[-1] != 3:
@@ -84,7 +88,7 @@ class FDGAN(nn.Module):
             return getattr(self, name)(xx, bn_mode, impl, stats_out, f"{name}.")
 
         def trans(name, xx):
-            return getattr(self, name)(xx, bn_mode, stats_out, f"{name}.")
+            return getattr(self, name)(xx, bn_mode, stats_out, f"{name}.", impl)
 
         x0 = relu(self.conv_refin1(x))
         x01 = self.conv_refin2(avg_pool(x0, 2))

@@ -19,13 +19,14 @@ module path, for :func:`update_running_stats`.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-_DIMS = (0, 2, 3)  # N, H, W of an NCHW tensor
+from fdgan_tpu_torch.ops.stats import channel_stats
+from fdgan_tpu_torch.ops.stats import reference as plain_channel_stats
 
 StatsOut = Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
 
@@ -108,19 +109,22 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
 
 
-def batch_stats(x: torch.Tensor, dims: Sequence[int] = _DIMS) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 per-channel (mean, biased var), as ``_batch_stats`` computes them.
+def batch_stats(x: torch.Tensor, impl: str = "kernels") -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 per-channel (mean, biased var) of NCHW x, as ``_batch_stats``
+    computes them: fp32 activations by the two-pass variance, bf16 ones by
+    the one-pass E[x²]−μ², clamped at 0, whose fp32 cancellation error is
+    far below bf16's own quantisation.
 
-    fp32 activations use the two-pass variance; bf16 activations use the
-    one-pass E[x²]−μ², clamped at 0, whose fp32 cancellation error is far
-    below bf16's own quantisation."""
-    dims = tuple(dims)
-    mean = x.mean(dim=dims, keepdim=True, dtype=torch.float32)
-    if x.dtype == torch.bfloat16:
-        var = (x.float().square().mean(dim=dims) - mean.square().flatten()).clamp_min(0.0)
-    else:
-        var = (x.float() - mean).square().mean(dim=dims)
-    return mean.flatten(), var
+    ``impl='kernels'`` takes bf16 through ``ops.stats.channel_stats``: the
+    hand-written kernel on a CUDA tensor, which reads x once in bf16 and so
+    needs x channels_last (NHWC in memory; any other layout raises), and its
+    twin on a CPU one. ``impl='plain'`` runs the plain formula on any device."""
+    nhwc = x.permute(0, 2, 3, 1)
+    if impl == "kernels":
+        return channel_stats(nhwc)
+    if impl == "plain":
+        return plain_channel_stats(nhwc)
+    raise ValueError(f"unknown impl {impl!r}")
 
 
 def unbiased(var: torch.Tensor, n: int) -> torch.Tensor:
@@ -142,8 +146,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features, **kw))
 
     def forward(self, x: torch.Tensor, mode: str = "batch", stats_out: StatsOut = None,
-                stats_key: Optional[str] = None) -> torch.Tensor:
-        return batch_norm(self, x, mode, stats_out=stats_out, stats_key=stats_key)
+                stats_key: Optional[str] = None, impl: str = "kernels") -> torch.Tensor:
+        return batch_norm(self, x, mode, stats_out=stats_out, stats_key=stats_key, impl=impl)
 
 
 def batch_norm(
@@ -153,14 +157,16 @@ def batch_norm(
     eps: float = 1e-5,
     stats_out: StatsOut = None,
     stats_key: Optional[str] = None,
+    impl: str = "kernels",
 ) -> torch.Tensor:
     """BatchNorm over NCHW, normalising over N, H and W. The statistics and
     the folded affine are fp32; the final multiply-add runs in x's dtype.
+    Batch mode takes its statistics from :func:`batch_stats` with ``impl``.
 
     In batch mode with ``stats_out`` and ``stats_key`` given, the batch's
     (mean, unbiased var) is recorded, detached, under ``stats_key``."""
     if mode == "batch":
-        mean, var = batch_stats(x)
+        mean, var = batch_stats(x, impl)
         if stats_out is not None and stats_key is not None:
             n = x.shape[0] * x.shape[2] * x.shape[3]
             stats_out[stats_key] = (mean.detach(), unbiased(var.detach(), n))

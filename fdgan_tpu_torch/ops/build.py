@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("dense_layer.cu", "freq_filters.cu", "probes.cu")
+SOURCES = ("dense_layer.cu", "freq_filters.cu", "probes.cu", "channel_stats.cu")
 HEADERS = ("mma_bf16.cuh", "wgmma_bf16.cuh")  # included by the sources: part of the build's hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,6 +38,8 @@ _SIGNATURES = {
     "fdgan_h_stats_bf16_blocks": [_I],
     "fdgan_h_stats_rows": [],
     "fdgan_tw1_stamps": [_P, _I],
+    "fdgan_channel_stats_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    "fdgan_channel_stats_blocks": [_I, _I],
     "fdgan_freq_filters_f32": [_P] * 3 + [_I] * 3 + [_P],
     "fdgan_freq_filters_bf16": [_P] * 3 + [_I] * 3 + [_P],
     "fdgan_probe_mm": [_P] * 3 + [_I] * 2 + [_P],

@@ -4,7 +4,9 @@ Counterpart of ``fdgan_tpu/ops/pallas_dense.py``. On a CUDA tensor,
 ``fused_dense_layer`` and ``h_batch_stats`` launch the hand-written kernels
 of ``csrc/dense_layer.cu``; on a CPU tensor they run the plain PyTorch twins
 ``layer_reference`` and ``h_stats_reference``, which keep the kernels'
-rounding points. A CUDA launch that fails raises; nothing falls back.
+rounding points. A CUDA launch that fails raises; nothing falls back. In
+batch mode ``dense_block_fused`` takes norm1's statistics, segment by
+segment, from the ``channel_stats`` kernel (``ops/stats.py``).
 
 Tensors here are in the JAX layout, NHWC: the generator passes the NHWC
 view of its channels_last activations, which costs no copy. Weights are
@@ -30,7 +32,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from fdgan_tpu_torch.nn.layers import batch_stats, unbiased
+from fdgan_tpu_torch.nn.layers import unbiased
+from fdgan_tpu_torch.ops.common import pixel_stride, twin_vjp
+from fdgan_tpu_torch.ops.stats import channel_stats
+from fdgan_tpu_torch.ops.stats import reference as stats_reference
 
 _EPS = 1e-5
 INTER = 128   # bn_size * growth of DenseNet-121
@@ -50,11 +55,6 @@ def fold_bn(weight, bias, mean, var) -> Tuple[torch.Tensor, torch.Tensor]:
     """BN as a per-channel fp32 affine: y = a·x + b."""
     a = weight.float() * torch.rsqrt(var.float() + _EPS)
     return a, bias.float() - mean.float() * a
-
-
-def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel fp32 (mean, biased var) of an NHWC tensor over B, H, W."""
-    return batch_stats(x, dims=(0, 1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -93,26 +93,6 @@ def h_stats_reference(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
-def pixel_stride(t: torch.Tensor, name: str = "x") -> int:
-    """The elements from one pixel of the NHWC tensor ``t`` to the next: C
-    where t is NHWC-contiguous, more where t is a channel slice of a wider
-    NHWC-contiguous buffer (strides (H·W·ld, W·ld, ld, 1), ld ≥ C). The
-    kernels address pixel p at p·ld; any other layout raises."""
-    if t.dim() != 4:
-        raise ValueError(f"{name} must be NHWC (B, H, W, C), got shape {tuple(t.shape)}")
-    b, h, w, c = t.shape
-    s = t.stride()
-    ld = s[2] if w > 1 else s[1] if h > 1 else s[0] if b > 1 else c
-    if not ((c == 1 or s[3] == 1) and (h == 1 or s[1] == w * ld) and (b == 1 or s[0] == h * w * ld)):
-        raise ValueError(f"{name} must be NHWC-contiguous or a channel slice of an NHWC-contiguous buffer, "
-                         f"got strides {s} for shape {tuple(t.shape)}")
-    if ld < c:
-        raise ValueError(f"{name} has a pixel stride ld={ld} below its C={c} channels")
-    if t.numel() and (t.numel() // c - 1) * ld + c >= 2**31:
-        raise ValueError(f"{name} is too large for the kernels' 32-bit pixel indices")
-    return ld
 
 
 def _check_inputs(x, a1, b1, w1) -> Tuple[int, int]:
@@ -274,20 +254,6 @@ def _launch_k2_mma(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
     return _run_k2(x, a1, b1, w1, mma=True)
 
 
-def twin_vjp(twin, ctx, cts):
-    """The VJP of ``twin`` at a Function's saved inputs, for the inputs that
-    need a grad: the backward of every kernel of the port."""
-    need = ctx.needs_input_grad
-    with torch.enable_grad():
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-        outs = twin(*inputs)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        pairs = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
-        wanted = [t for t, n in zip(inputs, need) if n]
-        grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [c for _, c in pairs], allow_unused=True))
-    return tuple(next(grads) if n else None for n in need)
-
-
 class _FusedLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a1, b1, w1, a2, b2, w2):
@@ -356,10 +322,13 @@ def dense_block_fused(
     impl: str = "kernels",
     stats_out: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
     prefix: str = "",
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """A DenseNet block over NHWC x: ``layers`` are the block's DenseLayer
-    modules (norm1, conv1, norm2, conv2). Returns the concat of x and every
-    layer's 32 new channels.
+    modules (norm1, conv1, norm2, conv2). Returns ``(concat, stats)``: the
+    concat of x and every layer's 32 new channels, and in batch mode its
+    per-channel batch statistics ``(mean, var)`` (None in running mode),
+    which the transition after the block reuses (``models/fdgan_fast.py``,
+    as ``fdgan_fast._SegStats``).
 
     Where autograd records nothing (``torch.is_grad_enabled()`` is false, as
     under ``torch.inference_mode``, the serving path), the concat is one
@@ -373,16 +342,17 @@ def dense_block_fused(
 
     In batch mode, norm1's statistics are the per-channel statistics of the
     concat, kept per segment as it grows (channels partition, so each
-    segment is reduced once), and norm2's come from K2. With ``stats_out``,
+    segment is reduced once: ``ops.stats.channel_stats``), and norm2's come
+    from K2. With ``stats_out``,
     batch mode records every BN's (mean, unbiased var), detached, under
     ``{prefix}denselayerN.norm1`` / ``.norm2``, as ``pallas_dense.py:411-413``.
     ``impl='plain'`` runs the twins on any device."""
     if mode not in ("batch", "running"):
         raise ValueError(f"unknown BN mode {mode!r}")
     if impl == "kernels":
-        layer_fn, stats_fn = fused_dense_layer, h_batch_stats
+        layer_fn, stats_fn, seg_fn = fused_dense_layer, h_batch_stats, channel_stats
     elif impl == "plain":
-        layer_fn, stats_fn = layer_reference, h_stats_reference
+        layer_fn, stats_fn, seg_fn = layer_reference, h_stats_reference, stats_reference
     else:
         raise ValueError(f"unknown impl {impl!r}")
     n = x.shape[0] * x.shape[1] * x.shape[2]
@@ -393,7 +363,7 @@ def dense_block_fused(
         buf[..., :c0] = x
         x = buf[..., :c0]
     if mode == "batch":
-        mean_cat, var_cat = channel_stats(x)
+        mean_cat, var_cat = seg_fn(x)
     for i, layer in enumerate(layers):
         if mode == "batch":
             m1, v1 = mean_cat, var_cat
@@ -421,8 +391,8 @@ def dense_block_fused(
             else:
                 f.copy_(layer_reference(x, a1, b1, w1, a2, b2, w2))
         if mode == "batch":
-            mf, vf = channel_stats(f)
+            mf, vf = seg_fn(f)
             mean_cat = torch.cat([mean_cat, mf])
             var_cat = torch.cat([var_cat, vf])
         x = torch.cat([x, f], dim=-1) if buf is None else buf[..., :c + GROWTH]
-    return x
+    return x, ((mean_cat, var_cat) if mode == "batch" else None)

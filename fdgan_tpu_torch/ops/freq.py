@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from fdgan_tpu_torch.ops import filters
-from fdgan_tpu_torch.ops.dense import twin_vjp
+from fdgan_tpu_torch.ops.common import twin_vjp
 
 k3_launches = 0
 

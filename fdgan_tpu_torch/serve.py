@@ -16,9 +16,11 @@ serving mechanics:
 * **Running-stats BN by default** — each image's result is independent of
   its batch-mates; batch-stats mode is opt-in.
 
-The forward is ``FDGAN.forward(impl="kernels")``: the encoder's 42 dense
-layers run through the hand-written kernels, whose launch counts appear in
-``stats``. The halo-tiled route, meshes and warmup wait for later work.
+The forward is ``models.fdgan_fast.apply`` (as the JAX engine's is
+``fdgan_fast.apply``): the encoder's 42 dense layers run through the
+hand-written kernels K1 and K2, and in batch-BN mode the segment statistics
+through ``channel_stats``; their launch counts appear in ``stats``. The
+halo-tiled route, meshes and warmup wait for later work.
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from fdgan_tpu_torch.models import fdgan_fast
 from fdgan_tpu_torch.models.fdgan import FDGAN
-from fdgan_tpu_torch.ops import dense
+from fdgan_tpu_torch.ops import dense, stats
 
 __all__ = ["InferenceEngine"]
 
@@ -136,6 +139,7 @@ class InferenceEngine:
             "padded_frac": 0.0,
             "k1_launches": 0,
             "k2_launches": 0,
+            "channel_stats_launches": 0,
         }
         self._pix_real = 0
         self._pix_padded = 0
@@ -199,7 +203,7 @@ class InferenceEngine:
         if x.dtype == torch.uint8:
             # normalise on the device in fp32, exactly as the host would
             x = x.float() / 255.0
-        y = model(x.to(self._dtype), bn_mode=self.bn_mode)
+        y = fdgan_fast.apply(model, x.to(self._dtype), bn_mode=self.bn_mode)
         if self.output == "uint8":
             # quantise on the device in fp32 (bf16 would itself cost a level)
             y = torch.clamp(torch.round((y.float() + 1.0) * 127.5), 0.0, 255.0)
@@ -217,7 +221,7 @@ class InferenceEngine:
             else contextlib.nullcontext()
         )
         with self._lock, torch.inference_mode(), exact:
-            k1, k2 = dense.k1_launches, dense.k2_launches
+            k1, k2, ks = dense.k1_launches, dense.k2_launches, stats.launches
             if cuda:
                 x = x.pin_memory().to(self.device, non_blocking=True)
                 y = self._forward(self._model, x)
@@ -230,6 +234,7 @@ class InferenceEngine:
             self.stats["batches"] += 1
             self.stats["k1_launches"] += dense.k1_launches - k1
             self.stats["k2_launches"] += dense.k2_launches - k2
+            self.stats["channel_stats_launches"] += stats.launches - ks
         return _Pending(host, event)
 
     # --- shape management ------------------------------------------------------

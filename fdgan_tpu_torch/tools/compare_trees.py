@@ -1,0 +1,96 @@
+"""Time K3 and the generator's forward of one checkout of the port, on one CUDA GPU.
+
+    python fdgan_tpu_torch/tools/compare_trees.py [--root DIR] [--label NAME]
+
+Imports ``fdgan_tpu_torch`` from ``--root`` (default: the checkout that
+holds this file), so that one call on the card can time two trees in turns,
+for example an earlier commit unpacked with ``git archive`` into a directory
+that ``.gitignore`` lists and the working tree:
+
+    python fdgan_tpu_torch/tools/compare_trees.py --root old --label parent
+    python fdgan_tpu_torch/tools/compare_trees.py --label change
+
+Each tree builds its own kernels into its own ``build/``. Prints the card's
+name and power limit, then one JSON line per measurement, each with the
+label:
+
+- ``k3``: ``frequency_fuse`` (K3) at 4×256×256×3 and 8×512×512×3 in bf16:
+  ``device_ms``, the ms per launch of 40 launches queued behind ~20 ms of
+  products (the device alone, no wait for the host), ``bound_ms`` (24 bytes a
+  pixel in bf16 at 3.35 TB/s) and ``share`` = bound / device;
+- ``generator``: the full-width generator (seed-0 weights, bf16, 8×512²,
+  batch BN, ``inference_mode``): ms per forward (CUDA events over 5 forwards
+  after 2) and ``peak_gib`` (``max_memory_allocated`` over one forward, less
+  what was allocated before it), through ``FDGAN.forward`` and, where the
+  tree has it, ``models.fdgan_fast.apply``.
+
+Needs a CUDA device; raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+K3_SHAPES = [(4, 256, 256, 3), (8, 512, 512, 3)]
+
+
+def _timing():
+    """This checkout's ``tools/timing.py``, loaded by path: it imports only
+    torch, and importing it as part of the package would bind
+    ``fdgan_tpu_torch`` to this checkout instead of ``--root``'s."""
+    spec = importlib.util.spec_from_file_location("fdgan_timing", Path(__file__).with_name("timing.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    parser.add_argument("--label", default="tree")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_trees needs a CUDA device")
+    timing = _timing()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from fdgan_tpu_torch.models.fdgan import FDGAN
+    from fdgan_tpu_torch.ops import freq
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
+    src = Path(freq.__file__).resolve().parents[2]
+    for shape in K3_SHAPES:
+        x = torch.tensor(np.random.default_rng(3).uniform(size=shape), dtype=torch.bfloat16, device="cuda")
+        ms = timing.device_ms(lambda: freq.frequency_fuse(x), launches=40)
+        bound = x.numel() * 4 * x.element_size() / 3.35e12 * 1e3  # 3 values read, 9 written a pixel
+        print(json.dumps({"label": args.label, "root": str(src), "k3": list(shape), "dtype": "bfloat16",
+                          "device_ms": ms, "bound_ms": bound, "share": bound / ms}), flush=True)
+        del x
+    try:
+        from fdgan_tpu_torch.models import fdgan_fast
+    except ImportError:  # a tree from before the fast forward
+        fdgan_fast = None
+    model = FDGAN(device="cuda", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=(8, 512, 512, 3)).astype(np.float32)).cuda().bfloat16()
+    forwards = {"module": lambda: model(x, bn_mode="batch")}
+    if fdgan_fast is not None:
+        forwards["fast"] = lambda: fdgan_fast.apply(model, x, bn_mode="batch")
+    with torch.inference_mode():
+        for name, fn in forwards.items():
+            ms = timing.events_ms(fn)
+            print(json.dumps({"label": args.label, "generator": name, "shape": [8, 512, 512, 3], "bn_mode": "batch",
+                              "dtype": "bfloat16", "ms": ms, "img_s": 8000.0 / ms, "peak_gib": timing.peak_gib(fn)}),
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,8 +1,11 @@
 """Where the time of the generator's forward goes, on one CUDA GPU.
 
     python -m fdgan_tpu_torch.tools.prof_serve [--batch 8] [--size 512] [--impl kernels plain] [--bn running batch]
+        [--forward fast module]
 
-For each ``impl`` and BN mode, on the full-width FDGAN generator (random
+For each ``forward`` (``fast``: ``models.fdgan_fast.apply``, what the engine
+and the train step run; ``module``: ``FDGAN.forward``), ``impl`` and BN mode,
+on the full-width FDGAN generator (random
 weights from seed 0, randomised running statistics, bf16) and after
 ``--warmup`` forwards, prints one JSON line:
 
@@ -12,8 +15,10 @@ weights from seed 0, randomised running statistics, bf16) and after
   that ``torch.profiler`` records on the device over ``--prof-forwards`` more
   forwards, ``idle_share`` = 1 − device_ms / wall_ms (one stream, so device
   events do not overlap) and ``device_events`` per forward;
-- ``k1_ms``, ``k2_ms``, ``cat_ms``: the device time per forward of the dense
-  layer's kernels (by their names in ``csrc/dense_layer.cu``) and of every
+- ``k1_ms``, ``k2_ms``, ``stats_ms``, ``cat_ms``: the device time per
+  forward of the dense layer's kernels (by their names in
+  ``csrc/dense_layer.cu``), of ``channel_stats`` (``csrc/channel_stats.cu``,
+  both of its kernels) and of every
   ``torch.cat``'s copies (``CatArrayBatchedCopy``): the dense blocks' concats
   where each layer concatenates, only the decoder's and the statistics'
   where a block keeps its concat in one buffer (``inference_mode``, as here);
@@ -32,23 +37,20 @@ import numpy as np
 import torch
 
 
-def profile_forward(model, x: torch.Tensor, impl: str, bn_mode: str, args) -> dict:
+def profile_forward(model, x: torch.Tensor, forward_name: str, impl: str, bn_mode: str, args) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from fdgan_tpu_torch.models import fdgan_fast
+    from fdgan_tpu_torch.tools.timing import events_ms
+
     def forward():
+        if forward_name == "fast":
+            return fdgan_fast.apply(model, x, bn_mode=bn_mode, impl=impl)
         return model(x, bn_mode=bn_mode, impl=impl)
 
     with torch.inference_mode():
-        for _ in range(args.warmup):
-            forward()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.forwards):
-            forward()
-        end.record()
-        end.synchronize()
-        wall_ms = start.elapsed_time(end) / args.forwards
+        wall_ms = events_ms(forward, reps=args.forwards, warmup=args.warmup)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(args.prof_forwards):
                 forward()
@@ -62,10 +64,11 @@ def profile_forward(model, x: torch.Tensor, impl: str, bn_mode: str, args) -> di
     device_ms = sum(e.self_device_time_total for e in events) / 1000 / n
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     return {
-        "impl": impl, "bn_mode": bn_mode, "shape": list(x.shape), "dtype": "bfloat16",
+        "forward": forward_name, "impl": impl, "bn_mode": bn_mode, "shape": list(x.shape), "dtype": "bfloat16",
         "wall_ms": wall_ms, "img_s": 1000 * x.shape[0] / wall_ms, "device_ms": device_ms,
         "idle_share": 1 - device_ms / wall_ms, "device_events": sum(e.count for e in events) / n,
-        "k1_ms": ms_of("dense_layer_"), "k2_ms": ms_of("h_stats_"), "cat_ms": ms_of("CatArrayBatchedCopy"),
+        "k1_ms": ms_of("dense_layer_"), "k2_ms": ms_of("h_stats_"),
+        "stats_ms": ms_of("channel_stats_"), "cat_ms": ms_of("CatArrayBatchedCopy"),
         "top": [{"ms": e.self_device_time_total / 1000 / n, "n": e.count / n, "name": e.key[:140]} for e in top],
     }
 
@@ -76,6 +79,7 @@ def main(argv=None) -> int:
     parser.add_argument("--size", type=int, default=512)
     parser.add_argument("--impl", nargs="+", default=["kernels", "plain"], choices=["kernels", "plain"])
     parser.add_argument("--bn", nargs="+", default=["running", "batch"], choices=["running", "batch"])
+    parser.add_argument("--forward", nargs="+", default=["fast"], choices=["fast", "module"])
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--forwards", type=int, default=5)
     parser.add_argument("--prof-forwards", type=int, default=3)
@@ -95,9 +99,10 @@ def main(argv=None) -> int:
             m.running_var.copy_(1 + 0.1 * torch.rand(m.running_var.shape, device="cuda", generator=gen))
     x = torch.from_numpy(np.random.default_rng(0).uniform(size=(args.batch, args.size, args.size, 3)).astype(np.float32))
     x = x.cuda().bfloat16()
-    for impl in args.impl:
-        for bn_mode in args.bn:
-            print(json.dumps(profile_forward(model, x, impl, bn_mode, args)), flush=True)
+    for forward_name in args.forward:
+        for impl in args.impl:
+            for bn_mode in args.bn:
+                print(json.dumps(profile_forward(model, x, forward_name, impl, bn_mode, args)), flush=True)
     return 0
 
 

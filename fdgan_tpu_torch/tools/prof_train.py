@@ -44,6 +44,7 @@ def phase_ms(state, tx_g, tx_d, weights, haze, gt, impl, steps):
     """Median ms of each part of the step, with ``train.loop._steps``'s
     order and calls."""
     from fdgan_tpu_torch.losses.composite import discriminator_loss, generator_loss
+    from fdgan_tpu_torch.models import fdgan_fast
     from fdgan_tpu_torch.nn.layers import fold_stats
     from fdgan_tpu_torch.train.loop import _frozen
 
@@ -55,7 +56,7 @@ def phase_ms(state, tx_g, tx_d, weights, haze, gt, impl, steps):
         ev[0].record()
         stats: dict = {}
         with _frozen(state.d):
-            x_hat = state.g(h, bn_mode="batch", impl=impl, stats_out=stats)
+            x_hat = fdgan_fast.apply(state.g, h, bn_mode="batch", impl=impl, stats_out=stats)
             ev[1].record()
             _, terms = generator_loss(state.d, x_hat, g, weights, None, impl)
             ev[2].record()

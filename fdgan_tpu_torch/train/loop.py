@@ -8,7 +8,9 @@ learning-rate decay and an optional global-norm clip.
 
 One step, in the JAX step's order (``loop.py:196-223``):
 
-1. G forward with the batch statistics of every BN captured;
+1. G forward (``models.fdgan_fast.apply``, as the JAX step's default
+   ``impl="xla"`` runs ``fdgan_fast.apply``) with the batch statistics of
+   every BN captured;
 2. the G loss and its backward (D's and VGG's parameters frozen), then
    G's Adam update;
 3. the captured statistics folded into G's running statistics (momentum
@@ -17,8 +19,9 @@ One step, in the JAX step's order (``loop.py:196-223``):
 
 Mixed precision is the JAX package's: ``compute_dtype`` casts the inputs
 only; parameters and Adam state stay fp32, and each conv casts its weight
-where it is used. ``impl='kernels'`` runs G's dense layers through K1/K2
-and D's input through K3 (their plain versions for CPU tensors);
+where it is used. ``impl='kernels'`` runs G's dense layers through K1/K2,
+bf16 batch statistics through ``channel_stats`` and D's input through K3
+(their plain versions for CPU tensors);
 ``impl='plain'`` runs the plain versions on any device.
 
 The state is updated in place: a step returns the same ``TrainState``.
@@ -36,6 +39,7 @@ import torch
 from torch import nn
 
 from fdgan_tpu_torch.losses.composite import CONTEXTUAL_TODO, LossWeights, discriminator_loss, generator_loss
+from fdgan_tpu_torch.models import fdgan_fast
 from fdgan_tpu_torch.models.discriminators import NLayerDiscriminator
 from fdgan_tpu_torch.models.fdgan import FDGAN
 from fdgan_tpu_torch.models.vgg16 import VGG16
@@ -137,7 +141,7 @@ def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label):
     def g_update(state: TrainState, haze, gt) -> Tuple[Metrics, torch.Tensor]:
         stats: dict = {}
         with _frozen(state.d, vgg):
-            x_hat = state.g(haze.to(compute_dtype), bn_mode="batch", impl=impl, stats_out=stats)
+            x_hat = fdgan_fast.apply(state.g, haze.to(compute_dtype), bn_mode="batch", impl=impl, stats_out=stats)
             _, terms = generator_loss(state.d, x_hat, gt.to(compute_dtype), weights, vgg, impl)
             state.g_opt.zero_grad(set_to_none=True)
             terms["total"].backward()

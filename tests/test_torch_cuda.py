@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from fdgan_tpu_torch.losses.composite import LossWeights
+from fdgan_tpu_torch.models import fdgan_fast
 from fdgan_tpu_torch.models.densenet import DenseBlock
 from fdgan_tpu_torch.models.fdgan import FDGAN
-from fdgan_tpu_torch.ops import dense, filters, freq, probes
+from fdgan_tpu_torch.nn import layers
+from fdgan_tpu_torch.ops import dense, filters, freq, probes, stats
 from fdgan_tpu_torch.serve import InferenceEngine
 from fdgan_tpu_torch.tools import probes as probe_tool
 from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
@@ -212,6 +214,112 @@ def test_generator_kernels_match_plain(cuda, exact, mode):
     torch.testing.assert_close(got, ref, atol=5e-4, rtol=1e-3)  # test_pallas_dense.py:132
 
 
+@pytest.mark.parametrize("shape,ld,c0", [
+    ((1, 64, 64, 32), None, 0),      # a dense layer's output alone
+    ((1, 64, 64, 32), 256, 96),      # the same channels as a slice of block 1's concat
+    ((2, 32, 32, 32), 1024, 992),    # block 3's last slice, the widest pixel stride
+    ((1, 64, 64, 64), 256, 0),       # block 1's input at the front of its buffer
+    ((2, 16, 24, 256), None, 0),     # block 3's input: one window of 256 channels
+    ((1, 9, 13, 992), None, 0),      # four windows, the last of 224 channels; a ragged pixel count
+    ((3, 17, 29, 40), 48, 8),        # 5 channel groups (not a power of two), a ragged tail tile
+])
+def test_channel_stats_matches_twin(cuda, shape, ld, c0):
+    """The kernel against its twin (the one-pass formula in fp32 on the
+    card): mean at test_pallas_dense.py:67's tolerance, var at :68's; the
+    kernel's float64 partials are the more exact. From a buffer slice and on
+    a second launch the same bits."""
+    x = torch.tensor(np.random.default_rng(13).standard_normal(shape) * 1.5 + 0.7, device=cuda).bfloat16()
+    if ld is not None:
+        buf = torch.full(tuple(shape[:3]) + (ld,), 5.0, device=cuda, dtype=torch.bfloat16)
+        buf[..., c0:c0 + shape[-1]] = x
+        x = buf[..., c0:c0 + shape[-1]]
+    stats.reset_launch_count()
+    mean, var = stats.channel_stats(x)
+    torch.cuda.synchronize()
+    assert stats.launches == 1 and mean.shape == var.shape == (shape[-1],)
+    mr, vr = stats.one_pass_reference(x)
+    torch.testing.assert_close(mean, mr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(var, vr, atol=1e-4, rtol=1e-3)
+    again = stats.channel_stats(x.contiguous())
+    assert torch.equal(again[0], mean) and torch.equal(again[1], var)
+
+
+@pytest.mark.parametrize("shape,ld,c0", [
+    ((2, 31, 31, 32), 256, 96),      # a dense layer's slice of block 1's concat
+    ((1, 31, 31, 512), None, 0),     # D's last BatchNorm input: two windows, a ragged pixel count
+])
+def test_channel_stats_gradient_on_the_card(cuda, shape, ld, c0):
+    """The closed-form backward, computed in fp32 and stored in bf16 by one
+    elementwise kernel, against the exact VJP in float64 (one bf16 rounding,
+    2^-8, plus fp32's error on b + a·x) and against the twin's VJP by
+    autograd, which rounds its two terms before it adds them
+    (tests/test_torch_stats.py states both bounds)."""
+    rng = np.random.default_rng(17)
+    x = torch.tensor(rng.standard_normal(shape) * 1.5 + 0.7, device=cuda).bfloat16()
+    if ld is not None:
+        buf = torch.zeros(tuple(shape[:3]) + (ld,), device=cuda, dtype=torch.bfloat16)
+        buf[..., c0:c0 + shape[-1]] = x
+        x = buf[..., c0:c0 + shape[-1]]
+    cm, cv = (torch.tensor(rng.standard_normal(shape[-1]), device=cuda, dtype=torch.float32) for _ in range(2))
+    xg, xt = x.detach().clone().requires_grad_(True), x.detach().clone().requires_grad_(True)
+    mean, var = stats.channel_stats(xg)
+    (mean * cm + var * cv).sum().backward()
+    m, v = stats.one_pass_reference(xt)
+    (m * cm + v * cv).sum().backward()
+    assert xg.grad.dtype == torch.bfloat16
+    n = x.numel() // shape[-1]
+    xd, md = x.double(), mean.detach().double()
+    exact = cm.double() / n + cv.double() * 2 * (xd - md) / n
+    torch.testing.assert_close(xg.grad.double(), exact, rtol=2.0**-8, atol=2.0**-16 * exact.abs().max().item())
+    terms = ((cm.double() - 2 * cv.double() * md).abs().max() + (2 * cv.double() * xd).abs().max()).item() / n
+    torch.testing.assert_close(xg.grad.double(), xt.grad.double(), rtol=2.0**-7, atol=2.0**-8 * terms)
+
+
+def test_channel_stats_raises_on_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 8, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 8"):
+        stats.channel_stats(x[..., :28])
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        stats.channel_stats(x.transpose(1, 2))
+    nchw = torch.zeros(1, 32, 8, 8, device=cuda, dtype=torch.bfloat16)  # not channels_last: no quiet copy
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        layers.batch_stats(nchw)
+    assert torch.equal(stats.channel_stats(x.float())[1], torch.zeros(32, device=cuda))  # fp32: two-pass
+
+
+@pytest.mark.parametrize("mode", ["batch", "running"])
+def test_fast_forward_kernels_match_plain(cuda, exact, mode):
+    """``fdgan_fast.apply`` on the kernel path against its plain path in
+    fp32 (test_pallas_dense.py:132's tolerance), and against
+    ``FDGAN.forward``; in bf16 the launches per forward: K1 42, K2 42 and
+    channel_stats 45 (3 block inputs, 42 new slices) in batch mode, 0 and 0
+    in running mode."""
+    model = FDGAN(device=cuda, generator=torch.Generator().manual_seed(0))
+    x = torch.tensor(np.random.default_rng(1).uniform(size=(2, 32, 48, 3)), dtype=torch.float32, device=cuda)
+    with torch.inference_mode():
+        got = fdgan_fast.apply(model, x, bn_mode=mode)
+        ref = fdgan_fast.apply(model, x, bn_mode=mode, impl="plain")
+        module = model(x, bn_mode=mode)
+        torch.testing.assert_close(got, ref, atol=5e-4, rtol=1e-3)
+        torch.testing.assert_close(got, module, atol=5e-4, rtol=1e-3)
+        dense.reset_launch_counts()
+        stats.reset_launch_count()
+        y = fdgan_fast.apply(model, x.bfloat16(), bn_mode=mode)
+        torch.cuda.synchronize()
+    batch = mode == "batch"
+    assert (dense.k1_launches, dense.k2_launches, stats.launches) == (42, 42 if batch else 0, 45 if batch else 0)
+    assert bool(torch.isfinite(y.float()).all()) and float((y.float() - ref).abs().mean()) < 2e-2
+
+
+@pytest.mark.parametrize("shape", [(1, 24, 40, 3), (2, 120, 200, 3), (1, 130, 135, 3), (3, 9, 8, 3), (1, 300, 17, 3)])
+def test_k3_fp32_is_bit_equal_to_plain(cuda, shape):
+    """K3 in fp32 is the plain version bit for bit, also where H and W are
+    not multiples of its tile and W is not a multiple of its vectors."""
+    x = torch.tensor(np.random.default_rng(14).uniform(size=shape), dtype=torch.float32, device=cuda)
+    got = freq.frequency_fuse(x)
+    torch.testing.assert_close(got, filters.frequency_fuse(x), rtol=0, atol=0)
+
+
 def test_engine_on_cuda_matches_cpu_engine(cuda):
     model = FDGAN(generator=torch.Generator().manual_seed(0))
     imgs = [np.random.default_rng(i).integers(0, 256, size=s, dtype=np.uint8)
@@ -259,7 +367,7 @@ def test_gradients_through_the_kernels_match_plain(cuda, exact):
         block.zero_grad(set_to_none=True)
         xi = x.clone().requires_grad_(True)
         dense.reset_launch_counts()
-        y = dense.dense_block_fused(list(block.children()), xi, mode="batch", impl=impl)
+        y, _ = dense.dense_block_fused(list(block.children()), xi, mode="batch", impl=impl)
         y.square().mean().backward()
         grads[impl] = [xi.grad] + [p.grad for p in block.parameters()]
         if impl == "kernels":

@@ -224,11 +224,11 @@ def test_dense_block_matches_jax(block_case, path, monkeypatch):
     layers = list(block.children())
     if path == "buffer":
         with torch.inference_mode():
-            got = dense.dense_block_fused(layers, torch.from_numpy(x), mode=mode)
+            got, _ = dense.dense_block_fused(layers, torch.from_numpy(x), mode=mode)
         assert cats == []
     else:
         xt = torch.from_numpy(x).requires_grad_(True)
-        got = dense.dense_block_fused(layers, xt, mode=mode)
+        got, _ = dense.dense_block_fused(layers, xt, mode=mode)
         assert cats == [2] * len(layers)
         got.square().sum().backward()
         assert xt.grad.shape == x.shape and torch.isfinite(xt.grad).all()

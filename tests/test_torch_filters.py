@@ -92,3 +92,18 @@ def test_gradient_matches_jax_grad():
 def test_rejects_images_the_reflect_pad_does_not_fit():
     with pytest.raises(ValueError, match="exceed"):
         filters.frequency_fuse(torch.zeros(1, 7, 16, 3))
+
+
+@pytest.mark.parametrize("c", [0, 1, 2])
+def test_bf16_normalise_by_reciprocal_is_exact(c):
+    """K3 normalises bf16 x as rnd(rnd(x − mean)·(1/std)) where the plain
+    version divides (``filters.normalise`` in bf16). For every finite bf16
+    d = rnd(x − mean) the fp32 product with rn(1/std) rounds to the bf16 of
+    the quotient: both sides of the claim in ``csrc/freq_filters.cu``."""
+    d = torch.arange(2**16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    d = d[torch.isfinite(d.float())]
+    assert d.numel() == 65280
+    std = torch.tensor(filters.IMAGENET_STD[c], dtype=torch.bfloat16)
+    inv = np.float32(1.0) / np.float32(std.float().item())  # __frcp_rn: the correctly rounded reciprocal
+    by_product = (d.float() * torch.tensor(inv)).bfloat16()
+    torch.testing.assert_close(by_product, d / std, rtol=0, atol=0, equal_nan=True)
