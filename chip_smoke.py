@@ -47,16 +47,23 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 6. probes: the wgmma self-check (one tile through the helpers of
    csrc/wgmma_bf16.cuh against torch.matmul), each of the nine probe kernels
    (csrc/probes.cu) against its plain version at its full shape (2²¹ rows of
-   128; 8×512×512 images) and at a ragged one, every row tile of probe_mm,
-   the conv1 bodies and the conv2 bodies against each other, what one
-   wgmma costs an SM; then
+   128; 8×512×512 images) and at a ragged one (the three copy bodies bit
+   for bit: the plain copy, one block per 4 KB with streaming cache hints;
+   the cp.async stages and the bulk stages, TMA loads and stores, each block
+   three or four 4 KB chunks through as many stages), every
+   row tile of probe_mm, the conv1 bodies and the conv2 bodies against each
+   other, what one wgmma costs an SM; then
    the path, fdgan_tpu_torch.tools.probes.run() as
    `python -m fdgan_tpu_torch.tools.probes` runs it, with the probes'
    launch counters zeroed just before and read just after: one timed JSON
-   line per probe and one line per question the Pallas probes asked.
+   line per probe (a probe with a library call timed in turns with it,
+   kernel, library, library, kernel, ...: each side's median and [min, max])
+   and one line per question the Pallas probes asked, and each copy body's
+   turns beside torch.mul's with the verdict.
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
-plain version's and library call's time, launches per path); the last
+plain version's and library call's time, the probes' spreads in turns,
+launches per path); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails.
 """
@@ -861,6 +868,10 @@ def phase_probes():
     launches = dict(ops.launches)
     for line in tool.answers(rows):
         log(json.dumps(line))
+    for row in rows:
+        if row["name"].startswith("probe_scale_copy"):
+            log(f"{row['name']} in turns: {row['ms']:.4f} ms {row['ms_spread']}, {row['library']} "
+                f"{row['library_ms']:.4f} ms {row['library_ms_spread']}: {tool.turn_verdict(row)} the library")
     log(f"probe launches {launches}")
     idle = [name for name, n in launches.items() if n == 0]
     if idle or len(rows) != len(tool.PROBES):
@@ -946,6 +957,7 @@ def main() -> int:
             "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name]},
             "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call
             "timed_at": row["shape"] + ["bfloat16"], "err_of": "bf16, full and ragged shapes"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

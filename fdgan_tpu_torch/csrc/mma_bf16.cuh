@@ -1,9 +1,9 @@
 // Device helpers shared by the bf16 tensor-core kernels of dense_layer.cu and
 // probes.cu: mma.sync m16n8k16 fragments read from padded shared-memory rows,
-// 16-byte asynchronous copies (cp.async), bulk copies with their mbarrier,
-// the t.W1 product of K2's and the conv1 probe's mma.sync bodies, and the
-// launch helpers (set_smem, persistent_grid). The wgmma helpers are in
-// wgmma_bf16.cuh.
+// 16-byte asynchronous copies (cp.async), bulk copies in both directions with
+// their mbarrier and bulk groups, the t.W1 product of K2's and the conv1
+// probe's mma.sync bodies, and the launch helpers (set_smem, persistent_grid).
+// The wgmma helpers are in wgmma_bf16.cuh.
 //
 // Fragment layout of mma.sync m16n8k16 (bf16 in, fp32 accumulate), for lane
 // = 4*gq + tq of a warp: A holds rows gq and gq+8, k = 2tq, 2tq+1 and
@@ -105,6 +105,45 @@ __device__ __forceinline__ void bulk_copy_g2s(void* smem_dst, const void* gmem_s
                    smem_u32(smem_dst)),
                "l"(gmem_src), "r"(bytes), "r"(smem_u32(bar))
                : "memory");
+}
+
+// the calling thread arrives, expecting no bytes (a barrier of threads only)
+__device__ __forceinline__ void mbarrier_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// bulk_copy_g2s under an L2 cache ``policy`` (createpolicy)
+__device__ __forceinline__ void bulk_copy_g2s_hint(void* smem_dst, const void* gmem_src, uint32_t bytes, uint64_t* bar,
+                                                   uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(
+          smem_u32(smem_dst)),
+      "l"(gmem_src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// The other direction: ``bytes`` from shared memory to device memory under
+// the L2 ``policy``, one bulk copy in the calling thread's open bulk group
+// (bytes % 16 == 0, both addresses 16-byte aligned). The threads' own writes
+// to the source must come first: each writer's fence_proxy_async()
+// (wgmma_bf16.cuh), then a barrier the issuing thread has waited on. The
+// source must not be written again, nor the block exit, before bulk_wait<>
+// says the copy is done.
+__device__ __forceinline__ void bulk_copy_s2g_hint(void* gmem_dst, const void* smem_src, uint32_t bytes,
+                                                   uint64_t policy) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::"l"(gmem_dst),
+               "r"(smem_u32(smem_src)), "r"(bytes), "l"(policy)
+               : "memory");
+}
+
+// closes the calling thread's open bulk group: the bulk stores since the last commit
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// returns once at most N of the calling thread's committed bulk groups are
+// still running
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Wait for the phase of ``parity`` to complete. A phase that does not complete

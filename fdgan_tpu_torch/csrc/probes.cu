@@ -11,7 +11,9 @@
 // What the TPU versions are shaped by does not carry over: their row tiles
 // of 1024-8192 rows (0.25-2 MB) exceed the 227 KB of shared memory a block
 // may use, a grid's "arbitrary" or "parallel" order means nothing where all
-// blocks run at once, and the halo rows build_halo hands the conv2 probe
+// blocks run at once (though a stream is fastest in short-lived blocks that
+// the hardware hands out in address order: the copies below), and the halo
+// rows build_halo hands the conv2 probe
 // are read here from g itself, with the image border masked to zero as K1
 // does. The kernels that keep an operand resident (probe_mm's B, conv2's
 // W2) run as persistent blocks, as many as fit the card, each walking its
@@ -136,13 +138,31 @@ probe_mm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bt, bf16* _
 }
 
 // -----------------------------------------------------------------------------
-// probe_scale_copy: Y = 2.A over n bf16 values.
+// probe_scale_copy, probe_scale_copy_staged, probe_scale_copy_bulk: Y = 2.A
+// over n bf16 values.
 //
-// Replaces tools/probe_pallas3.py:32 pcopy (body copy_kernel :27). Bound on
-// an H100: memory, 4 bytes moved per value and one multiply. The design is
-// the plain one: 16-byte loads and stores, neighbouring threads on
-// neighbouring addresses, four independent loads per thread in flight, a
-// grid-stride loop. It is the yardstick the staged copy is held against.
+// - probe_scale_copy replaces tools/probe_pallas3.py:32 pcopy (body
+//   copy_kernel :27): plain 16-byte loads and stores, a vector a thread and
+//   one block per 4 KB, as PyTorch's elementwise kernels launch; loads that
+//   bypass L1 and leave L2 first, streaming stores.
+// - probe_scale_copy_staged and probe_scale_copy_bulk replace
+//   tools/probe_pallas4.py:49 dbuf_copy (body dbuf_kernel :13-46), one
+//   sequential program with two DMA slots of 8192 rows in and two out. Here a
+//   block takes its bytes through stages of 4 KB in shared memory, every
+//   stage's load in flight at once, and doubles and stores each stage as it
+//   lands: the threads fill three stages with their own cp.async and store
+//   from them (staged, 12 KB a block), or bulk copies fill and empty four
+//   (bulk, 16 KB a block), as the TPU's DMA engine moves both ways. No block
+//   fills a stage twice. Each block asks for enough shared memory that an SM
+//   holds three.
+// Bound on an H100: memory, 4 bytes moved per value and one multiply; every
+// byte is touched once, so nothing the L1 or L2 keeps is read again. Why
+// these shapes (a sweep of launch shapes, unrolls, stages and cache policies,
+// PERF.md §6): the stream is fastest when the blocks in flight cover a narrow
+// band of addresses that moves in order. Persistent blocks that walk at a
+// stride of the grid drift apart and lose ~5 %; a block that walks more
+// chunks than it has stages loses 1-4 %; an SM that keeps much more than
+// ~48 KB in flight loses ~1 %.
 // -----------------------------------------------------------------------------
 
 __device__ __forceinline__ uint4 twice8(uint4 v) {
@@ -153,136 +173,123 @@ __device__ __forceinline__ uint4 twice8(uint4 v) {
   return v;
 }
 
-// the n % 8 values after the last whole vector
+// the n % 8 values after the last whole vector, by block 0
 __device__ __forceinline__ void scale_tail(const bf16* a, bf16* y, size_t n) {
   const size_t i = (n / 8) * 8 + threadIdx.x;
   if (blockIdx.x == 0 && threadIdx.x < 8 && i < n) y[i] = __hmul(a[i], __float2bfloat16_rn(2.f));
 }
 
-constexpr int COPY_UNROLL = 4;
+// an L2 policy under which the lines a copy brings in are the first evicted
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// 16 bytes through the non-coherent path, not allocated in L1, under ``policy``
+// in L2. Not volatile: a is read-only, so the compiler may hoist the load.
+__device__ __forceinline__ uint4 ld_stream(const uint4* p, uint64_t policy) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
 
 __global__ void __launch_bounds__(THREADS)
 probe_scale_copy_kernel(const bf16* __restrict__ a, bf16* __restrict__ y, size_t n) {
-  const uint4* av = reinterpret_cast<const uint4*>(a);
-  uint4* yv = reinterpret_cast<uint4*>(y);
-  const size_t nvec = n / 8;
-  const size_t stride = (size_t)gridDim.x * THREADS * COPY_UNROLL;
-  for (size_t base = (size_t)blockIdx.x * THREADS * COPY_UNROLL + threadIdx.x; base < nvec; base += stride) {
-    uint4 v[COPY_UNROLL];
-#pragma unroll
-    for (int u = 0; u < COPY_UNROLL; ++u)
-      if (base + u * THREADS < nvec) v[u] = av[base + u * THREADS];
-#pragma unroll
-    for (int u = 0; u < COPY_UNROLL; ++u)
-      if (base + u * THREADS < nvec) yv[base + u * THREADS] = twice8(v[u]);
-  }
+  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i < n / 8) __stcs(reinterpret_cast<uint4*>(y) + i, twice8(ld_stream(reinterpret_cast<const uint4*>(a) + i,
+                                                                            l2_evict_first())));
   scale_tail(a, y, n);
 }
 
-// -----------------------------------------------------------------------------
-// probe_scale_copy_staged: the same function through shared memory.
-//
-// Replaces tools/probe_pallas4.py:49 dbuf_copy (body dbuf_kernel :13-46): one
-// sequential program with two DMA slots of 8192 rows. On this card one
-// program would occupy one SM of 132, so the counterpart is a set of
-// persistent blocks, two per SM, each walking its share of 32 KB chunks
-// through a two-stage ring of asynchronous copies: while a chunk is doubled
-// and stored, the next is already on its way into the other stage, and no
-// register holds data in flight. Every thread reads back only the 16-byte
-// slots it copied itself, so cp.async.wait_group orders the ring and no
-// block-wide barrier is needed. The bound is the plain copy's.
-// -----------------------------------------------------------------------------
+// A staged block asks for this much shared memory, far more than its stages
+// use, so that an SM holds three blocks (each also holds 1 KB of the
+// system's): 36 KB (staged) or 48 KB (bulk) in flight an SM.
+constexpr size_t COPY_BLOCK_SMEM = 228 * 1024 / 3 - 1024;
+constexpr int STAGED_STAGES = 3;  // of THREADS vectors, 4 KB
+constexpr int BULK_STAGES = 4;    // the same
 
-constexpr int ST_VPT = 8;                      // 16-byte vectors per thread per chunk
-constexpr int ST_CHUNK = THREADS * ST_VPT;     // vectors per chunk: 32 KB
-constexpr size_t ST_SMEM = 2 * (size_t)ST_CHUNK * 16;
-
+// The threads' own cp.async: thread t copies vector t of each of the block's
+// three 4 KB chunks into stage s, one group a stage, and stores each stage's
+// vector from shared memory as it lands. A thread reads back only the slots
+// it copied itself, so cp.async.wait_group orders the stages and no
+// block-wide barrier is needed.
 __global__ void __launch_bounds__(THREADS)
 probe_scale_copy_staged_kernel(const bf16* __restrict__ a, bf16* __restrict__ y, size_t n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint4* ring = reinterpret_cast<uint4*>(smem_raw);  // [2][ST_CHUNK]
+  uint4* stages = reinterpret_cast<uint4*>(smem_raw) + threadIdx.x;  // this thread's slot of stage 0
   const uint4* av = reinterpret_cast<const uint4*>(a);
   uint4* yv = reinterpret_cast<uint4*>(y);
-  const int tid = threadIdx.x;
   const size_t nvec = n / 8;
-  const size_t nchunks = (nvec + ST_CHUNK - 1) / ST_CHUNK;
-
-  auto fetch = [&](size_t chunk, uint4* dst) {
+  const size_t first = (size_t)blockIdx.x * STAGED_STAGES * THREADS + threadIdx.x;
 #pragma unroll
-    for (int u = 0; u < ST_VPT; ++u) {
-      const size_t idx = chunk * ST_CHUNK + u * THREADS + tid;
-      if (idx < nvec) cp_async16(dst + u * THREADS + tid, av + idx);
-    }
-  };
-
-  size_t chunk = blockIdx.x;
-  if (chunk < nchunks) fetch(chunk, ring);
-  cp_async_commit();
-  for (int it = 0; chunk < nchunks; chunk += gridDim.x, ++it) {
-    const uint4* cur = ring + (it & 1) * ST_CHUNK;
-    if (chunk + gridDim.x < nchunks) fetch(chunk + gridDim.x, ring + ((it & 1) ^ 1) * ST_CHUNK);
+  for (int s = 0; s < STAGED_STAGES; ++s) {
+    if (first + s * THREADS < nvec) cp_async16(stages + s * THREADS, av + first + s * THREADS);
     cp_async_commit();
-    cp_async_wait<1>();  // this chunk has landed; the next may be in flight
-#pragma unroll
-    for (int u = 0; u < ST_VPT; ++u) {
-      const size_t idx = chunk * ST_CHUNK + u * THREADS + tid;
-      if (idx < nvec) yv[idx] = twice8(cur[u * THREADS + tid]);
-    }
   }
-  cp_async_wait<0>();
+#pragma unroll
+  for (int s = 0; s < STAGED_STAGES; ++s) {
+    cp_async_wait<STAGED_STAGES - 1>();  // stage s has landed: s + 1 of the groups committed
+    if (first + s * THREADS < nvec) yv[first + s * THREADS] = twice8(stages[s * THREADS]);
+    cp_async_commit();  // an empty group, so that the next wait, too, leaves STAGED_STAGES - 1 open
+  }
   scale_tail(a, y, n);
 }
 
-// -----------------------------------------------------------------------------
-// probe_scale_copy_bulk: the staged copy with the Tensor Memory Accelerator in
-// place of the threads' own copies, a second answer to probe_pallas4.py:49,
-// whose DMA engine it resembles most: one thread asks for a whole 32 KB chunk
-// (cp.async.bulk, 1-D, no tensor map) and an mbarrier per stage reports its
-// arrival; the other 255 threads spend no instruction on the load. The
-// hardware writes the stage, so the block has to agree that the stage was read
-// before it is refilled: one block-wide barrier per chunk, which the cp.async
-// ring does not need.
-// -----------------------------------------------------------------------------
+// The bulk copies, the counterpart of dbuf_kernel's DMA both ways: no core
+// instruction touches device memory. Lane 0 of a ninth warp loads each of the
+// block's four 4 KB chunks into its stage with one bulk copy (cp.async.bulk,
+// 1-D) that reports its bytes to the stage's "full" mbarrier; the 256 threads
+// double a stage in place as it lands, each fences its write for the async
+// proxy and arrives on the stage's "doubled" mbarrier; lane 0, once every
+// thread has arrived, stores the stage with one bulk copy (a bulk group of
+// its own). The threads wait only for data, and no block-wide barrier follows
+// the set-up. Loads and stores go under the L2 evict-first policy.
+constexpr int BULK_THREADS = THREADS + 32;  // 8 warps that double, 1 whose lane 0 issues the copies
 
-constexpr size_t BULK_SMEM = ST_SMEM + 2 * sizeof(uint64_t);
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BULK_THREADS)
 probe_scale_copy_bulk_kernel(const bf16* __restrict__ a, bf16* __restrict__ y, size_t n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint4* ring = reinterpret_cast<uint4*>(smem_raw);  // [2][ST_CHUNK]
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + ST_SMEM);  // [2]: the stage's chunk has landed
-  const uint4* av = reinterpret_cast<const uint4*>(a);
-  uint4* yv = reinterpret_cast<uint4*>(y);
+  uint4* stages = reinterpret_cast<uint4*>(smem_raw);  // [BULK_STAGES][THREADS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + BULK_STAGES * THREADS);  // [BULK_STAGES]: the chunk has landed
+  uint64_t* doubled = full + BULK_STAGES;  // [BULK_STAGES]: every thread has doubled its vector of the stage
   const int tid = threadIdx.x;
   const size_t nvec = n / 8;
-  const size_t nchunks = (nvec + ST_CHUNK - 1) / ST_CHUNK;
-
-  auto fetch = [&](size_t chunk, int stage) {  // thread 0 only
-    const size_t first = chunk * ST_CHUNK;
-    const uint32_t bytes = 16 * (uint32_t)(nvec - first < ST_CHUNK ? nvec - first : ST_CHUNK);
-    mbarrier_arrive_expect_tx(full + stage, bytes);
-    bulk_copy_g2s(ring + stage * ST_CHUNK, av + first, bytes, full + stage);
+  const size_t first = (size_t)blockIdx.x * BULK_STAGES * THREADS;
+  auto vectors = [&](int s) -> uint32_t {  // of the block's s-th chunk: THREADS but for the last chunks
+    const size_t v0 = first + (size_t)s * THREADS;
+    return v0 >= nvec ? 0 : nvec - v0 < (size_t)THREADS ? (uint32_t)(nvec - v0) : (uint32_t)THREADS;
   };
 
   if (tid == 0) {
-    mbarrier_init(full, 1);
-    mbarrier_init(full + 1, 1);
+    for (int s = 0; s < BULK_STAGES; ++s) {
+      mbarrier_init(full + s, 1);
+      mbarrier_init(doubled + s, THREADS);
+    }
   }
   __syncthreads();
-  size_t chunk = blockIdx.x;
-  if (tid == 0 && chunk < nchunks) fetch(chunk, 0);
-  for (int it = 0; chunk < nchunks; chunk += gridDim.x, ++it) {
-    const int stage = it & 1;
-    // the other stage was read in the last iteration, which ended at a barrier
-    if (tid == 0 && chunk + gridDim.x < nchunks) fetch(chunk + gridDim.x, stage ^ 1);
-    mbarrier_wait(full + stage, (it >> 1) & 1);  // the stage's (it / 2)-th filling
-    const uint4* cur = ring + stage * ST_CHUNK;
-#pragma unroll
-    for (int u = 0; u < ST_VPT; ++u) {
-      const size_t idx = chunk * ST_CHUNK + u * THREADS + tid;
-      if (idx < nvec) yv[idx] = twice8(cur[u * THREADS + tid]);
+  if (tid < THREADS) {
+    for (int s = 0; s < BULK_STAGES && vectors(s) > 0; ++s) {
+      mbarrier_wait(full + s, 0);
+      uint4* v = stages + s * THREADS + tid;
+      if (tid < (int)vectors(s)) *v = twice8(*v);
+      fence_proxy_async();  // this write, before the bulk store reads it
+      mbarrier_arrive(doubled + s);
     }
-    __syncthreads();  // every thread has read the stage before it is refilled
+  } else if (tid == THREADS) {
+    const uint64_t policy = l2_evict_first();
+    for (int s = 0; s < BULK_STAGES && vectors(s) > 0; ++s) {
+      mbarrier_arrive_expect_tx(full + s, 16 * vectors(s));
+      bulk_copy_g2s_hint(stages + s * THREADS, a + 8 * (first + s * THREADS), 16 * vectors(s), full + s, policy);
+    }
+    for (int s = 0; s < BULK_STAGES && vectors(s) > 0; ++s) {
+      mbarrier_wait(doubled + s, 0);
+      bulk_copy_s2g_hint(y + 8 * (first + s * THREADS), stages + s * THREADS, 16 * vectors(s), policy);
+      bulk_commit();
+    }
+    bulk_wait<0>();  // every store has written before the block's shared memory is released
   }
   scale_tail(a, y, n);
 }
@@ -815,26 +822,24 @@ int fdgan_probe_mm(const void* a, const void* bt, void* y, int m, int tile_rows,
   }
 }
 
-// y = 2a over n values; mode 0: plain loads, 1: the cp.async ring, 2: the
-// bulk-copy ring
+// y = 2a over n values; mode 0: the plain copy, 1: the cp.async stages, 2:
+// the bulk stages
 int fdgan_probe_scale_copy(const void* a, void* y, long long n, int mode, void* stream) {
-  int grid = 0;
-  const long long nchunks = (n / 8 + ST_CHUNK - 1) / ST_CHUNK;
-  if (mode == 1) {
-    if (int err = set_smem(probe_scale_copy_staged_kernel, ST_SMEM)) return err;
-    if (int err = persistent_grid(probe_scale_copy_staged_kernel, THREADS, ST_SMEM, nchunks > 0 ? nchunks : 1, 2, &grid)) return err;
-    probe_scale_copy_staged_kernel<<<grid, THREADS, ST_SMEM, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
-  } else if (mode == 2) {
-    if (int err = set_smem(probe_scale_copy_bulk_kernel, BULK_SMEM)) return err;
-    if (int err = persistent_grid(probe_scale_copy_bulk_kernel, THREADS, BULK_SMEM, nchunks > 0 ? nchunks : 1, 2, &grid)) return err;
-    probe_scale_copy_bulk_kernel<<<grid, THREADS, BULK_SMEM, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
-  } else if (mode != 0) {
-    return (int)cudaErrorInvalidValue;
+  const bf16* av = (const bf16*)a;
+  bf16* yv = (bf16*)y;
+  if (n < 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  const int per_block = mode == 0 ? THREADS : mode == 1 ? STAGED_STAGES * THREADS : BULK_STAGES * THREADS;
+  const long long blocks = (n / 8 + per_block - 1) / per_block;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int grid = blocks > 0 ? (int)blocks : 1;
+  if (mode == 0) {
+    probe_scale_copy_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(av, yv, (size_t)n);
+  } else if (mode == 1) {
+    if (int err = set_smem(probe_scale_copy_staged_kernel, COPY_BLOCK_SMEM)) return err;
+    probe_scale_copy_staged_kernel<<<grid, THREADS, COPY_BLOCK_SMEM, (cudaStream_t)stream>>>(av, yv, (size_t)n);
   } else {
-    const long long per_block = (long long)THREADS * COPY_UNROLL;
-    const long long nblocks = (n / 8 + per_block - 1) / per_block;
-    if (int err = persistent_grid(probe_scale_copy_kernel, THREADS, 0, nblocks > 0 ? nblocks : 1, 8, &grid)) return err;
-    probe_scale_copy_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>((const bf16*)a, (bf16*)y, (size_t)n);
+    if (int err = set_smem(probe_scale_copy_bulk_kernel, COPY_BLOCK_SMEM)) return err;
+    probe_scale_copy_bulk_kernel<<<grid, BULK_THREADS, COPY_BLOCK_SMEM, (cudaStream_t)stream>>>(av, yv, (size_t)n);
   }
   return (int)cudaGetLastError();
 }

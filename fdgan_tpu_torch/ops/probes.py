@@ -12,13 +12,17 @@ and return bf16.
 ``probe_mm``            Y = A·B, (M,128)·(128,128), fp32 sums, one rounding
                         (``probe_pallas.py:18``, ``probe_pallas2.py:14``,
                         ``probe_pallas3.py:52``); row tile 64, 128 or 256
-``scale_copy``          Y = 2·A, 16-byte loads and stores
+``scale_copy``          Y = 2·A, 16-byte loads and stores with streaming
+                        cache hints, one block per 4 KB
                         (``probe_pallas3.py:32``)
-``scale_copy_staged``   the same through a two-stage ``cp.async`` ring in
-                        shared memory (``probe_pallas4.py:49``)
-``scale_copy_bulk``     the same ring filled by bulk copies (the Tensor
-                        Memory Accelerator, 1-D) that report to an
-                        ``mbarrier``: a second answer to the same probe
+``scale_copy_staged``   the same through three 4 KB stages in shared
+                        memory that the threads fill with ``cp.async``
+                        (``probe_pallas4.py:49``)
+``scale_copy_bulk``     the same through four 4 KB stages that bulk
+                        copies (the Tensor Memory Accelerator, 1-D) fill
+                        and empty, with ``mbarrier`` objects between the
+                        copies and the threads: a second answer to the
+                        same probe
 ``conv1_segments``      relu(cat(segments)·a + b) rounded, ·W1, from 1 to 8
                         segment arrays without forming the concat
                         (``probe_pallas5.py:69,99``), on ``mma.sync``
@@ -179,19 +183,25 @@ def _scale_copy(a: torch.Tensor, mode: int) -> torch.Tensor:
 
 
 def scale_copy(a: torch.Tensor) -> torch.Tensor:
-    """Y = 2·A (bf16, any shape) with plain 16-byte loads and stores."""
+    """Y = 2·A (bf16, any shape) with plain 16-byte loads and stores, a
+    vector a thread and one block per 4 KB, loads that bypass L1 and leave
+    L2 first, streaming stores."""
     return _scale_copy(a, 0)
 
 
 def scale_copy_staged(a: torch.Tensor) -> torch.Tensor:
-    """Y = 2·A through shared memory: persistent blocks, each with a
-    two-stage ring of asynchronous copies (``cp.async``)."""
+    """Y = 2·A through shared memory: each block takes 12 KB through
+    three 4 KB stages that the threads fill with their own asynchronous
+    copies (``cp.async``), all three in flight at once, and store from as
+    each lands; three blocks an SM."""
     return _scale_copy(a, 1)
 
 
 def scale_copy_bulk(a: torch.Tensor) -> torch.Tensor:
-    """Y = 2·A through the same ring, each stage filled by one bulk copy
-    (``cp.async.bulk``) whose arrival an ``mbarrier`` reports."""
+    """Y = 2·A through four 4 KB stages (16 KB a block) that bulk copies
+    (``cp.async.bulk``) fill and empty: one thread loads and stores whole
+    stages, and ``mbarrier`` objects tell it and the threads that double
+    the stages in place when each may go on; three blocks an SM."""
     return _scale_copy(a, 2)
 
 

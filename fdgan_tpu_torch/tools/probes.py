@@ -1,7 +1,7 @@
 """The kernel probes on one CUDA GPU: what a hand-written kernel reaches on
 this card, stage by stage of the dense layer.
 
-    python -m fdgan_tpu_torch.tools.probes [--only p1,p5] [--size full] [--seed 0]
+    python -m fdgan_tpu_torch.tools.probes [--only p1,p5] [--size full] [--seed 0] [--trace build/copy_trace.json]
 
 The counterpart of running ``tools/probe_pallas{,2,3,4,5}.py`` on the TPU.
 For each probe kernel of ``ops/probes.py`` it builds the inputs from the
@@ -18,15 +18,22 @@ events around 20 launches after a warm-up, and prints one JSON line:
   ``share`` = bound_ms / ms;
 - ``tflops`` and ``gbs``, the operations and bytes above over ``ms``;
 - ``library_ms``: one PyTorch call that computes the same function
-  (``library`` names it), where there is one, else null; ``plain_ms``: the
-  plain version (fp32 arithmetic, slow by design, 2 launches);
+  (``library`` names it), where there is one, else null. Where there is,
+  kernel and library are timed in turns (``turns_ms``: kernel, library,
+  library, kernel, 4 rounds of 20 launches): ``ms`` and ``library_ms`` are
+  medians, ``ms_spread`` and ``library_ms_spread`` [min, max];
+  ``plain_ms``: the plain version (fp32 arithmetic, slow by design, 2
+  launches);
 - ``max_abs_err`` against the plain version, and the tolerance it was held to.
 
 It ends with one line per question the Pallas probes asked, answered for
 this card from the numbers above, and a line with the ``wgmma`` self-check
 (one tile through the helpers of ``csrc/wgmma_bf16.cuh`` against
-``torch.matmul``) and what one ``wgmma`` costs an SM. Needs a CUDA device and exits non-zero
-without one; ``run(device="cpu", size="tiny")`` is the CPU rehearsal the
+``torch.matmul``) and what one ``wgmma`` costs an SM. ``--trace`` first
+writes a ``torch.profiler`` trace of one ``torch.mul(a, 2)`` and one launch
+of each copy body at (2²¹, 128) bf16 to that path and prints each kernel's
+launch shape (grid, block, registers, shared memory, estimated occupancy).
+Needs a CUDA device and exits non-zero without one; ``run(device="cpu", size="tiny")`` is the CPU rehearsal the
 tests use, which checks the plain versions' plumbing and reports no time.
 """
 
@@ -34,9 +41,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -221,6 +230,48 @@ def cuda_ms(fn: Callable, launches: int = TIMED_LAUNCHES, warmup: int = TIMED_LA
     return start.elapsed_time(end) / launches
 
 
+TURN_ROUNDS = 4  # kernel, library, library, kernel, kernel, library, library, kernel
+
+
+def turns_ms(kernel: Callable, library: Callable, rounds: int = TURN_ROUNDS,
+             timer: Callable[[Callable], float] = cuda_ms) -> Dict[str, object]:
+    """A kernel and the library call that computes the same function, timed
+    in turns: ``rounds`` rounds of one ``timer`` reading each (by default
+    CUDA events around 20 launches), the kernel first in even rounds and the
+    library first in odd ones, so that neither side always follows the
+    other. Returns each side's median and its [min, max] over the rounds."""
+    if rounds < 3:
+        raise ValueError(f"at least 3 rounds, got {rounds}")
+    times: Dict[str, List[float]] = {"kernel": [], "library": []}
+    fns = {"kernel": kernel, "library": library}
+    for r in range(rounds):
+        for side in ("kernel", "library") if r % 2 == 0 else ("library", "kernel"):
+            times[side].append(timer(fns[side]))
+    k, lib = times["kernel"], times["library"]
+    return {"ms": statistics.median(k), "ms_spread": [min(k), max(k)],
+            "library_ms": statistics.median(lib), "library_ms_spread": [min(lib), max(lib)]}
+
+
+# How far one side's median moves between two runs on one card: torch.mul's
+# at (2^21, 128) bf16 read 0.3545 and 0.3572 ms on one H100 (0.8 %), though
+# each run's own turns lay within 0.1 %.
+RUN_DRIFT = 0.01
+
+
+def turn_verdict(row: dict) -> str:
+    """How the kernel's turns compare with the library's: 'faster than' when
+    its slowest turn beat the library's fastest and its median lies more
+    than RUN_DRIFT below the library's, 'slower than' the other way round,
+    else 'tied with': a gap inside the drift between runs is no finding."""
+    (k_lo, k_hi), (l_lo, l_hi) = row["ms_spread"], row["library_ms_spread"]
+    ratio = row["ms"] / row["library_ms"]
+    if k_hi < l_lo and ratio < 1 - RUN_DRIFT:
+        return "faster than"
+    if k_lo > l_hi and ratio > 1 + RUN_DRIFT:
+        return "slower than"
+    return "tied with"
+
+
 def compare(got: torch.Tensor, want: torch.Tensor, tol: Dict[str, float], what: str) -> float:
     """max |got − want|; raises unless every value is within ``tol``."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -256,16 +307,16 @@ def check(name: str, size: str = "full", device="cuda", seed: int = 0) -> float:
 
 def _timings(name: str, probe: Probe, inputs) -> Dict[str, object]:
     """The timed part of a row; CUDA only."""
-    out: Dict[str, object] = {"ms": cuda_ms(lambda: probe.kernel(*inputs))}
-    if name == "probe_mm":  # the row-tile sweep; ms above is the default tile's
-        out["tile_ms"] = {str(t): cuda_ms(lambda: probes.probe_mm(*inputs, tile_rows=t)) for t in probes.MM_TILES}
-    if probe.library is not None:
+    out: Dict[str, object] = {}
+    if probe.library is not None:  # in turns with the library call
         label, prepare, call = probe.library
         args = prepare(*inputs)
-        out["library"], out["library_ms"] = label, cuda_ms(lambda: call(*args))
+        out.update(turns_ms(lambda: probe.kernel(*inputs), lambda: call(*args)), library=label)
         del args
     else:
-        out["library"], out["library_ms"] = None, None
+        out["ms"] = cuda_ms(lambda: probe.kernel(*inputs))
+    if name == "probe_mm":  # the row-tile sweep; ms above is the default tile's
+        out["tile_ms"] = {str(t): cuda_ms(lambda: probes.probe_mm(*inputs, tile_rows=t)) for t in probes.MM_TILES}
     if name.startswith("probe_conv1"):
         # the same kernel from one concatenated array, and the concat's own cost
         segs, a, b, w1 = inputs
@@ -304,8 +355,8 @@ def run(device="cuda", size: str = "full", only: Optional[Sequence[str]] = None,
                "dtype": "bfloat16", "device": torch.cuda.get_device_name(0) if on_card else "cpu",
                "operations": operations, "bytes": moved, "bound_ms": bound, "bound_by": by,
                "max_abs_err": err, "tol": probe.tol,
-               "ms": None, "share": None, "tflops": None, "gbs": None, "library": None, "library_ms": None,
-               "plain_ms": None}
+               "ms": None, "ms_spread": None, "share": None, "tflops": None, "gbs": None, "library": None,
+               "library_ms": None, "library_ms_spread": None, "plain_ms": None}
         if on_card:
             row.update(_timings(name, probe, inputs))
             row["share"] = bound / row["ms"]
@@ -369,6 +420,12 @@ def _verdict(ms: float, other_ms: float, spread: float = 0.03) -> str:
     return "faster" if ms < other_ms else "slower"
 
 
+def _turns(row: dict, key: str) -> str:
+    """'median ms [min-max]' of one side of a row's turns."""
+    lo, hi = row[f"{key}_spread"]
+    return f"{row[key]:.4f} ms [{lo:.4f}-{hi:.4f}]"
+
+
 def answers(rows: List[dict]) -> List[dict]:
     """One line per question the Pallas probes asked, answered from the
     timed rows (those whose probes were run)."""
@@ -384,8 +441,8 @@ def answers(rows: List[dict]) -> List[dict]:
             "chip, against the library's product?",
             f"probe_mm {mm['ms']:.3f} ms = {mm['tflops']:.1f} TFLOP/s, {mm['gbs']:.0f} GB/s, "
             f"{100 * mm['share']:.0f} % of its {mm['bound_by']} bound ({mm['bound_ms']:.3f} ms); "
-            f"{mm['library']} {mm['library_ms']:.3f} ms: the kernel takes {mm['ms'] / mm['library_ms']:.2f}x "
-            "the library's time. The product is bound by bytes, not by the tensor cores.")
+            f"{mm['library']} {_turns(mm, 'library_ms')}: in turns the kernel is {turn_verdict(mm)} the library "
+            f"({mm['ms'] / mm['library_ms']:.3f}x its median). The product is bound by bytes, not by the tensor cores.")
         tiles = mm["tile_ms"]
         best = min(tiles, key=tiles.get)
         say("P2, P3b (probe_pallas2.py, probe_pallas3.py pmm): which row tile, and does the grid's order matter?",
@@ -395,16 +452,18 @@ def answers(rows: List[dict]) -> List[dict]:
         cp = r["probe_scale_copy"]
         say("P3a (probe_pallas3.py pcopy): what does a streaming copy written by hand reach, against the "
             "library's?",
-            f"probe_scale_copy {cp['ms']:.3f} ms = {cp['gbs']:.0f} GB/s, {100 * cp['share']:.0f} % of "
-            f"3350 GB/s; {cp['library']} {cp['library_ms']:.3f} ms = "
-            f"{cp['bytes'] / cp['library_ms'] / 1e6:.0f} GB/s.")
+            f"probe_scale_copy {_turns(cp, 'ms')} = {cp['gbs']:.0f} GB/s, {100 * cp['share']:.1f} % of "
+            f"3350 GB/s; {cp['library']} {_turns(cp, 'library_ms')} = {cp['bytes'] / cp['library_ms'] / 1e6:.0f} "
+            f"GB/s: in turns the kernel is {turn_verdict(cp)} the library ({cp['ms'] / cp['library_ms']:.3f}x "
+            "its median).")
         staged = [r[n] for n in ("probe_scale_copy_staged", "probe_scale_copy_bulk") if n in r]
         if staged:
-            say("P4 (probe_pallas4.py): can hand-rolled double-buffered asynchronous copies beat the plain "
-                "copy?",
-                f"against the plain copy's {cp['ms']:.3f} ms = {cp['gbs']:.0f} GB/s: " + "; ".join(
-                    f"{st['name']} {st['ms']:.3f} ms = {st['gbs']:.0f} GB/s, {_verdict(st['ms'], cp['ms'])} "
-                    f"({st['ms'] / cp['ms']:.2f}x its time)" for st in staged) + ".")
+            say("P4 (probe_pallas4.py): can hand-rolled multi-buffered asynchronous copies beat the plain "
+                "copy, and the library's?",
+                f"against the plain copy's {cp['ms']:.4f} ms: " + "; ".join(
+                    f"{st['name']} {_turns(st, 'ms')} = {st['gbs']:.0f} GB/s, {_verdict(st['ms'], cp['ms'])} "
+                    f"({st['ms'] / cp['ms']:.3f}x its time); in turns {turn_verdict(st)} {st['library']} "
+                    f"({_turns(st, 'library_ms')})" for st in staged) + ".")
     conv1 = [r[n] for n in ("probe_conv1", "probe_conv1_wgmma") if n in r]
     if conv1:
         say("P5 Q1 (probe_pallas5.py seg_conv1, mono_conv1): does reading the concat as separate segment "
@@ -426,9 +485,9 @@ def answers(rows: List[dict]) -> List[dict]:
             say("Does wgmma close conv2's gap to cuDNN? (the third body: the tensor core reads g and W2 from "
                 "shared memory itself, a tap is a row offset of the descriptor, a kernel row's three taps lie side by side)",
                 f"wgmma {wg['ms']:.3f} ms = {wg['tflops']:.1f} TFLOP/s, {100 * wg['share']:.0f} % of the bound: "
-                f"taps9 ({t9['ms']:.3f} ms) takes {t9['ms'] / wg['ms']:.2f}x its time; against {wg['library']} "
-                f"({wg['library_ms']:.3f} ms) it is {_verdict(wg['ms'], wg['library_ms'])}, "
-                f"{wg['ms'] / wg['library_ms']:.2f}x the library's time.")
+                f"taps9 ({t9['ms']:.3f} ms) takes {t9['ms'] / wg['ms']:.2f}x its time; in turns it is "
+                f"{turn_verdict(wg)} {wg['library']} ({_turns(wg, 'library_ms')}), "
+                f"{wg['ms'] / wg['library_ms']:.2f}x the library's median.")
         if "probe_conv1" in r:
             c1 = r["probe_conv1"]
             npix = c1["operations"] // (2 * sum(SEGMENT_WIDTHS) * probes.INTER)
@@ -462,12 +521,45 @@ def card_line() -> str:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
+TRACE_FIELDS = ("grid", "block", "registers per thread", "shared memory", "est. achieved occupancy %")
+
+
+def copy_launch_shapes(path: Path, seed: int = 0) -> List[dict]:
+    """One torch.mul(a, 2) and one launch of each copy body at (2²¹, 128)
+    bf16 under torch.profiler, its chrome trace written to ``path``: per
+    kernel event, in launch order, the call that made it, the kernel's name,
+    its device µs and TRACE_FIELDS as the trace reports them. CUDA only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = _uniform(np.random.default_rng(seed), (SIZES["full"]["m"], probes.INTER), "cuda")
+    calls = [("torch.mul(a, 2)", lambda: torch.mul(a, 2)), ("probe_scale_copy", lambda: probes.scale_copy(a)),
+             ("probe_scale_copy_staged", lambda: probes.scale_copy_staged(a)),
+             ("probe_scale_copy_bulk", lambda: probes.scale_copy_bulk(a))]
+    for _, call in calls:  # built, opted in and warm before the trace
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for _, call in calls:
+            call()
+        torch.cuda.synchronize()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    kernels = sorted((e for e in json.loads(path.read_text())["traceEvents"] if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    if len(kernels) != len(calls):
+        raise RuntimeError(f"expected {len(calls)} kernel events in the trace, found {len(kernels)}")
+    return [{"call": label, "kernel": e["name"], "us": e.get("dur"),
+             **{k: e.get("args", {}).get(k) for k in TRACE_FIELDS}} for (label, _), e in zip(calls, kernels)]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="", help="comma-separated Pallas probes (p1 .. p5) or kernels (" +
                         ", ".join(n.removeprefix("probe_") for n in PROBES) + "); default all")
     parser.add_argument("--size", default="full", choices=sorted(SIZES))
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--trace", default="", help="first trace torch.mul(a, 2) and the copy bodies, "
+                        "writing the chrome trace to this path")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("probes: no CUDA device; nothing was run", file=sys.stderr)
@@ -478,6 +570,9 @@ def main(argv=None) -> int:
         parser.error(str(e))
     card = card_line()
     print(card, flush=True)
+    if args.trace:
+        for shape in copy_launch_shapes(Path(args.trace), args.seed):
+            print(json.dumps({"launch_shape": shape, "card": card}), flush=True)
     rows = run("cuda", args.size, only, args.seed, on_row=lambda row: print(json.dumps({**row, "card": card}), flush=True))
     for line in answers(rows):
         print(json.dumps(line), flush=True)

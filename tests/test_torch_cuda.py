@@ -506,12 +506,60 @@ def test_probe_conv1_bodies_agree(cuda, size):
                        probe_tool.CONV1_TOL, "conv1 wgmma vs mma")
 
 
+COPY_BODIES = {"probe_scale_copy": probes.scale_copy, "probe_scale_copy_staged": probes.scale_copy_staged,
+               "probe_scale_copy_bulk": probes.scale_copy_bulk}
+
+
+COPY_CHUNK = 2048  # values in 4 KB: a plain block's, and a stage of the staged and bulk bodies
+COPY_BLOCK = {"probe_scale_copy": COPY_CHUNK, "probe_scale_copy_staged": 3 * COPY_CHUNK,
+              "probe_scale_copy_bulk": 4 * COPY_CHUNK}  # values a block takes (csrc/probes.cu)
+COPY_SIZES = {
+    "13": lambda block: 13,
+    "8k+5": lambda block: 8 * 1000 + 5,
+    "one chunk": lambda block: COPY_CHUNK,
+    "one chunk + 8": lambda block: COPY_CHUNK + 8,
+    # five whole blocks, then a block with one whole chunk, one of three
+    # vectors, and five values after them
+    "blocks + short block + tail": lambda block: 5 * block + COPY_CHUNK + 8 * 3 + 5,
+    "(2^21 - 24) x 128": lambda block: (2**21 - 24) * 128,
+}
+
+
+@pytest.mark.parametrize("size", list(COPY_SIZES))
+@pytest.mark.parametrize("name", list(COPY_BODIES))
+def test_copy_body_bit_equal_to_plain(cuda, name, size):
+    """Each copy body against scale_copy_reference, bit for bit, at sizes that
+    reach the edges of its blocks: fewer values than two vectors, a ragged
+    tail, one whole chunk, a chunk and one vector, whole blocks and a short
+    last one, and the probes' ragged size; a second launch gives the same
+    bits."""
+    n = COPY_SIZES[size](COPY_BLOCK[name])
+    gen = torch.Generator(device=cuda).manual_seed(n % 9973)
+    a = torch.randn(n, generator=gen, device=cuda).bfloat16()
+    probes.reset_launch_counts()
+    got = COPY_BODIES[name](a)
+    assert torch.equal(got, probes.scale_copy_reference(a))
+    assert torch.equal(COPY_BODIES[name](a), got) and probes.launches[name] == 2
+
+
+@pytest.mark.parametrize("name", list(COPY_BODIES))
+def test_copy_body_reads_a_view_into_a_larger_buffer(cuda, name):
+    """From a 16-byte-aligned view at an offset into a larger buffer, the same
+    bits as from a contiguous copy of it."""
+    n = 2 * COPY_BLOCK[name] + 8 * 7 + 3
+    buf = torch.randn(n + 8 * 40, device=cuda).bfloat16()
+    view = buf[8 * 13:8 * 13 + n]
+    assert view.data_ptr() % 16 == 0 and view.data_ptr() != buf.data_ptr()
+    assert torch.equal(COPY_BODIES[name](view), COPY_BODIES[name](view.clone()))
+
+
 def test_probe_wrappers_launch_or_raise_on_cuda(cuda):
     a = torch.zeros(64, 128, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="bfloat16"):
-        probes.scale_copy(a.float())
-    with pytest.raises(ValueError, match="aligned"):
-        probes.scale_copy_staged(torch.zeros(64 * 128 + 4, device=cuda, dtype=torch.bfloat16)[4:])
+    for copy in COPY_BODIES.values():
+        with pytest.raises(TypeError, match="bfloat16"):
+            copy(a.float())
+        with pytest.raises(ValueError, match="aligned"):
+            copy(torch.zeros(64 * 128 + 4, device=cuda, dtype=torch.bfloat16)[4:])
     with pytest.raises(ValueError, match="tile_rows"):
         probes.probe_mm(a, torch.zeros(128, 128, device=cuda, dtype=torch.bfloat16), tile_rows=512)
     with pytest.raises(ValueError, match="x on cuda"):
@@ -528,5 +576,8 @@ def test_probe_tool_prints_rows_and_answers(cuda, capsys):
     for r in rows:
         assert r["ms"] > 0 and r["plain_ms"] > 0 and 0 < r["share"] and r["bound_by"] in ("bytes", "operations")
         assert "NVIDIA" in r["card"] and r["device"] == torch.cuda.get_device_name(0)
+        if r["library"] is not None:  # kernel and library in turns: each median within its spread
+            for key in ("ms", "library_ms"):
+                assert r[f"{key}_spread"][0] <= r[key] <= r[f"{key}_spread"][1]
     assert len([r for r in lines if "question" in r]) == 8  # P1, P2/P3b, P3a, P4, P5 Q1-Q3, wgmma
     assert lines[-1]["wgmma_selfcheck_max_abs_err"] <= 1e-3 and len(lines[-1]["wgmma_rates"]) == 9

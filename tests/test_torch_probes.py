@@ -296,6 +296,53 @@ def test_select_maps_pallas_probes_to_kernels():
         probe_tool.select("p6")
 
 
+def test_turns_alternate_kernel_and_library():
+    """turns_ms times kernel, library, library, kernel, ... and takes each
+    side's median and [min, max] from that side's readings alone."""
+    order, readings = [], iter([1.0, 10.0, 11.0, 4.0, 2.0, 13.0, 12.0, 3.0])
+
+    def fake_timer(fn):
+        order.append(fn())
+        return next(readings)
+
+    t = probe_tool.turns_ms(lambda: "kernel", lambda: "library", timer=fake_timer)
+    assert order == ["kernel", "library", "library", "kernel"] * (probe_tool.TURN_ROUNDS // 2)
+    assert t == {"ms": 2.5, "ms_spread": [1.0, 4.0], "library_ms": 11.5, "library_ms_spread": [10.0, 13.0]}
+    assert probe_tool.turn_verdict(t) == "faster than"
+    with pytest.raises(ValueError, match="3 rounds"):
+        probe_tool.turns_ms(lambda: 0, lambda: 0, rounds=2, timer=fake_timer)
+
+
+@pytest.mark.parametrize("kernel, library, want", [
+    ((1.5, [1.0, 2.0]), (3.5, [3.0, 4.0]), "faster than"),
+    ((3.5, [3.0, 4.0]), (1.5, [1.0, 2.0]), "slower than"),
+    ((2.0, [1.0, 3.0]), (3.0, [2.0, 4.0]), "tied with"),        # the spreads overlap
+    ((2.0, [2.0, 2.0]), (1.5, [1.0, 2.0]), "tied with"),        # they touch
+    ((0.3536, [0.3535, 0.3537]), (0.3541, [0.3540, 0.3542]), "tied with"),  # apart, 0.14 %: within the drift
+    ((0.3850, [0.3845, 0.3850]), (0.3842, [0.3841, 0.3844]), "tied with"),  # apart, 0.2 % slower: the same
+])
+def test_turn_verdict_judges_by_the_spreads(kernel, library, want):
+    """A verdict other than 'tied with' needs spreads that do not overlap and
+    medians more than RUN_DRIFT apart."""
+    (ms, spread), (library_ms, library_spread) = kernel, library
+    row = {"ms": ms, "ms_spread": spread, "library_ms": library_ms, "library_ms_spread": library_spread}
+    assert probe_tool.turn_verdict(row) == want
+
+
+def test_answers_say_how_each_copy_compares_with_the_library():
+    """P3a and P4 each name their verdict against torch.mul from the turns."""
+    def row(name, ms, spread):
+        return {"name": name, "ms": ms, "ms_spread": spread, "library": "torch.mul(a, 2)", "library_ms": 0.355,
+                "library_ms_spread": [0.354, 0.356], "bytes": 2**30, "gbs": 2**30 / ms / 1e6,
+                "share": 0.3205 / ms}
+    rows = [row("probe_scale_copy", 0.350, [0.349, 0.351]), row("probe_scale_copy_staged", 0.355, [0.353, 0.357]),
+            row("probe_scale_copy_bulk", 0.360, [0.359, 0.361])]
+    said = {a["question"].split(" ")[0]: a["answer"] for a in probe_tool.answers(rows)}
+    assert "faster than the library" in said["P3a"]
+    assert "probe_scale_copy_staged 0.3550 ms [0.3530-0.3570]" in said["P4"] and "tied with torch.mul" in said["P4"]
+    assert "slower than torch.mul" in said["P4"]
+
+
 def test_probe_tool_runs_on_the_cpu_without_times():
     """The slice as a whole at a tiny size: a row for every probe, each within
     its tolerance of the plain version, and no time under a device metric's
@@ -304,7 +351,8 @@ def test_probe_tool_runs_on_the_cpu_without_times():
     assert [r["name"] for r in rows] == list(probe_tool.PROBES)
     for r in rows:
         assert r["device"] == "cpu" and r["max_abs_err"] <= r["tol"]["atol"] + r["tol"]["rtol"] * 8
-        assert all(r[k] is None for k in ("ms", "share", "tflops", "gbs", "library_ms", "plain_ms"))
+        assert all(r[k] is None for k in ("ms", "ms_spread", "share", "tflops", "gbs", "library_ms",
+                                          "library_ms_spread", "plain_ms"))
         assert r["bound_ms"] > 0 and r["bound_by"] == "bytes" and r["replaces"].startswith("tools/probe_pallas")
     assert probe_tool.answers(rows) == []
     if not torch.cuda.is_available():
