@@ -59,7 +59,26 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    line per probe (a probe with a library call timed in turns with it,
    kernel, library, library, kernel, ...: each side's median and [min, max])
    and one line per question the Pallas probes asked, and each copy body's
-   turns beside torch.mul's with the verdict.
+   turns beside torch.mul's with the verdict;
+7. the demo: the core of ``python -m fdgan_tpu_torch.cli.demo``
+   (``cli.demo.dehaze``) through ``data.h5.DataLoader`` over in-memory
+   (haze, gt) pairs made from seed 0 (so that neither h5py nor PIL is
+   needed), the full-width generator (random weights, seed 0), batch 1: two
+   images of 1024², one of 1200×1600 (NTIRE'19 Dense-Haze) and a ragged
+   1021×1533 (reflect-padded to 1024×1536 and cropped back). The kernels'
+   launch counters are zeroed just before the path's runs (fp32 batch BN,
+   the demo's default; bf16 batch BN; the tiled route) and read just after:
+   K1 42 and K2 42 per image, channel_stats 45 per bf16 image, K1 42 per
+   tile. Then the checks: fp32 kernels against plain within GEN_TOL and
+   their 8-bit PNG levels within 1; the bf16 PSNR against the fp32 output;
+   the tiled route (--tile 512 --halo 128, running BN, fp32) against its
+   plain version and against ``InferenceEngine(tile=512, halo=128)``, and
+   its difference from the untiled forward beside the JAX suite's bounds
+   (reported, not gated); ``ops.metrics`` PSNR/SSIM on the 8-bit outputs;
+   one 1024² image per precision under ``cli._common.maybe_profile``, whose
+   trace must name K1's kernel 42 times (and gives the device's busy time);
+   ms per image in turns (kernels, plain, plain, kernels) for fp32 and bf16,
+   the tiled route's ms and the 1200×1600 forward's peak memory.
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
@@ -70,6 +89,7 @@ when there is no CUDA device or any check fails.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import statistics
@@ -879,6 +899,180 @@ def phase_probes():
     return {row["name"]: row for row in rows}, errs, launches
 
 
+DEMO_SIZES = [(1024, 1024), (1024, 1024), (1200, 1600), (1021, 1533)]  # batch 1 each
+DEMO_TILE = dict(tile=512, halo=128)
+# tests/test_tiling_fdgan.py's bounds on the JAX route's tiled-vs-untiled error (held on the CPU at
+# 64², halo 16); reported beside the card's, not gated
+JAX_TILING_BOUNDS = {"median": 1e-3, "mean": 5e-3}
+
+
+def phase_demo():
+    """Phase 7: the demo's core over in-memory pairs. Returns the phase's
+    numbers and the launches of the path's runs (K1..channel_stats, and the
+    probes', which the demo never runs)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from fdgan_tpu_torch.cli._common import maybe_profile
+    from fdgan_tpu_torch.cli.demo import dehaze
+    from fdgan_tpu_torch.data.h5 import DataLoader
+    from fdgan_tpu_torch.dist.tiling import _tile_starts
+    from fdgan_tpu_torch.models import fdgan_fast
+    from fdgan_tpu_torch.models.fdgan import FDGAN
+    from fdgan_tpu_torch.ops import metrics
+    from fdgan_tpu_torch.ops import probes as probe_ops
+    from fdgan_tpu_torch.serve import InferenceEngine
+    from fdgan_tpu_torch.tools.timing import peak_gib
+    from fdgan_tpu_torch.utils.images import normalize_to_uint8
+
+    model = FDGAN(device="cuda", generator=torch.Generator().manual_seed(0))
+    randomise_running_stats(model)
+    rng = np.random.default_rng(0)
+    pairs = []
+    for h, w in DEMO_SIZES:
+        gt = rng.uniform(size=(h, w, 3)).astype(np.float32)
+        pairs.append((np.clip(0.6 * gt + 0.3, 0, 1).astype(np.float32), gt))
+    big = pairs[2:3]  # 1200×1600
+
+    def run(items, **kw):
+        """The demo's core over a loader of ``items``: (images, ms per image)."""
+        out = list(dehaze(model, DataLoader(items, batch_size=1), device="cuda", **kw))
+        if [i for i, _, _ in out] != list(range(len(items))):
+            raise AssertionError(f"the demo yielded indices {[i for i, _, _ in out]}")
+        return [y for _, _, y in out], [1000.0 * s for _, s, _ in out]
+
+    runs = {"fp32": (pairs, dict(precision="fp32")), "bf16": (pairs, dict(precision="bf16")),
+            "tiled": (big, dict(precision="fp32", bn_mode="running", **DEMO_TILE))}
+    n_tiles = len(_tile_starts(1200, 512, 128)) * len(_tile_starts(1600, 512, 128))
+    n = len(pairs)
+    want = {"fp32": {"k1": 42 * n, "k2": 42 * n, "k3": 0, "channel_stats": 0},
+            "bf16": {"k1": 42 * n, "k2": 42 * n, "k3": 0, "channel_stats": 45 * n},
+            "tiled": {"k1": 42 * n_tiles, "k2": 0, "k3": 0, "channel_stats": 0}}
+    # the path: counters from 0 just before, read just after
+    ys, per_run = {}, {}
+    reset_all_counts()
+    probe_ops.reset_launch_counts()
+    for name, (items, kw) in runs.items():
+        before = all_counts()
+        ys[name], _ = run(items, **kw)
+        per_run[name] = {k: v - before[k] for k, v in all_counts().items()}
+    torch.cuda.synchronize()
+    launches, probe_launches = all_counts(), dict(probe_ops.launches)
+    log(f"demo launches per run {json.dumps(per_run)} (tiles of 1200x1600: {n_tiles}); probes {probe_launches}")
+    for name, got in per_run.items():
+        if got != want[name]:
+            raise AssertionError(f"demo {name}: launches {got}, expected {want[name]}")
+
+    out = {"launches": launches, "launches_per_run": per_run, "tiles": n_tiles}
+    plain = {name: run(items, impl="plain", **kw)[0] for name, (items, kw) in runs.items()}
+    # 1. fp32 batch BN, the demo's default: kernels against plain, and their 8-bit PNG levels
+    worst, worst_u8, u8 = 0.0, 0, []
+    for (haze, _), y_k, y_p in zip(pairs, ys["fp32"], plain["fp32"]):
+        err = float(np.abs(y_k - y_p).max())
+        u_k, u_p = normalize_to_uint8(y_k), normalize_to_uint8(y_p)
+        d_u8 = int(np.abs(u_k.astype(int) - u_p.astype(int)).max())
+        ok = (y_k.shape == haze.shape and np.isfinite(y_k).all()
+              and np.allclose(y_k, y_p, **GEN_TOL) and d_u8 <= 1)
+        log(f"demo fp32 batch {haze.shape[:2]}: kernels vs plain max_abs_err {err:.3e}, "
+            f"8-bit levels apart {d_u8} ok={ok}")
+        if not ok:
+            raise AssertionError(f"demo fp32 kernels disagree with plain at {haze.shape}")
+        worst, worst_u8 = max(worst, err), max(worst_u8, d_u8)
+        u8.append((u_k, u_p))
+    out.update(fp32_max_abs_err=worst, fp32_max_u8_levels=worst_u8)
+    # 2. bf16 batch BN against the fp32 output, kernels and plain
+    for (haze, _), y_k, y_p, ref in zip(pairs, ys["bf16"], plain["bf16"], plain["fp32"]):
+        ref_t = torch.from_numpy(ref)
+        p_k, p_p = psnr(torch.from_numpy(y_k), ref_t), psnr(torch.from_numpy(y_p), ref_t)
+        log(f"demo bf16 batch {haze.shape[:2]}: PSNR vs fp32 plain: kernels {p_k:.2f} dB, plain {p_p:.2f} dB")
+        if not (y_k.shape == haze.shape and p_k >= p_p - 1.0):
+            raise AssertionError(f"demo bf16 kernels lose {p_p - p_k:.2f} dB at {haze.shape}")
+        out.setdefault("bf16_psnr_kernels_db", []).append(p_k)
+        out.setdefault("bf16_psnr_plain_db", []).append(p_p)
+    # 4. the tiled route: against its plain version, the engine's tiled route, and the untiled forward
+    y_t, y_tp = ys["tiled"][0], plain["tiled"][0]
+    err_t = float(np.abs(y_t - y_tp).max())
+    if not (y_t.shape == big[0][0].shape and np.allclose(y_t, y_tp, **GEN_TOL)):
+        raise AssertionError(f"demo tiled kernels disagree with plain: max_abs_err {err_t}")
+    engine = InferenceEngine(model, device="cuda", precision="fp32", bn_mode="running", **DEMO_TILE)
+    y_e = engine.predict(big[0][0])
+    err_e = float(np.abs(y_e - y_t).max())
+    log(f"demo tiled 1200x1600 (tile 512, halo 128, running BN, fp32): kernels vs plain max_abs_err {err_t:.3e}; "
+        f"engine vs demo {err_e:.3e}; engine.stats {json.dumps(engine.stats)}")
+    if err_e > 1e-6 or engine.stats["batches"] != 1:
+        raise AssertionError(f"the engine's tiled route disagrees with the demo's: {err_e}")
+    del engine
+    y_u = run(big, precision="fp32", bn_mode="running")[0][0]
+    d = np.abs(y_t - y_u)
+    out["tiled_vs_untiled"] = {"median": float(np.median(d)), "mean": float(d.mean()), "max": float(d.max()),
+                               "psnr_db": psnr(torch.from_numpy(y_t), torch.from_numpy(y_u)),
+                               "jax_suite_bounds": JAX_TILING_BOUNDS}
+    out.update(tiled_max_abs_err=err_t, tiled_engine_max_abs_err=err_e)
+    log(f"demo tiled vs untiled (running BN, fp32; not gated): {json.dumps(out['tiled_vs_untiled'])}")
+    # 5. the metrics of PSNRSSIM.py on the 8-bit outputs, kernels against plain
+    scores = []
+    for u_k, u_p in u8:
+        with np.errstate(divide="ignore"):
+            p = metrics.psnr(u_k / 255.0, u_p / 255.0)
+        scores.append((p, metrics.mssim_channels(u_k, u_p)))
+    log(f"demo ops.metrics kernels vs plain (8-bit): PSNR {[round(p, 2) for p, _ in scores]} dB, "
+        f"SSIM {[round(q, 6) for _, q in scores]}")
+    # at most one level apart: MSE <= 1/255^2
+    if not all(p >= 20 * np.log10(255.0) and q >= 0.99 for p, q in scores):
+        raise AssertionError(f"ops.metrics on the kernels' and plain outputs: {scores}")
+    out["metrics_psnr_ssim"] = scores
+    # 6. one 1024² image per precision under the demo's profiler: the trace must name K1's kernel;
+    # the device's busy time per image is the sum of its kernels and copies (one stream: no overlap)
+    for prec in ("fp32", "bf16"):
+        with tempfile.TemporaryDirectory() as tmp:
+            with maybe_profile(tmp):
+                ms = run(pairs[:1], precision=prec)[1][0]
+            with open(os.path.join(tmp, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        k1 = f"dense_layer_{'f32' if prec == 'fp32' else 'bf16'}_kernel"
+        on_device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        named = sum(1 for e in on_device if k1 in e.get("name", ""))
+        busy = sum(e.get("dur", 0) for e in on_device) / 1000.0
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for e in on_device:
+            # the port's kernels sit in an anonymous namespace: "(anonymous namespace)::dense_layer_f32_kernel(...)"
+            row = by_name[e.get("name", "").replace("(anonymous namespace)::", "").split("(")[0][:80]]
+            row[0] += e.get("dur", 0) / 1000.0
+            row[1] += 1
+        top = sorted(([n, ms_, c] for n, (ms_, c) in by_name.items()), key=lambda r: -r[1])[:8]
+        out[f"{prec}_batch_1024x1024_profiled"] = {"ms": ms, "device_busy_ms": busy, "device_events": len(on_device),
+                                                   "k1_events": named, "top_ms_count": top}
+        log(f"demo profile {prec} 1024x1024: {ms:.2f} ms (profiled), device busy {busy:.2f} ms in "
+            f"{len(on_device)} events, {named} named {k1}; largest (ms, count): "
+            + "; ".join(f"{n} {t:.2f} x{c}" for n, t, c in top))
+        if named != 42:
+            raise AssertionError(f"the profiler's trace of the demo names {k1} {named} times, expected 42")
+    # times: ms per image in turns (kernels, plain, plain, kernels), after the runs above
+    sizes = {"1024x1024": [0, 1], "1200x1600": [2], "1021x1533": [3]}
+    for prec in ("fp32", "bf16"):
+        turns = {"kernels": [], "plain": []}
+        for impl in ("kernels", "plain", "plain", "kernels"):
+            turns[impl].append(run(pairs, precision=prec, impl=impl)[1])
+        for impl, ts in turns.items():
+            for size, idx in sizes.items():
+                out[f"{prec}_batch_{impl}_{size}_ms"] = float(np.mean([t[i] for t in ts for i in idx]))
+            out[f"{prec}_batch_{impl}_turns_ms"] = ts
+        log(f"demo {prec} batch BN ms per image (kernels | plain): " + ", ".join(
+            f"{size} {out[f'{prec}_batch_kernels_{size}_ms']:.2f} | {out[f'{prec}_batch_plain_{size}_ms']:.2f}"
+            for size in sizes))
+    out["tiled_kernels_1200x1600_ms"] = run(big, **runs["tiled"][1])[1][0]
+    out["untiled_running_kernels_1200x1600_ms"] = run(big, precision="fp32", bn_mode="running")[1][0]
+    x = torch.from_numpy(big[0][0][None]).cuda()
+    with torch.inference_mode(), exact_fp32():
+        out["fp32_batch_1200x1600_peak_gib"] = peak_gib(lambda: fdgan_fast.apply(model, x, bn_mode="batch"))
+    log(f"demo tiled 1200x1600 {out['tiled_kernels_1200x1600_ms']:.2f} ms (untiled running "
+        f"{out['untiled_running_kernels_1200x1600_ms']:.2f}); fp32 batch-BN 1200x1600 forward peak "
+        f"{out['fp32_batch_1200x1600_peak_gib']:.3f} GiB")
+    return out, launches, probe_launches
+
+
 def main() -> int:
     import torch
 
@@ -905,11 +1099,15 @@ def main() -> int:
     log(json.dumps({"training": training, "train_fp32": train_fp32, "gradients_max_abs_err": grad_err}))
     torch.cuda.empty_cache()
     probe_rows, probe_errs, probe_launches = phase_probes()
+    torch.cuda.empty_cache()
+    demo, demo_launches, demo_probe_launches = phase_demo()
+    log(json.dumps({"demo": demo}))
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
     k3_timed = {tuple(r["shape"]): r for r in k3_rows if r["dtype"] == "bfloat16"}[K3_SHAPES[0]]
 
     def by_path(k):
-        return {"serving": launches.get(k, 0), "training": train_launches[k], "probes": 0}
+        return {"serving": launches.get(k, 0), "training": train_launches[k], "probes": 0,
+                "demo": demo_launches[k]}
 
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
@@ -954,7 +1152,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "fdgan_tpu_torch/csrc/probes.cu", "replaces": row["replaces"],
             "launches": probe_launches[name],
-            "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name]},
+            "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name],
+                                 "demo": demo_probe_launches[name]},
             "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call

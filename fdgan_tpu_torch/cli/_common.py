@@ -1,6 +1,15 @@
-"""Shared CLI helpers: generator loading and the reference's PNG output."""
+"""Shared CLI helpers: generator loading, the reference's PNG output and the
+profiler context.
+
+Counterpart of ``fdgan_tpu/cli/_common.py``. Not ported:
+``enable_compile_cache``, since eager PyTorch compiles nothing per shape.
+"""
 
 from __future__ import annotations
+
+import contextlib
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,12 +27,38 @@ def save_image_normalized(arr_hwc: np.ndarray, path: str) -> None:
 
 def load_generator(path: str, device="cuda", dtype=torch.float32):
     """An FDGAN generator on ``device`` in ``dtype`` from a reference
-    ``.pth`` checkpoint (DataParallel prefixes handled)."""
+    ``.pth`` checkpoint (DataParallel prefixes handled). The floating
+    parameters and buffers are cast to ``dtype`` as they load."""
     from fdgan_tpu_torch.io.torch_import import load_torch_state_dict
     from fdgan_tpu_torch.models.fdgan import FDGAN
 
+    if path.endswith(".msgpack"):
+        raise NotImplementedError(
+            f"{path}: the port does not read .msgpack checkpoints yet (ROADMAP.md, Queue 1 item 5, "
+            "'.msgpack load'); convert it to .pth with `python -m fdgan_tpu.cli.convert`"
+        )
     if not (path.endswith(".pth") or path.endswith(".pt")):
         raise ValueError(f"{path}: the port loads .pth checkpoints only")
     model = FDGAN(device=device, dtype=dtype)
     model.load_state_dict(load_torch_state_dict(path), strict=True)
     return model
+
+
+@contextlib.contextmanager
+def maybe_profile(profile_dir: Optional[str]):
+    """``torch.profiler`` over the host and, where there is a card, the
+    device; the Chrome trace is written to ``profile_dir/trace.json``. The
+    upgrade over the reference's bare wall-clock prints (demo.py:131-135).
+    Does nothing when ``profile_dir`` is empty."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

@@ -8,6 +8,8 @@ normalize=True protocol (demo.py:151).
     python -m fdgan_tpu_torch.cli.serve --inDir hazy/ --outDir dehazed/ \
         --netG netG.pth --device cuda
     python -m fdgan_tpu_torch.cli.serve --http 8731 --netG netG.pth
+    python -m fdgan_tpu_torch.cli.serve --inDir ntire/ --outDir dehazed/ \
+        --netG netG.pth --tile 512 --halo 128
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flush a partly filled batch once its oldest image has "
                         "waited this many seconds (0 = wait for a full batch; "
                         "--http defaults to 0.05)")
+    p.add_argument("--tile", type=int, default=0,
+                   help="halo-tile images larger than this on either axis (0 = off)")
+    p.add_argument("--halo", type=int, default=128)
     p.add_argument("--http", type=int, default=0, metavar="PORT",
                    help="serve an HTTP API instead of a folder pass: POST "
                         "/dehaze, GET /healthz, GET /stats, POST /reload")
@@ -100,6 +105,8 @@ def main(argv=None):
         bn_mode=opt.bn_mode,
         bucket=opt.bucket,
         batch_sizes=ladder,
+        tile=opt.tile,
+        halo=opt.halo,
         output=opt.outputDtype,
         input=opt.inputDtype,
     )

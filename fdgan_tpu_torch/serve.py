@@ -19,8 +19,13 @@ serving mechanics:
 The forward is ``models.fdgan_fast.apply`` (as the JAX engine's is
 ``fdgan_fast.apply``): the encoder's 42 dense layers run through the
 hand-written kernels K1 and K2, and in batch-BN mode the segment statistics
-through ``channel_stats``; their launch counts appear in ``stats``. The
-halo-tiled route, meshes and warmup wait for later work.
+through ``channel_stats``; their launch counts appear in ``stats``.
+
+With ``tile`` > 0 an image larger than ``tile`` on either axis takes the
+halo-tiled route instead (``dist/tiling.py``): padded to H, W divisible by
+8, run tile by tile on the device, and handed back through the same pending
+result as a batch, so ``stream()`` and ``predict_batch()`` do not care which
+route an image took.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from fdgan_tpu_torch.dist.tiling import tiled_apply
 from fdgan_tpu_torch.models import fdgan_fast
 from fdgan_tpu_torch.models.fdgan import FDGAN
 from fdgan_tpu_torch.ops import dense, stats
@@ -80,6 +86,9 @@ class InferenceEngine:
     bucket : spatial bucket; defaults to 64, or 8 in batch-BN mode, where
         spatial padding enters the statistics. A multiple of 8.
     batch_sizes : ascending ladder of batch sizes.
+    tile, halo : when ``tile`` > 0, images larger than ``tile`` on either
+        axis run one at a time through halo-tiled inference
+        (``dist/tiling.py``) instead of being padded to one large bucket.
     output : 'float32' (results in [-1, 1]) or 'uint8' (quantised on the
         device to round((y+1)·127.5) in fp32: a 4× smaller fetch, lossy by
         ≤ 1/255).
@@ -97,6 +106,8 @@ class InferenceEngine:
         bn_mode: str = "running",
         bucket: Optional[int] = None,
         batch_sizes: Optional[Sequence[int]] = None,
+        tile: int = 0,
+        halo: int = 128,
         output: str = "float32",
         input: str = "float32",
     ):
@@ -112,6 +123,8 @@ class InferenceEngine:
             bucket = 8 if bn_mode == "batch" else 64
         if bucket % 8:
             raise ValueError("bucket must be a multiple of 8 (three ÷2 stages)")
+        if tile and (tile % 8 or tile <= 2 * halo):
+            raise ValueError(f"tile must be a multiple of 8 and exceed 2*halo, got tile {tile} halo {halo}")
         if batch_sizes is None:
             batch_sizes = (1, 2, 4, 8)
         if not batch_sizes or list(batch_sizes) != sorted(set(batch_sizes)):
@@ -125,6 +138,8 @@ class InferenceEngine:
         self.bn_mode = bn_mode
         self.bucket = int(bucket)
         self.batch_sizes = tuple(int(b) for b in batch_sizes)
+        self.tile = int(tile)
+        self.halo = int(halo)
         self.output = output
         self.input = input
         self._stage_dtype = np.uint8 if input == "uint8" else np.float32
@@ -210,8 +225,12 @@ class InferenceEngine:
             return y.to(torch.uint8)
         return y.float()
 
-    def _dispatch(self, batch: np.ndarray) -> _Pending:
-        """Upload, enqueue the forward and start the result copy; no wait."""
+    def _forward_tiled(self, model: FDGAN, x: torch.Tensor) -> torch.Tensor:
+        return tiled_apply(lambda t: self._forward(model, t), x, tile=self.tile, halo=self.halo)
+
+    def _dispatch(self, batch: np.ndarray, tiled: bool = False) -> _Pending:
+        """Upload, enqueue the forward (tile by tile when ``tiled``) and
+        start the result copy; no wait."""
         x = torch.from_numpy(batch)
         cuda = self.device.type == "cuda"
         # fp32 is checkpoint-parity mode: cuDNN would otherwise run its convs in TF32
@@ -220,17 +239,18 @@ class InferenceEngine:
             if self.precision == "fp32"
             else contextlib.nullcontext()
         )
+        forward = self._forward_tiled if tiled else self._forward
         with self._lock, torch.inference_mode(), exact:
             k1, k2, ks = dense.k1_launches, dense.k2_launches, stats.launches
             if cuda:
                 x = x.pin_memory().to(self.device, non_blocking=True)
-                y = self._forward(self._model, x)
+                y = forward(self._model, x)
                 host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
                 host.copy_(y, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record()
             else:
-                host, event = self._forward(self._model, x), None
+                host, event = forward(self._model, x), None
             self.stats["batches"] += 1
             self.stats["k1_launches"] += dense.k1_launches - k1
             self.stats["k2_launches"] += dense.k2_launches - k2
@@ -407,14 +427,7 @@ class InferenceEngine:
             while len(padded) < b:
                 padded.append(padded[len(padded) % n])
             metas = [(idx, img.shape[0], img.shape[1]) for idx, img in items]
-            real_pix = sum(im.shape[0] * im.shape[1] for _, im in items)
-            with self._lock:
-                self._pix_real += real_pix
-                self._pix_padded += b * H * W - real_pix
-                self.stats["images"] += n
-                self.stats["padded_frac"] = self._pix_padded / max(
-                    1, self._pix_real + self._pix_padded
-                )
+            self._account(n, sum(im.shape[0] * im.shape[1] for _, im in items), b * H * W)
             return self._dispatch(np.stack(padded)), metas
 
         def flush_aged():
@@ -442,6 +455,9 @@ class InferenceEngine:
             img = self._ingest(img)
             if img.ndim != 3 or img.shape[-1] != 3:
                 raise ValueError(f"expected HWC RGB image, got shape {img.shape}")
+            if self.tile and max(img.shape[0], img.shape[1]) > self.tile:
+                yield self._stage_tiled(idx, img)
+                continue
             key = self._bucket_hw(img.shape[0], img.shape[1])
             if key not in groups:
                 born[key] = _time.monotonic()
@@ -457,3 +473,21 @@ class InferenceEngine:
                 yield from flush_aged()
         for key in list(groups):
             yield flush(key)
+
+    def _stage_tiled(self, idx: int, img: np.ndarray):
+        """High-res route: one image padded to H, W divisible by 8 and
+        dispatched through halo-tiled inference; the same (pending, metas)
+        contract as a staged batch."""
+        h, w = img.shape[:2]
+        H, W = _round_up(h, 8), _round_up(w, 8)
+        self._account(1, h * w, H * W)
+        return self._dispatch(self._pad_hw(img, H, W)[None], tiled=True), [(idx, h, w)]
+
+    def _account(self, n: int, real_pix: int, staged_pix: int) -> None:
+        """Count ``n`` staged images: ``real_pix`` pixels of theirs in
+        ``staged_pix`` pixels dispatched."""
+        with self._lock:
+            self._pix_real += real_pix
+            self._pix_padded += staged_pix - real_pix
+            self.stats["images"] += n
+            self.stats["padded_frac"] = self._pix_padded / max(1, self._pix_real + self._pix_padded)

@@ -334,6 +334,49 @@ def test_engine_on_cuda_matches_cpu_engine(cuda):
     assert gpu.stats["k1_launches"] == 42 * gpu.stats["batches"] and gpu.stats["k2_launches"] == 0
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_demo_core_kernels_match_plain(cuda, precision):
+    """``cli.demo.dehaze`` at batch 1 on a ragged 150×203 image
+    (reflect-padded to 152×208: the dense blocks run at 152×208, 76×104 and
+    38×52): kernels against plain (fp32: the generator's tolerance; bf16:
+    mean error), launches per image K1 42, K2 42, channel_stats 45 in bf16
+    and 0 in fp32 (its kernel is bf16 only)."""
+    from fdgan_tpu_torch.cli.demo import dehaze
+    from fdgan_tpu_torch.data.h5 import DataLoader
+
+    model = FDGAN(device=cuda, generator=torch.Generator().manual_seed(0))
+    haze = np.random.default_rng(3).uniform(size=(150, 203, 3)).astype(np.float32)
+    loader = DataLoader([(haze, haze)], batch_size=1)
+    dense.reset_launch_counts()
+    stats.reset_launch_count()
+    ((_, _, got),) = dehaze(model, loader, precision=precision, device=cuda)
+    launches = (dense.k1_launches, dense.k2_launches, stats.launches)
+    ((_, _, ref),) = dehaze(model, loader, precision=precision, device=cuda, impl="plain")
+    assert got.shape == haze.shape and got.dtype == np.float32 and np.isfinite(got).all()
+    assert launches == (42, 42, 45 if precision == "bf16" else 0)
+    if precision == "fp32":
+        np.testing.assert_allclose(got, ref, atol=5e-4, rtol=1e-3)
+    else:
+        assert float(np.abs(got - ref).mean()) < 2e-2
+
+
+def test_engine_tiled_route_on_the_card(cuda):
+    """The engine's tiled route (tile 64, halo 16) on a 96×136 image against
+    the demo's tiled core over the same model, fp32, running BN."""
+    from fdgan_tpu_torch.cli.demo import dehaze
+    from fdgan_tpu_torch.data.h5 import DataLoader
+
+    model = FDGAN(device=cuda, generator=torch.Generator().manual_seed(0))
+    haze = np.random.default_rng(4).uniform(size=(96, 136, 3)).astype(np.float32)
+    engine = InferenceEngine(model, device=cuda, precision="fp32", bn_mode="running", tile=64, halo=16)
+    dense.reset_launch_counts()
+    got = engine.predict(haze)
+    ((_, _, want),) = dehaze(model, DataLoader([(haze,)]), bn_mode="running", tile=64, halo=16, device=cuda)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # 2 × 4 tiles of 64² (starts 0, 32; 0, 32, 64, 72), each a forward
+    assert engine.stats["k1_launches"] == 42 * 2 * 4 and engine.stats["batches"] == 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 256, 256, 3), (1, 24, 40, 3), (2, 120, 200, 3)])
 def test_k3_matches_plain(cuda, shape, dtype):

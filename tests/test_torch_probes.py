@@ -25,6 +25,7 @@ import torch
 
 from fdgan_tpu.ops.pallas_dense import build_halo
 from fdgan_tpu_torch.cli._common import load_generator
+from fdgan_tpu_torch.cli.demo import dehaze
 from fdgan_tpu_torch.ops import probes
 from fdgan_tpu_torch.tools import probes as probe_tool
 from fdgan_tpu_torch.train.loop import create_train_state
@@ -256,10 +257,11 @@ def test_wgmma_selfcheck_rejects_bad_inputs():
         probes.wgmma_selfcheck(a.float(), b)
 
 
-@pytest.mark.parametrize("fn", [create_train_state, load_generator], ids=lambda f: f.__name__)
+@pytest.mark.parametrize("fn", [create_train_state, load_generator, dehaze], ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
-    """Training and checkpoint loading build on the card unless asked for the
-    CPU; without a card torch raises rather than moving to the CPU."""
+    """Training, checkpoint loading and the demo's core run on the card unless
+    asked for the CPU; without a card torch raises rather than moving to the
+    CPU."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
