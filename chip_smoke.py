@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and kernel-probe paths once on
-one CUDA GPU, and check them.
+"""Drive the PyTorch port's serving, training, kernel-probe, demo and
+training-CLI paths once on one CUDA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -78,11 +78,28 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    one 1024² image per precision under ``cli._common.maybe_profile``, whose
    trace must name K1's kernel 42 times (and gives the device's busy time);
    ms per image in turns (kernels, plain, plain, kernels) for fp32 and bf16,
-   the tiled route's ms and the 1200×1600 forward's peak memory.
+   the tiled route's ms and the 1200×1600 forward's peak memory;
+8. the training CLI: the core of ``python -m fdgan_tpu_torch.cli.train``
+   (``cli.train.train``) over in-memory pairs (seed 0), the exp directories
+   under build/train_cli. (1) The CLI's defaults in bf16: 8×256²,
+   --poolSize 50, two epochs of 4 batches, --keepBest on 2 val images of
+   256² every 4 steps, then one more epoch into the same exp directory,
+   which must print "resumed from ... at step 8" and load a state equal bit
+   for bit to the file; the kernels' counters are zeroed just before and
+   read just after: K1 42, K2 42, K3 3, channel_stats 54 per train step
+   and K1 42, K2 42, channel_stats 0 per val image (the eval is fp32);
+   netG_best.pth loads through cli._common.load_generator and the engine
+   serves it; the checkpoints' save and load ms and size. (2) The loop
+   against the bare step: 10 steps at 4×256² bf16 without the pool, its img/s
+   beside phase 5's. (3) The perceptual term through --vggWeights (a VGG16
+   .pth from seed 0): ms per step with and without it. (4) The memory levers
+   at 2×1024² bf16: remat False, True, "stages" and --accumSteps 2, peak
+   memory, ms and launches of one timed step each (REMAT_LAUNCHES); then in
+   fp32 at 2×64² each remat mode against no remat.
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
-launches per path); the last
+launches per path, the training CLI's included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails.
 """
@@ -1073,6 +1090,281 @@ def phase_demo():
     return out, launches, probe_launches
 
 
+CLI_TRAIN = dict(batch=8, size=256, batches=4, epochs=2, val=2)  # the CLI's defaults: batch 8, 256², --poolSize 50
+LOOP_SHAPE = (4, 256, 10)  # batch, size, steps: phase 5's bare step, through the CLI's loop
+REMAT_SHAPE = (2, 1024)  # the memory levers' cell: bf16, one warm step and one timed step each
+REMAT_MODES = {"none": dict(remat=False), "remat": dict(remat=True), "stages": dict(remat="stages"),
+               "accum2": dict(accum_steps=2)}
+# launches per bf16 train step: G's forward, plus each checkpointed layer core's recompute (K2, K1) under
+# remat, plus each encoder stage's recompute under "stages" (45 channel_stats, and the layer cores
+# once more inside it); accum 2 runs G's forward (and D's in G's loss) once per microbatch
+REMAT_LAUNCHES = {"none": {"k1": 42, "k2": 42, "k3": 3, "channel_stats": 54},
+                  "remat": {"k1": 84, "k2": 84, "k3": 3, "channel_stats": 54},
+                  "stages": {"k1": 126, "k2": 126, "k3": 3, "channel_stats": 99},
+                  "accum2": {"k1": 84, "k2": 84, "k3": 4, "channel_stats": 102}}
+
+
+def pairs(n, size, seed):
+    """n (haze, gt) pairs: gt uniform, haze = clip(0.6·gt + 0.3), numpy."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        gt = rng.uniform(size=(size, size, 3)).astype(np.float32)
+        out.append((np.clip(0.6 * gt + 0.3, 0, 1).astype(np.float32), gt))
+    return out
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """module.name replaced by wrap(original) inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def run_cli(args, loader, val_loader=None):
+    """cli.train.train over in-memory loaders, on the card; returns (state,
+    its standard output, the records of exp/train_log.jsonl)."""
+    import io
+    import os
+
+    from fdgan_tpu_torch.cli import train as cli
+
+    opt = cli.build_parser().parse_args(args)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = cli.train(opt, loader, val_loader, "cuda")
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if not line.startswith("Namespace("):
+            log(f"  | {line}")
+    with open(os.path.join(opt.exp, "train_log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return state, out, records
+
+
+def same_as_file(state, path) -> bool:
+    """Every tensor of the live state equal, bit for bit, to the file's."""
+    import torch
+
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    same = state.step == blob["step"] and state.d_updates == blob["d_updates"]
+    for net in ("g", "d"):
+        live = getattr(state, net).state_dict()
+        same &= live.keys() == blob[net].keys() and all(torch.equal(live[k].cpu(), v) for k, v in blob[net].items())
+        opt = getattr(state, f"{net}_opt").state_dict()["state"]
+        saved = blob[f"{net}_opt"]["state"]
+        same &= opt.keys() == saved.keys() and all(
+            torch.equal(opt[i][k].cpu(), v) for i, entry in saved.items() for k, v in entry.items())
+    return bool(same)
+
+
+def phase_train_cli(step_img_s: float):
+    """Phase 8: the training CLI's core, cli.train.train, over in-memory pairs.
+    Returns the phase's numbers and the launches of part 1's train steps."""
+    import os
+    import shutil
+
+    import torch
+
+    from fdgan_tpu_torch.cli import train as cli
+    from fdgan_tpu_torch.cli._common import load_generator
+    from fdgan_tpu_torch.data.h5 import DataLoader
+    from fdgan_tpu_torch.losses.composite import LossWeights
+    from fdgan_tpu_torch.models.vgg16 import VGG16
+    from fdgan_tpu_torch.serve import InferenceEngine
+    from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    root = os.path.join("build", "train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    # 1. the CLI's defaults in bf16: 8×256², --poolSize 50, two epochs of 4 batches, keepBest on 2 val images,
+    #    then one more epoch resumed from the exp dir
+    c = CLI_TRAIN
+    train_pairs, val_pairs = pairs(c["batch"] * c["batches"], c["size"], 0), pairs(c["val"], c["size"], 1)
+    loader = DataLoader(train_pairs, batch_size=c["batch"], shuffle=True, seed=0)
+    val_loader = DataLoader(val_pairs, batch_size=1)
+    exp = os.path.join(root, "defaults")
+    args = ["--exp", exp, "--precision", "bf16", "--lambdaPerceptual", "0", "--evalIter", "4", "--keepBest",
+            "--logEvery", "2", "--batchSize", str(c["batch"]), "--imageSize", str(c["size"])]
+    evals = {"calls": 0, "images": 0, "launches": collections.Counter()}
+    io_ms = {"save": [], "load": [], "resumed_equals_file": []}
+
+    def count_eval(orig):
+        def wrapped(g, val, device, impl="kernels"):
+            before = all_counts()
+            res = orig(g, val, device, impl)
+            torch.cuda.synchronize()
+            evals["launches"].update({k: v - before[k] for k, v in all_counts().items()})
+            evals["calls"] += 1
+            evals["images"] += len(val_pairs)
+            return res
+        return wrapped
+
+    def timed_save(orig):
+        def wrapped(path, state, step=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = orig(path, state, step)
+            io_ms["save"].append(1000 * (time.perf_counter() - t))
+            io_ms["mb"] = os.path.getsize(res) / 1e6
+            return res
+        return wrapped
+
+    def timed_load(orig):
+        def wrapped(path, state):
+            t = time.perf_counter()
+            res = orig(path, state)
+            torch.cuda.synchronize()
+            io_ms["load"].append(1000 * (time.perf_counter() - t))
+            io_ms["resumed_equals_file"].append(same_as_file(state, path))
+            return res
+        return wrapped
+
+    reset_all_counts()  # the path's runs: counters from 0 just before, read just after
+    with patched(cli, "evaluate", count_eval), patched(cli, "save_checkpoint", timed_save), \
+            patched(cli, "load_checkpoint", timed_load):
+        state, _, records = run_cli(args + ["--epochs", str(c["epochs"])], loader, val_loader)
+        steps_first = state.step
+        state2, stdout2, records = run_cli(args + ["--epochs", "1"], loader, val_loader)
+    torch.cuda.synchronize()
+    launches = all_counts()
+    steps = state2.step
+    train_launches = {k: v - evals["launches"][k] for k, v in launches.items()}
+    per_step = {k: v / steps for k, v in train_launches.items()}
+    per_val = {k: evals["launches"][k] / evals["images"] for k in launches}
+    want_resume = f"resumed from {os.path.join(exp, f'ckpt_{steps_first}.pt')} at step {steps_first}"
+    losses = [r[k] for r in records for k in ("g_total", "d_total") if k in r]
+    val = [(r["step"], r["val_psnr"], r["val_ssim"]) for r in records if "val_psnr" in r]
+    best_path = os.path.join(exp, "netG_best.pth")
+    with open(best_path + ".json") as f:
+        best = json.load(f)
+    engine = InferenceEngine(load_generator(best_path, device="cuda"), device="cuda", precision="bf16")
+    served = engine.predict(val_pairs[0][0])
+    out.update(steps=[steps_first, steps], launches=launches, launches_per_step=per_step,
+               launches_per_val_image=per_val, evals=evals["calls"], val=val, best=best,
+               save_ms=io_ms["save"], load_ms=io_ms["load"], ckpt_mb=io_ms["mb"],
+               resumed_equals_file=io_ms["resumed_equals_file"],
+               imgs_per_sec=[r["imgs_per_sec"] for r in records if "imgs_per_sec" in r])
+    log(f"train cli 8x256^2 bf16 pool 50: steps {steps_first} + {steps - steps_first}, launches per step "
+        f"{per_step}, per val image {per_val}; save {io_ms['save']} ms, load {io_ms['load']} ms, "
+        f"{io_ms['mb']:.1f} MB; best {best}; val (step, PSNR, SSIM) {val}")
+    checks = {
+        "resumed": want_resume in stdout2 and io_ms["resumed_equals_file"] == [True],
+        "finite": bool(losses) and bool(np.isfinite(losses).all()) and np.isfinite([v[1:] for v in val]).all(),
+        "per_step": per_step == REMAT_LAUNCHES["none"],
+        "per_val": per_val == {"k1": 42, "k2": 42, "k3": 0, "channel_stats": 0},
+        "best_serves": served.shape == val_pairs[0][0].shape and bool(np.isfinite(served).all()),
+        "checkpoints": sorted(os.listdir(exp)) == sorted([f"ckpt_{steps_first // 2}.pt", f"ckpt_{steps_first}.pt",
+                                                          f"ckpt_{steps}.pt", "netG_best.pth",
+                                                          "netG_best.pth.json", "train_log.jsonl"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"train cli: failed checks {[k for k, v in checks.items() if not v]}; "
+                             f"expected {want_resume!r}")
+    del state, state2, engine
+    torch.cuda.empty_cache()
+
+    # 2. the loop against the step: 4×256², bf16, no pool, 10 steps, logged every 5: the second window
+    b, size, n = LOOP_SHAPE
+    loop_pairs = pairs(b * n, size, 2)
+    exp = os.path.join(root, "loop")
+    _, _, records = run_cli(["--exp", exp, "--precision", "bf16", "--lambdaPerceptual", "0", "--poolSize", "0",
+                             "--epochs", "1", "--logEvery", "5", "--batchSize", str(b), "--imageSize", str(size)],
+                            DataLoader(loop_pairs, batch_size=b, shuffle=True, seed=0))
+    windows = [r["imgs_per_sec"] for r in records if "imgs_per_sec" in r]
+    out.update(loop_img_s_windows=windows, loop_img_s=windows[-1], step_img_s=step_img_s,
+               loop_over_step=windows[-1] / step_img_s)
+    log(f"train cli loop 4x256^2 bf16: {windows[-1]:.2f} img/s (windows {windows}) against phase 5's bare "
+        f"step {step_img_s:.2f} img/s: {windows[-1] / step_img_s:.3f}x")
+
+    # 3. the perceptual term: a VGG16 .pth from seed 0 in the reference's names, 6 steps logged every 3
+    vgg_path = os.path.join(root, "vgg16_seed0.pth")
+    torch.save(VGG16(generator=torch.Generator().manual_seed(0)).state_dict(), vgg_path)
+    per = {}
+    for name, extra in (("without", ["--lambdaPerceptual", "0"]),
+                        ("with", ["--lambdaPerceptual", "1", "--vggWeights", vgg_path])):
+        _, _, records = run_cli(["--exp", os.path.join(root, f"perceptual_{name}"), "--precision", "bf16",
+                                 "--poolSize", "0", "--epochs", "1", "--logEvery", "3", "--batchSize", str(b),
+                                 "--imageSize", str(size)] + extra,
+                                DataLoader(loop_pairs[:6 * b], batch_size=b, shuffle=True, seed=0))
+        per[name] = {"ms_per_step": 1000.0 * b / records[-1]["imgs_per_sec"],
+                     "perceptual": [r.get("g_perceptual") for r in records]}
+    if not (per["with"]["perceptual"][-1] is not None and np.isfinite(per["with"]["perceptual"]).all()):
+        raise AssertionError(f"the perceptual term did not run: {per}")
+    out["perceptual"] = per
+    log(f"train cli 4x256^2 bf16 ms per step: without the perceptual term {per['without']['ms_per_step']:.2f}, "
+        f"with {per['with']['ms_per_step']:.2f}; perceptual {per['with']['perceptual']}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # 4. remat and accumulation: 2×1024² bf16, one warm step and one timed step each
+    b, size = REMAT_SHAPE
+    haze, gt = train_batch(b, size, 7)
+    weights = LossWeights(perceptual=0.0)
+    levers = {}
+    for name, kw in REMAT_MODES.items():
+        state, tx_g, tx_d = create_train_state(0, device="cuda")
+        step = make_train_step(tx_g, tx_d, weights, compute_dtype=torch.bfloat16, **kw)
+        step(state, haze, gt)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        t = time.perf_counter()
+        _, m = step(state, haze, gt)
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t)
+        counts = all_counts()
+        levers[name] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "peak_above_state_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                        "launches": counts, "g_total": m["g_total"].item()}
+        log(f"train {b}x{size}^2 bf16 {name}: {json.dumps(levers[name])}")
+        if counts != REMAT_LAUNCHES[name] or not np.isfinite(levers[name]["g_total"]):
+            raise AssertionError(f"{name}: launches {counts}, expected {REMAT_LAUNCHES[name]}; "
+                                 f"g_total {levers[name]['g_total']}")
+        del state, step
+        torch.cuda.empty_cache()
+    out["levers_2x1024"] = levers
+    # what one dense layer's backward holds at block 1's widest input (C = 224) at this size: its twin's
+    # fp32 recompute of t, h and g and their VJP, above the layer's inputs and output
+    from fdgan_tpu_torch.ops import dense
+    from fdgan_tpu_torch.tools.timing import peak_gib
+
+    args = [a.requires_grad_(True) for a in layer_inputs((b, size, size, 224), torch.bfloat16,
+                                                          torch.Generator(device="cuda").manual_seed(8))]
+    f = dense.fused_dense_layer(*args)
+    out["dense_layer_backward_peak_gib"] = peak_gib(lambda: f.backward(torch.ones_like(f)))
+    log(f"one dense layer's backward at {b}x{size}^2x224 bf16: peak {out['dense_layer_backward_peak_gib']:.2f} GiB")
+    del args, f
+    torch.cuda.empty_cache()
+    # the remat modes in fp32 (TF32 off) at 2×64²: the same step as without remat
+    haze, gt = train_batch(2, 64, 6)
+    runs = {}
+    with exact_fp32():
+        for name in ("none", "remat", "stages"):
+            state, tx_g, tx_d = create_train_state(0, device="cuda")
+            _, m = make_train_step(tx_g, tx_d, weights, **REMAT_MODES[name])(state, haze, gt)
+            runs[name] = (state, {k: v.item() for k, v in m.items()})
+    for name in ("remat", "stages"):
+        loss_err = max(abs(v - runs["none"][1][k]) / max(abs(runs["none"][1][k]), 1e-6)
+                       for k, v in runs[name][1].items())
+        off, worst_p, worst_s = compare_states(runs[name][0], runs["none"][0])
+        out[f"fp32_{name}_vs_none"] = {"loss_max_rel_err": loss_err, "param_share_over_1e-6": off,
+                                       "param_max_abs_err": worst_p, "running_stat_max_abs_err": worst_s}
+        log(f"train fp32 2x64^2 {name} vs no remat: {json.dumps(out[f'fp32_{name}_vs_none'])}")
+        if not (loss_err <= 1e-4 and off < 5e-3 and worst_p <= 2 * LR + 1e-6 and worst_s <= 1e-5):
+            raise AssertionError(f"remat {name} changes the fp32 step")
+    del runs
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 8: {out['seconds']:.1f} s")
+    return out, train_launches
+
+
 def main() -> int:
     import torch
 
@@ -1102,12 +1394,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     demo, demo_launches, demo_probe_launches = phase_demo()
     log(json.dumps({"demo": demo}))
+    torch.cuda.empty_cache()
+    train_cli, cli_launches = phase_train_cli(training["kernels"]["img_s"])
+    log(json.dumps({"train_cli": train_cli}))
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
     k3_timed = {tuple(r["shape"]): r for r in k3_rows if r["dtype"] == "bfloat16"}[K3_SHAPES[0]]
 
     def by_path(k):
         return {"serving": launches.get(k, 0), "training": train_launches[k], "probes": 0,
-                "demo": demo_launches[k]}
+                "demo": demo_launches[k], "train_cli": cli_launches[k]}
 
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
@@ -1153,7 +1448,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "fdgan_tpu_torch/csrc/probes.cu", "replaces": row["replaces"],
             "launches": probe_launches[name],
             "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name],
-                                 "demo": demo_probe_launches[name]},
+                                 "demo": demo_probe_launches[name], "train_cli": 0},
             "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call

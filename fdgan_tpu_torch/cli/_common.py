@@ -1,5 +1,5 @@
-"""Shared CLI helpers: generator loading, the reference's PNG output and the
-profiler context.
+"""Shared CLI helpers: generator and discriminator loading, the reference's
+PNG output, fp32 without TF32, and the profiler context.
 
 Counterpart of ``fdgan_tpu/cli/_common.py``. Not ported:
 ``enable_compile_cache``, since eager PyTorch compiles nothing per shape.
@@ -25,13 +25,7 @@ def save_image_normalized(arr_hwc: np.ndarray, path: str) -> None:
     Image.fromarray(normalize_to_uint8(arr_hwc)).save(path)
 
 
-def load_generator(path: str, device="cuda", dtype=torch.float32):
-    """An FDGAN generator on ``device`` in ``dtype`` from a reference
-    ``.pth`` checkpoint (DataParallel prefixes handled). The floating
-    parameters and buffers are cast to ``dtype`` as they load."""
-    from fdgan_tpu_torch.io.torch_import import load_torch_state_dict
-    from fdgan_tpu_torch.models.fdgan import FDGAN
-
+def _check_pth(path: str) -> None:
     if path.endswith(".msgpack"):
         raise NotImplementedError(
             f"{path}: the port does not read .msgpack checkpoints yet (ROADMAP.md, Queue 1 item 5, "
@@ -39,9 +33,47 @@ def load_generator(path: str, device="cuda", dtype=torch.float32):
         )
     if not (path.endswith(".pth") or path.endswith(".pt")):
         raise ValueError(f"{path}: the port loads .pth checkpoints only")
+
+
+def load_generator(path: str, device="cuda", dtype=torch.float32):
+    """An FDGAN generator on ``device`` in ``dtype`` from a reference
+    ``.pth`` checkpoint (DataParallel prefixes handled) or from the ``g`` of
+    a train checkpoint ``ckpt_{step}.pt`` (``io/checkpoint.py``). The
+    floating parameters and buffers are cast to ``dtype`` as they load."""
+    from fdgan_tpu_torch.io.torch_import import load_torch_state_dict
+    from fdgan_tpu_torch.models.fdgan import FDGAN
+
+    _check_pth(path)
     model = FDGAN(device=device, dtype=dtype)
-    model.load_state_dict(load_torch_state_dict(path), strict=True)
+    model.load_state_dict(load_torch_state_dict(path, key="g"), strict=True)
     return model
+
+
+def load_discriminator(path: str, device="cuda", dtype=torch.float32):
+    """The fusion discriminator ``NLayerDiscriminator(input_nc=9)`` on
+    ``device`` from a ``.pth`` state dict (``--netD``) or from the ``d`` of a
+    train checkpoint."""
+    from fdgan_tpu_torch.io.torch_import import load_torch_state_dict
+    from fdgan_tpu_torch.models.discriminators import NLayerDiscriminator
+
+    _check_pth(path)
+    model = NLayerDiscriminator(input_nc=9, device=device, dtype=dtype)
+    model.load_state_dict(load_torch_state_dict(path, key="d"), strict=True)
+    return model
+
+
+def fp32_exact(precision: str, device):
+    """fp32 runs cuDNN and matmuls without TF32: the counterpart of the JAX
+    CLIs' ``jax_default_matmul_precision="highest"`` (demo.py:60-65,
+    train.py:148-150). Does nothing for bf16 or off the card."""
+    if precision != "fp32" or torch.device(device).type != "cuda":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.backends.cudnn.flags(enabled=True, allow_tf32=False))
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32", allow)
+    return stack
 
 
 @contextlib.contextmanager

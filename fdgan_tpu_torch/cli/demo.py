@@ -24,7 +24,6 @@ of arrays) and yields the dehazed images.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import os
 import time
@@ -70,19 +69,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _exact(precision: str, device: torch.device):
-    """fp32 runs cuDNN and matmuls without TF32: the counterpart of the JAX
-    demo's ``jax_default_matmul_precision="highest"`` (demo.py:60-65)."""
-    if precision != "fp32" or device.type != "cuda":
-        return contextlib.nullcontext()
-    stack = contextlib.ExitStack()
-    stack.enter_context(torch.backends.cudnn.flags(enabled=True, allow_tf32=False))
-    allow = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32", allow)
-    return stack
-
-
 def dehaze(
     model,
     loader: Iterable,
@@ -109,6 +95,7 @@ def dehaze(
     is not already in that dtype on ``device``). ``impl='plain'`` runs the
     kernels' plain twins instead of the kernels.
     """
+    from fdgan_tpu_torch.cli._common import fp32_exact
     from fdgan_tpu_torch.dist.tiling import tiled_apply
     from fdgan_tpu_torch.models import fdgan_fast
 
@@ -135,7 +122,7 @@ def dehaze(
         if ph or pw:
             haze = np.pad(haze, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
         x = torch.from_numpy(haze).to(device).to(dtype)
-        with torch.inference_mode(), _exact(precision, device):
+        with torch.inference_mode(), fp32_exact(precision, device):
             if cuda:
                 torch.cuda.synchronize(device)
             start = time.perf_counter()

@@ -27,10 +27,12 @@ process; the twins do not move them.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fdgan_tpu_torch.nn.layers import unbiased
 from fdgan_tpu_torch.ops.common import pixel_stride, twin_vjp
@@ -315,6 +317,25 @@ def h_batch_stats(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
 # Full dense block
 # ---------------------------------------------------------------------------
 
+def _reference_into(*args, out: torch.Tensor) -> torch.Tensor:
+    """``layer_reference`` written into ``out``: the plain buffer path."""
+    return out.copy_(layer_reference(*args))
+
+
+def _layer_core(layer, mode: str, layer_fn, stats_fn, x, a1, b1):
+    """One dense layer after its folded norm1 (a1, b1): norm2's statistics
+    (K2 in batch mode, the running ones otherwise), its fold, and the layer
+    (K1). Returns ``(f, m2, v2)``: the statistics are outputs, not writes, so
+    that a checkpoint's recompute records nothing twice."""
+    w1 = layer.conv1.weight.reshape(INTER, -1).t()
+    if mode == "batch":
+        m2, v2 = stats_fn(x, a1, b1, w1)
+    else:
+        m2, v2 = layer.norm2.running_mean, layer.norm2.running_var
+    a2, b2 = fold_bn(layer.norm2.weight, layer.norm2.bias, m2, v2)
+    return layer_fn(x, a1, b1, w1, a2, b2, layer.conv2.weight.permute(2, 3, 1, 0)), m2, v2
+
+
 def dense_block_fused(
     layers,
     x: torch.Tensor,
@@ -322,6 +343,7 @@ def dense_block_fused(
     impl: str = "kernels",
     stats_out: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
     prefix: str = "",
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """A DenseNet block over NHWC x: ``layers`` are the block's DenseLayer
     modules (norm1, conv1, norm2, conv2). Returns ``(concat, stats)``: the
@@ -346,7 +368,10 @@ def dense_block_fused(
     from K2. With ``stats_out``,
     batch mode records every BN's (mean, unbiased var), detached, under
     ``{prefix}denselayerN.norm1`` / ``.norm2``, as ``pallas_dense.py:411-413``.
-    ``impl='plain'`` runs the twins on any device."""
+    ``impl='plain'`` runs the twins on any device. ``remat`` (with grad
+    enabled) checkpoints each layer's core (``_layer_core``, as JAX
+    ``fdgan_fast._dense_layer_fast`` wraps its core in ``jax.checkpoint``):
+    the backward recomputes K2 and K1 from the layer's input."""
     if mode not in ("batch", "running"):
         raise ValueError(f"unknown BN mode {mode!r}")
     if impl == "kernels":
@@ -370,26 +395,18 @@ def dense_block_fused(
         else:
             m1, v1 = layer.norm1.running_mean, layer.norm1.running_var
         a1, b1 = fold_bn(layer.norm1.weight, layer.norm1.bias, m1, v1)
-        w1 = layer.conv1.weight.reshape(INTER, -1).t()
-        if mode == "batch":
-            m2, v2 = stats_fn(x, a1, b1, w1)
+        if buf is None:
+            core = functools.partial(_layer_core, layer, mode, layer_fn, stats_fn)
+            f, m2, v2 = checkpoint(core, x, a1, b1, use_reentrant=False) if remat else core(x, a1, b1)
         else:
-            m2, v2 = layer.norm2.running_mean, layer.norm2.running_var
-        a2, b2 = fold_bn(layer.norm2.weight, layer.norm2.bias, m2, v2)
+            c = x.shape[-1]
+            f = buf[..., c:c + GROWTH]
+            write = functools.partial(fused_dense_layer if impl == "kernels" else _reference_into, out=f)
+            _, m2, v2 = _layer_core(layer, mode, write, stats_fn, x, a1, b1)
         if stats_out is not None and mode == "batch":
             key = f"{prefix}denselayer{i + 1}"
             stats_out[f"{key}.norm1"] = (m1.detach(), unbiased(v1.detach(), n))
             stats_out[f"{key}.norm2"] = (m2.detach(), unbiased(v2.detach(), n))
-        w2 = layer.conv2.weight.permute(2, 3, 1, 0)
-        if buf is None:
-            f = layer_fn(x, a1, b1, w1, a2, b2, w2)
-        else:
-            c = x.shape[-1]
-            f = buf[..., c:c + GROWTH]
-            if impl == "kernels":
-                fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out=f)
-            else:
-                f.copy_(layer_reference(x, a1, b1, w1, a2, b2, w2))
         if mode == "batch":
             mf, vf = seg_fn(f)
             mean_cat = torch.cat([mean_cat, mf])

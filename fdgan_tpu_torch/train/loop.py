@@ -24,9 +24,11 @@ bf16 batch statistics through ``channel_stats`` and D's input through K3
 (their plain versions for CPU tensors);
 ``impl='plain'`` runs the plain versions on any device.
 
-The state is updated in place: a step returns the same ``TrainState``.
-Not ported yet (ROADMAP.md): gradient accumulation (``accum_steps``),
-rematerialisation, and the device-resident ``lax.scan`` loops.
+Gradient accumulation (``accum_steps``) and rematerialisation (``remat``)
+are the JAX step's memory levers. The state is updated in place: a step
+returns the same ``TrainState``. Not ported (ROADMAP.md): the
+device-resident ``lax.scan`` loops and ``make_device_eval``, workarounds for
+the TPU's host link.
 """
 
 from __future__ import annotations
@@ -134,21 +136,42 @@ def _frozen(*modules: Optional[nn.Module]):
             p.requires_grad_(True)
 
 
-def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label):
+def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=False, accum_steps=1):
     if weights.contextual > 0:
         raise NotImplementedError(CONTEXTUAL_TODO)
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def g_update(state: TrainState, haze, gt) -> Tuple[Metrics, torch.Tensor]:
-        stats: dict = {}
+        if haze.shape[0] % accum_steps:
+            raise ValueError(f"batch {haze.shape[0]} not divisible by accum_steps {accum_steps}")
+        micro = haze.shape[0] // accum_steps
+        parts = []  # (terms, stats, x_hat) of each microbatch
         with _frozen(state.d, vgg):
-            x_hat = fdgan_fast.apply(state.g, haze.to(compute_dtype), bn_mode="batch", impl=impl, stats_out=stats)
-            _, terms = generator_loss(state.d, x_hat, gt.to(compute_dtype), weights, vgg, impl)
             state.g_opt.zero_grad(set_to_none=True)
-            terms["total"].backward()
+            for h, g in zip(haze.split(micro), gt.split(micro)):
+                stats: dict = {}
+                x_hat = fdgan_fast.apply(state.g, h.to(compute_dtype), bn_mode="batch", impl=impl, stats_out=stats,
+                                         remat=remat)
+                _, terms = generator_loss(state.d, x_hat, g.to(compute_dtype), weights, vgg, impl)
+                terms["total"].backward()
+                parts.append(({k: v.detach() for k, v in terms.items()}, stats, x_hat.detach()))
+        if accum_steps == 1:
+            terms, stats, x_hat = parts[0]
+        else:
+            # JAX's scan (loop.py:162-194): the summed grads times 1/accum_steps, and the
+            # terms and the BN moments (mean, unbiased var) averaged over the microbatches
+            for p in state.g.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(1.0 / accum_steps)
+            terms = {k: torch.stack([t[k] for t, _, _ in parts]).mean(0) for k in parts[0][0]}
+            stats = {k: tuple(torch.stack([s[k][j] for _, s, _ in parts]).mean(0) for j in (0, 1))
+                     for k in parts[0][1]}
+            x_hat = torch.cat([x for _, _, x in parts])
         tx_g.apply(state.g_opt, state.step)
         fold_stats(state.g, stats)
         state.step += 1
-        return {f"g_{k}": v.detach() for k, v in terms.items()}, x_hat.detach()
+        return {f"g_{k}": v for k, v in terms.items()}, x_hat
 
     def d_update(state: TrainState, fake, gt) -> Metrics:
         loss, terms = discriminator_loss(state.d, fake, gt.to(compute_dtype), real_label, impl)
@@ -169,13 +192,23 @@ def make_train_step(
     compute_dtype: torch.dtype = torch.float32,
     impl: str = "kernels",
     real_label: float = 1.0,
+    remat=False,
+    accum_steps: int = 1,
 ):
     """``train_step(state, haze, gt) -> (state, metrics)``: a G update, the
     BN fold, then a D update on the pre-update G output. NHWC ``haze`` and
     ``gt`` in [0, 1]; the metrics are detached 0-d tensors (``g_total``,
     ``g_adv``, ``g_pixel``, ``g_ssim``, …, ``d_total``, ``d_real``,
-    ``d_fake``)."""
-    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label)
+    ``d_fake``).
+
+    ``remat`` (False | True | "stages") is ``fdgan_fast.apply``'s.
+    ``accum_steps`` > 1 splits the batch into that many equal microbatches
+    (a batch that does not divide raises ``ValueError``), each with its own
+    forward, batch statistics and backward; G's gradients, the loss terms
+    and the BN moments folded into the running statistics are averaged over
+    them, as JAX ``make_train_step(accum_steps=)``; D trains on the whole
+    batch's G output."""
+    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat, accum_steps)
 
     def train_step(state: TrainState, haze: torch.Tensor, gt: torch.Tensor) -> Tuple[TrainState, Metrics]:
         metrics, x_hat = g_update(state, haze, gt)
@@ -193,12 +226,13 @@ def make_gd_steps(
     compute_dtype: torch.dtype = torch.float32,
     impl: str = "kernels",
     real_label: float = 1.0,
+    remat=False,
 ):
     """Split steps for ImagePool training (misc.py:140-161):
     ``g_step(state, haze, gt) -> (state, metrics, x_hat)`` returns the
     generated batch, which the caller pools; ``d_step(state, fake, gt) ->
     (state, metrics)`` trains D on the (possibly older) fake batch."""
-    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label)
+    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat)
 
     def g_step(state: TrainState, haze: torch.Tensor, gt: torch.Tensor):
         metrics, x_hat = g_update(state, haze, gt)

@@ -1,5 +1,6 @@
 """Training metrics, copied from ``fdgan_tpu/train/meters.py``: the
-reference's ``AverageMeter`` (misc.py:121-136) and a JSONL step logger."""
+reference's ``AverageMeter`` (misc.py:121-136), a JSONL step logger and
+``create_exp_dir`` (misc.py:7-13)."""
 
 from __future__ import annotations
 
@@ -54,3 +55,14 @@ class MetricLogger:
     def close(self):
         if self._fh:
             self._fh.close()
+
+
+def create_exp_dir(exp: str) -> bool:
+    """``misc.create_exp_dir`` (misc.py:7-13): make ``exp`` and say so, or
+    leave an existing one as it is."""
+    try:
+        os.makedirs(exp)
+        print(f"Creating exp dir: {exp}")
+    except OSError:
+        pass
+    return True

@@ -458,6 +458,77 @@ def test_fp32_train_step_kernels_match_plain(cuda, exact):
         assert off / n < 5e-3, (net, off, n)
 
 
+def _train_batch(cuda, b, size, seed):
+    gt = np.random.default_rng(seed).uniform(size=(b, size, size, 3)).astype(np.float32)
+    return torch.tensor(np.clip(0.6 * gt + 0.3, 0, 1), device=cuda), torch.tensor(gt, device=cuda)
+
+
+@pytest.mark.parametrize("remat", [True, "stages"])
+def test_remat_with_the_kernels_matches_no_remat(cuda, exact, remat):
+    """One fp32 step with the kernels under remat against one without: the
+    recompute launches the same kernels on the same inputs. The losses and
+    running statistics come from the forward; the parameters are compared as
+    test_fp32_train_step_kernels_match_plain compares them, since cuDNN's
+    weight gradients may sum in another order from one step to the next and
+    Adam's first step turns noise around 0 into ±lr."""
+    haze, gt = _train_batch(cuda, 2, 64, 13)
+    runs = {}
+    for mode in (False, remat):
+        state, tx_g, tx_d = create_train_state(0, device=cuda)
+        _, metrics = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), remat=mode)(state, haze, gt)
+        runs[mode] = (state, metrics)
+    for k, v in runs[remat][1].items():
+        assert torch.isfinite(v), k
+        torch.testing.assert_close(v, runs[False][1][k], atol=1e-6, rtol=1e-6, msg=k)
+    for net in ("g", "d"):
+        got, want = getattr(runs[remat][0], net).state_dict(), getattr(runs[False][0], net).state_dict()
+        n = off = 0
+        for k, w in want.items():
+            diff = (got[k] - w).abs()
+            assert float(diff.max()) <= (1e-6 if "running" in k else 2 * 2e-4 + 1e-6), k
+            n, off = n + diff.numel(), off + int((diff > 1e-6).sum())
+        assert off / n < 5e-3, (net, off, n)
+
+
+@pytest.mark.parametrize("mode, kw, want", [
+    ("none", {}, (42, 42, 3, 54)),
+    ("remat", {"remat": True}, (84, 84, 3, 54)),  # each layer core's recompute: K2 and K1 again
+    ("stages", {"remat": "stages"}, (126, 126, 3, 99)),  # and each encoder stage's: its 45 statistics
+    ("accum2", {"accum_steps": 2}, (84, 84, 4, 102)),  # G's forward and G loss's D forward per microbatch
+])
+def test_launches_per_bf16_step_under_remat(cuda, mode, kw, want):
+    haze, gt = _train_batch(cuda, 2, 64, 14)
+    state, tx_g, tx_d = create_train_state(0, device=cuda)
+    step = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), compute_dtype=torch.bfloat16, **kw)
+    dense.reset_launch_counts()
+    freq.reset_launch_count()
+    stats.reset_launch_count()
+    _, metrics = step(state, haze, gt)
+    torch.cuda.synchronize()
+    assert (dense.k1_launches, dense.k2_launches, freq.k3_launches, stats.launches) == want
+    assert torch.isfinite(metrics["g_total"])
+
+
+def test_train_cli_core_on_the_card(cuda, tmp_path, capsys):
+    """cli.train.train over in-memory pairs on the card, resumed once, the
+    best generator served (chip_smoke.py phase 8 at the CLI's sizes)."""
+    from fdgan_tpu_torch.cli import train as cli
+    from fdgan_tpu_torch.cli._common import load_generator
+    from fdgan_tpu_torch.data.h5 import DataLoader
+
+    rng = np.random.default_rng(15)
+    gts = [rng.uniform(size=(64, 64, 3)).astype(np.float32) for _ in range(6)]
+    items = [(np.clip(0.6 * g + 0.3, 0, 1).astype(np.float32), g) for g in gts]
+    args = ["--exp", str(tmp_path), "--precision", "bf16", "--batchSize", "2", "--imageSize", "64", "--epochs", "1",
+            "--evalIter", "2", "--keepBest", "--logEvery", "1", "--lambdaPerceptual", "0"]
+    for _ in range(2):
+        state = cli.train(cli.build_parser().parse_args(args), DataLoader(items[:4], batch_size=2),
+                          DataLoader(items[4:], batch_size=1), "cuda")
+    assert "resumed from" in capsys.readouterr().out and state.step == 4
+    y = InferenceEngine(load_generator(str(tmp_path / "netG_best.pth"), device=cuda), device=cuda).predict(items[4][0])
+    assert y.shape == (64, 64, 3) and np.isfinite(y).all()
+
+
 def test_prof_train_reports_every_phase(cuda, capsys):
     from fdgan_tpu_torch.tools import prof_train
 
