@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, kernel-probe, demo and
-training-CLI paths once on one CUDA GPU, and check them.
+"""Drive the PyTorch port's serving, training, kernel-probe, demo,
+training-CLI and model-zoo paths once on one CUDA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -95,11 +95,41 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    .pth from seed 0): ms per step with and without it. (4) The memory levers
    at 2×1024² bf16: remat False, True, "stages" and --accumSteps 2, peak
    memory, ms and launches of one timed step each (REMAT_LAUNCHES); then in
-   fp32 at 2×64² each remat mode against no remat.
+   fp32 at 2×64² each remat mode against no remat;
+9. the model zoo behind ``cli/convert`` (build/zoo): each registry family's
+   seed-0 weights written as the reference's .pth (DataParallel prefix,
+   doubled blockUNet keys), converted to a JAX params .msgpack by
+   ``cli.convert.main`` and loaded from it by ``cli._common.load_model``,
+   the .msgpack converted back to the same .pth tensors. The kernels'
+   counters are read around every run of the path ("zoo"): (1) ``dehaze``,
+   DCPDN's full generator, at 512², batch 1 and 4 (its transmission head's
+   bias set to 1, so that J = (I − A)/t + A is conditioned); (2)
+   ``densenet_dehaze`` at 4×512²; (3) ``dense``, ``dense2``, ``unetg``,
+   ``unetg2`` at 512² (``unetg2`` also at 256², where the innermost BN is
+   1×1), ``patchd`` at 4×256², ``begand`` at 4×64². Each in batch and
+   running BN: fp32 (TF32 off) kernels against plain within GEN_TOL for
+   every output (all four of ``dehaze``), bf16 PSNR against fp32 plain no
+   more than 1 dB below the plain path's, and the launches of each forward
+   exactly K1 and K2 42 (``densenet_dehaze`` 64; K2 0 in running BN) and
+   channel_stats as counted from the module tree (bf16 batch BN), each of
+   those channel_stats launches held against its twin on its own input
+   (down to 1×1 maps and C = 20 padded to 24). ms per bf16 batch-BN forward
+   of ``dehaze`` and ``densenet_dehaze`` at 4×512² in turns of 10 forwards,
+   and their peak memory; ``densenet_dehaze``'s gradients with remat
+   against without (fp32, 2×64²). (4) The contextual term: the bf16 train
+   step at 4×256² with a seed-0 VGG16 .pth, without and with the term in
+   turns of 20 steps (launches per step as phase 5's), one fp32 2×64²
+   step with the term, kernels against plain at phase 5's criteria, and
+   ``cli.train.train --lambdaCX 1`` at the CLI's defaults for one epoch of
+   2 batches. Then,
+   outside the path's count, K1 and K2 at C = 400 and 456 (densenet_dehaze's
+   blocks 3 and 4; 16 and 8 modulo 32) against their twins, from contiguous
+   x and from the concat buffer's slice (the same bits), with their times.
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
-launches per path, the training CLI's included); the last
+launches per path, the training CLI's and the zoo's included; K1's and K2's
+times at C = 400 and 456); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails.
 """
@@ -762,12 +792,13 @@ def compare_states(a, b):
     return off / n, worst_p, worst_s
 
 
-def phase_train_fp32():
+def phase_train_fp32(weights=None, vgg=None, what=""):
     """One fp32 step (TF32 off) from one state and batch, kernels against
     plain. Losses: rtol 1e-4. Parameters: Adam's first step moves each by
     ±lr wherever |g| ≫ ε, so gradient noise around 0 (conv biases under batch
     BN) can differ in sign between the two: ≤ 2·lr everywhere and ≤ 1e-6 on
-    all but 0.5 % (tests/test_torch_train.py); running stats atol 1e-5."""
+    all but 0.5 % (tests/test_torch_train.py); running stats atol 1e-5.
+    ``weights`` (no perceptual term by default) and ``vgg`` are the step's."""
     import copy
 
     import torch
@@ -781,17 +812,17 @@ def phase_train_fp32():
     metrics = {}
     with exact_fp32():
         for impl, st in states.items():
-            _, m = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), impl=impl)(st, haze, gt)
+            _, m = make_train_step(tx_g, tx_d, weights or LossWeights(perceptual=0.0), vgg, impl=impl)(st, haze, gt)
             metrics[impl] = {k: v.item() for k, v in m.items()}
     loss_err = max(abs(v - metrics["plain"][k]) / max(abs(metrics["plain"][k]), 1e-6)
                    for k, v in metrics["kernels"].items())
     off, worst_p, worst_s = compare_states(states["kernels"], states["plain"])
     out = {"loss_max_rel_err": loss_err, "param_share_over_1e-6": off, "param_max_abs_err": worst_p,
            "running_stat_max_abs_err": worst_s, "losses": metrics["kernels"]}
-    log(f"train fp32 2x64^2 kernels vs plain: {json.dumps(out)}")
+    log(f"train fp32 2x64^2{what} kernels vs plain: {json.dumps(out)}")
     finite = all(np.isfinite(v) for v in metrics["kernels"].values())
     if not (finite and loss_err <= 1e-4 and off < 5e-3 and worst_p <= 2 * LR + 1e-6 and worst_s <= 1e-5):
-        raise AssertionError("the fp32 train step with the kernels disagrees with the plain step")
+        raise AssertionError(f"the fp32 train step{what} with the kernels disagrees with the plain step")
     return out
 
 
@@ -1365,6 +1396,434 @@ def phase_train_cli(step_img_s: float):
     return out, train_launches
 
 
+ZOO_ROOT = "build/zoo"
+# the reference's dead members: built, in the state dict, never run (dehaze22.py:665,687; dehaze1113.py:497)
+ZOO_DEAD = ("tran_est", "batch1", "batchnorm1")
+# (family, B, H): step 3's models, each at batch BN and running BN, fp32 and bf16
+ZOO_OTHERS = [("dense", 1, 512), ("dense2", 1, 512), ("unetg", 1, 512), ("unetg2", 1, 512), ("unetg2", 1, 256),
+              ("patchd", 4, 256), ("begand", 4, 64)]
+# K1 and K2 at densenet_dehaze's first layers of blocks 3 and 4 at 4×512², C = 400 and 456
+# (16 and 8 modulo 32), from contiguous x and from the block's concat buffer (ld C0 + 16·32)
+ZOO_KERNEL_SHAPES = [(4, 128, 128, 400), (4, 64, 64, 456)]
+ZOO_TRAIN = (4, 256)  # the contextual term's step: phase 5's cell
+ZOO_CX_STEPS = 20  # steps in each of the term's four timed turns
+
+
+def zoo_stats_launches(model) -> int:
+    """channel_stats launches of one bf16 batch-BN forward of ``model``, from
+    its module tree: a dense block reduces its input and each layer's 32 new
+    channels (1 + L; norm2's statistics are K2's), every other BatchNorm that
+    runs its input once. A BN does not run in a dead member or in a block
+    built with use_bn=False."""
+    from fdgan_tpu_torch.models.densenet import DenseBlock
+    from fdgan_tpu_torch.nn.layers import BatchNorm
+
+    n, blocks = 0, []
+    for name, m in model.named_modules():
+        if set(name.split(".")) & set(ZOO_DEAD) or any(name.startswith(b) for b in blocks):
+            continue
+        if isinstance(m, DenseBlock):
+            n += 1 + len(list(m.children()))
+            blocks.append(name + ".")
+        elif isinstance(m, BatchNorm):
+            n += int(getattr(model.get_submodule(name.rpartition(".")[0]), "use_bn", True))
+    return n
+
+
+def zoo_model(family, prepare=None):
+    """A registry family's model on the card: seed-0 torch-style weights and
+    random running statistics, written as the reference's .pth (DataParallel
+    prefix, doubled blockUNet keys), converted to a JAX params .msgpack by
+    cli.convert.main, loaded from it by cli._common.load_model; the .msgpack
+    converted back to a .pth must hold the first .pth's tensors, bit for bit.
+    Returns (model, {seconds, MB})."""
+    import io
+    import os
+
+    import torch
+
+    from fdgan_tpu_torch.cli import convert
+    from fdgan_tpu_torch.cli._common import load_model
+    from fdgan_tpu_torch.io.torch_import import export_state_dict, model_registry
+
+    t0 = time.perf_counter()
+    fam = model_registry()[family]
+    model = fam.build(device="cpu", generator=torch.Generator().manual_seed(0))
+    randomise_running_stats(model)
+    if prepare is not None:
+        prepare(model)
+    src, mp, back = (os.path.join(ZOO_ROOT, f"{family}{ext}") for ext in (".pth", ".msgpack", "_back.pth"))
+    torch.save(export_state_dict(model.state_dict(), "module.", fam.duplicated), src)
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert.main(["--src", src, "--dst", mp, "--model", family])
+        convert.main(["--src", mp, "--dst", back, "--model", family])
+    a, b = torch.load(src, weights_only=True), torch.load(back, weights_only=True)
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError(f"{family}: .pth -> .msgpack -> .pth changed the tensors")
+    loaded = load_model(mp, family, device="cuda")
+    live = model.state_dict()
+    if not all(torch.equal(v.cpu(), live[k]) for k, v in loaded.state_dict().items()):
+        raise AssertionError(f"{family}: the model loaded from the .msgpack differs from the one written")
+    return loaded, {"seconds": time.perf_counter() - t0, "msgpack_mb": os.path.getsize(mp) / 1e6}
+
+
+def zoo_forward(model, x, mode, impl, stats_out=None):
+    """The model's outputs as a tuple (BeganD has no BN and no impl)."""
+    from fdgan_tpu_torch.models.discriminators import BeganD
+
+    y = model(x) if isinstance(model, BeganD) else model(x, bn_mode=mode, impl=impl, stats_out=stats_out)
+    return y if isinstance(y, tuple) else (y,)
+
+
+@contextlib.contextmanager
+def checked_channel_stats(record):
+    """Every channel_stats launch of a forward inside the block, held against
+    its twin on the same input at STATS_MEAN_TOL / STATS_VAR_TOL (as
+    tests/test_torch_cuda.py::test_channel_stats_matches_twin): the dense
+    blocks' segments (ops.dense) and every other BN's input through
+    nn.layers.batch_stats, the zero-padding of a C that is not a multiple of
+    8 included. The twins launch nothing. ``record`` gets the number of
+    launches checked, the worst errors and the shapes seen."""
+    import torch
+
+    from fdgan_tpu_torch.nn import layers
+    from fdgan_tpu_torch.ops import dense, stats
+
+    record.update(calls=0, mean_max_abs_err=0.0, var_max_abs_err=0.0, shapes=set())
+
+    def hold(x_nhwc, got, want):
+        (m, v), (mr, vr) = got, want
+        record["calls"] += 1
+        record["shapes"].add(tuple(x_nhwc.shape))
+        record["mean_max_abs_err"] = max(record["mean_max_abs_err"], (m - mr).abs().max().item())
+        record["var_max_abs_err"] = max(record["var_max_abs_err"], (v - vr).abs().max().item())
+        if not (torch.allclose(m, mr, **STATS_MEAN_TOL) and torch.allclose(v, vr, **STATS_VAR_TOL)):
+            raise AssertionError(f"channel_stats disagrees with its twin at {tuple(x_nhwc.shape)}: mean "
+                                 f"{(m - mr).abs().max().item():.3e}, var {(v - vr).abs().max().item():.3e}")
+
+    def wrap_batch_stats(orig):
+        def batch_stats(x, impl="kernels"):
+            got = orig(x, impl)
+            if impl == "kernels" and x.dtype == torch.bfloat16:
+                hold(x.permute(0, 2, 3, 1), got, orig(x, "plain"))
+            return got
+        return batch_stats
+
+    def wrap_channel_stats(orig):
+        def channel_stats(x):
+            got = orig(x)
+            if x.dtype == torch.bfloat16:
+                hold(x, got, stats.one_pass_reference(x))
+            return got
+        return channel_stats
+
+    with patched(layers, "batch_stats", wrap_batch_stats), patched(dense, "channel_stats", wrap_channel_stats):
+        yield
+
+
+def zoo_check(name, model, shape, k1, totals, seed=0):
+    """One model at ``shape`` under inference_mode: fp32 (TF32 off) kernels
+    against plain within GEN_TOL for every output, in batch and running BN;
+    bf16 PSNR of the first output against fp32 plain, no more than 1 dB
+    below the plain bf16 path's; the launches of each kernel-path forward
+    exactly K1 ``k1``, K2 ``k1`` in batch BN and 0 in running BN, and
+    channel_stats ``zoo_stats_launches`` in bf16 batch BN, 0 otherwise. In
+    bf16 batch BN every channel_stats launch is held against its twin on
+    its own input (``checked_channel_stats``), and both paths record the
+    statistics of the same BNs (``stats_out`` keys). Adds each forward's
+    launches to ``totals``."""
+    import torch
+
+    b, h = shape
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(size=(b, h, h, 3)).astype(np.float32)).cuda()
+    n_stats = zoo_stats_launches(model)
+    out, ref32 = {"shape": [b, h, h, 3]}, {}
+
+    def counted(fwd):
+        before = all_counts()
+        y = fwd()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in all_counts().items()}
+        totals.update(got)
+        return y, got
+
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            for mode in ("batch", "running"):
+                watch = dtype == torch.bfloat16 and mode == "batch"
+                held, st_k, st_p = {}, {}, {}
+                with exact_fp32() if dtype == torch.float32 else contextlib.nullcontext():
+                    with checked_channel_stats(held) if watch else contextlib.nullcontext():
+                        y_k, got = counted(lambda: zoo_forward(model, xd, mode, "kernels", st_k))
+                    y_p = zoo_forward(model, xd, mode, "plain", st_p)
+                if watch:
+                    if held["calls"] != n_stats or st_k.keys() != st_p.keys():
+                        raise AssertionError(f"{name} bf16 batch: {held['calls']} channel_stats launches checked "
+                                             f"of {n_stats}; stats_out keys equal {st_k.keys() == st_p.keys()}")
+                    held["shapes"] = sorted(held["shapes"], key=lambda t: (t[1] * t[2], t[3]))[:4]
+                    out["bf16_batch_channel_stats_vs_twin"] = held | {"bn_keys": len(st_k)}
+                want = {"k1": k1, "k2": k1 if mode == "batch" else 0, "k3": 0,
+                        "channel_stats": n_stats if (dtype == torch.bfloat16 and mode == "batch") else 0}
+                if got != want:
+                    raise AssertionError(f"{name} {dtype} {mode}: launches per forward {got}, expected {want}")
+                if not all(bool(torch.isfinite(t).all()) for t in y_k):
+                    raise AssertionError(f"{name} {dtype} {mode}: non-finite output")
+                tag = f"{'fp32' if dtype == torch.float32 else 'bf16'}_{mode}"
+                if dtype == torch.float32:
+                    errs = [(a - p).abs().max().item() for a, p in zip(y_k, y_p)]
+                    ok = all(torch.allclose(a, p, **GEN_TOL) for a, p in zip(y_k, y_p))
+                    out[f"{tag}_max_abs_err"] = errs
+                    ref32[mode] = y_p[0]
+                    if not ok:
+                        raise AssertionError(f"{name} fp32 {mode}: kernels vs plain max_abs_err {errs}")
+                else:
+                    p_k, p_p = psnr(y_k[0].float(), ref32[mode]), psnr(y_p[0].float(), ref32[mode])
+                    out[f"{tag}_psnr_db"] = [p_k, p_p]
+                    if not p_k >= p_p - 1.0:
+                        raise AssertionError(f"{name} bf16 {mode}: kernels {p_k:.2f} dB, plain {p_p:.2f} dB")
+                out[f"{tag}_launches"] = got
+                del y_k, y_p
+    log(f"zoo {name} {b}x{h}^2: {json.dumps(out)}")
+    return out
+
+
+def zoo_turns(model, shape, seed=0):
+    """ms per bf16 batch-BN forward of the model in bf16 (as cli/demo
+    --precision bf16 loads one), in turns (kernels, plain, plain, kernels;
+    CUDA events, 10 forwards after 2), and the kernel path's peak memory."""
+    import copy
+
+    import torch
+
+    from fdgan_tpu_torch.tools.timing import peak_gib
+
+    model = copy.deepcopy(model).to(torch.bfloat16)
+    b, h = shape
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(size=(b, h, h, 3)).astype(np.float32)).cuda().bfloat16()
+    times = {"kernels": [], "plain": []}
+    with torch.inference_mode():
+        for impl in ("kernels", "plain", "plain", "kernels"):
+            times[impl].append(cuda_ms(lambda: zoo_forward(model, x, "batch", impl)))
+        peak = peak_gib(lambda: zoo_forward(model, x, "batch", "kernels"))
+    torch.cuda.empty_cache()
+    return {"bf16_batch_ms": {k: sum(v) / len(v) for k, v in times.items()}, "bf16_batch_turns_ms": times,
+            "bf16_batch_peak_gib": peak}
+
+
+def zoo_kernels_at_ragged_c():
+    """K1 and K2 against their twins at C = 400 and 456, fp32 (TF32 off) and
+    bf16, from contiguous x and from the concat buffer's channel slice (the
+    same bits), with their times and bounds at bf16."""
+    import torch
+
+    from fdgan_tpu_torch.ops import dense
+    from fdgan_tpu_torch.tools.timing import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for shape in ZOO_KERNEL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, a1, b1, w1, a2, b2, w2 = layer_inputs(shape, dtype, gen)
+            xv, fv = buffer_view(x, shape[-1] + 16 * 32)
+            with exact_fp32():
+                f_k = dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2)
+                f_p = dense.layer_reference(x, a1, b1, w1, a2, b2, w2)
+                m_k, v_k = dense.h_batch_stats(x, a1, b1, w1)
+                m_p, v_p = dense.h_stats_reference(x, a1, b1, w1)
+                with torch.inference_mode():
+                    dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv)
+                m_v, v_v = dense.h_batch_stats(xv, a1, b1, w1)
+            torch.cuda.synchronize()
+            tol = K1_TOL_F32 if dtype == torch.float32 else K1_TOL_BF16
+            e1 = (f_k.float() - f_p.float()).abs().max().item()
+            e2 = max((m_k - m_p).abs().max().item(), (v_k - v_p).abs().max().item())
+            ok = (torch.allclose(f_k.float(), f_p.float(), **tol) and torch.allclose(m_k, m_p, **K2_MEAN_TOL)
+                  and torch.allclose(v_k, v_p, **K2_VAR_TOL))
+            same = torch.equal(fv, f_k) and torch.equal(m_v, m_k) and torch.equal(v_v, v_k)
+            row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "ld": xv.stride(2),
+                   "k1_max_abs_err": e1, "k2_max_abs_err": e2, "view_same_bits": same}
+            if dtype == torch.bfloat16:
+                row.update(dense_bounds(x, a1, b1, w1, a2, b2, w2))
+                row.update({"k1_ms": cuda_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2)),
+                            "k1_plain_ms": cuda_ms(lambda: dense.layer_reference(x, a1, b1, w1, a2, b2, w2)),
+                            "k2_ms": cuda_ms(lambda: dense.h_batch_stats(x, a1, b1, w1)),
+                            "k2_plain_ms": cuda_ms(lambda: dense.h_stats_reference(x, a1, b1, w1)),
+                            "k2_device_ms": device_ms(lambda: dense.h_batch_stats(x, a1, b1, w1))})
+                with torch.inference_mode():
+                    row["k1_device_ms"] = device_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))
+            rows.append(row)
+            log(json.dumps({"zoo_kernel": row}))
+            if not (ok and same):
+                raise AssertionError(f"K1/K2 disagree at {shape} {dtype}: ok={ok} err K1 {e1} K2 {e2}, "
+                                     f"buffer view same bits {same}")
+    return rows
+
+
+def zoo_remat_grads(model):
+    """densenet_dehaze's gradients with remat (a non-reentrant checkpoint per
+    dense block and transition) against without, fp32 (TF32 off), 2×64²,
+    batch BN, at phase 5's gradient tolerance (atol 1e-5, rtol 1e-4)."""
+    import torch
+
+    x = torch.from_numpy(np.random.default_rng(4).uniform(size=(2, 64, 64, 3)).astype(np.float32)).cuda()
+    grads = {}
+    with exact_fp32():
+        for remat in (False, True):
+            model.zero_grad(set_to_none=True)
+            model(x, bn_mode="batch", remat=remat).square().mean().backward()
+            grads[remat] = [p.grad.clone() for p in model.parameters() if p.grad is not None]
+    model.zero_grad(set_to_none=True)
+    err = max((a - b).abs().max().item() for a, b in zip(grads[True], grads[False]))
+    ok = len(grads[True]) == len(grads[False]) and all(
+        torch.allclose(a, b, atol=1e-5, rtol=1e-4) for a, b in zip(grads[True], grads[False]))
+    log(f"zoo densenet_dehaze remat vs none, fp32 2x64^2 gradients: max_abs_err {err:.3e} ok={ok}")
+    if not ok:
+        raise AssertionError("densenet_dehaze's remat changes its gradients")
+    return err
+
+
+def zoo_contextual(totals):
+    """The contextual term: the bf16 train step at 4×256² with a seed-0
+    VGG16 .pth, without and with --lambdaCX 1 in turns (without, with, with,
+    without; ZOO_CX_STEPS steps each after a warm one), launches per step as
+    phase 5's;
+    one fp32 2×64² step with the term, kernels against plain at phase 5's
+    criteria; then cli.train.train with --lambdaCX 1 at the CLI's defaults
+    (8×256², --poolSize 50, bf16) for one epoch of 2 batches."""
+    import os
+
+    import torch
+
+    from fdgan_tpu_torch.data.h5 import DataLoader
+    from fdgan_tpu_torch.io.torch_import import load_vgg16
+    from fdgan_tpu_torch.losses.composite import LossWeights
+    from fdgan_tpu_torch.models.vgg16 import VGG16
+    from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
+
+    vgg_path = os.path.join(ZOO_ROOT, "vgg16.pth")
+    torch.save(VGG16(generator=torch.Generator().manual_seed(0)).state_dict(), vgg_path)
+    vgg = load_vgg16(vgg_path, device="cuda")
+    b, size = ZOO_TRAIN
+    haze, gt = train_batch(b, size, 300)
+    runs = {}
+    for name, weights in (("without", LossWeights(perceptual=0.0)),
+                          ("with", LossWeights(perceptual=0.0, contextual=1.0))):
+        state, tx_g, tx_d = create_train_state(0, device="cuda")
+        step = make_train_step(tx_g, tx_d, weights, vgg, compute_dtype=torch.bfloat16)
+        step(state, haze, gt)
+        runs[name] = {"state": state, "step": step, "ms": [], "metrics": None}
+    torch.cuda.synchronize()
+    for name in ("without", "with", "with", "without"):
+        r = runs[name]
+        before = all_counts()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_CX_STEPS):
+            _, r["metrics"] = r["step"](r["state"], haze, gt)
+        torch.cuda.synchronize()
+        r["ms"].append(1000 * (time.perf_counter() - t0) / ZOO_CX_STEPS)
+        diff = {k: v - before[k] for k, v in all_counts().items()}
+        totals.update(diff)
+        got = {k: v / ZOO_CX_STEPS for k, v in diff.items()}
+        if got != REMAT_LAUNCHES["none"]:
+            raise AssertionError(f"contextual step ({name}): launches per step {got}")
+    out = {name: {"ms_per_step": sum(r["ms"]) / 2, "turns_ms": r["ms"],
+                  "losses": {k: v.item() for k, v in r["metrics"].items()}} for name, r in runs.items()}
+    if not (np.isfinite(list(out["with"]["losses"].values())).all() and out["with"]["losses"]["g_contextual"] > 0):
+        raise AssertionError(f"the contextual step's losses: {out['with']['losses']}")
+    log(f"zoo contextual term 4x256^2 bf16 ms per step: without {out['without']['ms_per_step']:.2f}, with "
+        f"{out['with']['ms_per_step']:.2f}; g_contextual {out['with']['losses']['g_contextual']:.4f}")
+    del runs
+    torch.cuda.empty_cache()
+    before = all_counts()
+    out["fp32"] = phase_train_fp32(LossWeights(perceptual=0.0, contextual=1.0), vgg, " with --lambdaCX 1")
+    totals.update({k: v - before[k] for k, v in all_counts().items()})
+    # the CLI at its defaults with --lambdaCX 1: 2 batches of 8×256², the pool of 50
+    exp = os.path.join(ZOO_ROOT, "cli_cx")
+    c = CLI_TRAIN
+    before = all_counts()
+    _, _, records = run_cli(["--exp", exp, "--precision", "bf16", "--lambdaCX", "1", "--vggWeights", vgg_path,
+                             "--epochs", "1", "--logEvery", "1", "--batchSize", str(c["batch"]),
+                             "--imageSize", str(c["size"])],
+                            DataLoader(pairs(2 * c["batch"], c["size"], 5), batch_size=c["batch"], shuffle=True, seed=0))
+    got = {k: v - before[k] for k, v in all_counts().items()}
+    totals.update(got)
+    steps = [r for r in records if "g_total" in r]
+    cx = [r.get("g_contextual") for r in steps]
+    out["cli"] = {"steps": len(steps), "g_contextual": cx, "imgs_per_sec": [r["imgs_per_sec"] for r in steps],
+                  "launches": got}
+    log(f"zoo cli.train --lambdaCX 1 (8x256^2 bf16, --poolSize 50): {json.dumps(out['cli'])}")
+    if len(steps) != 2 or None in cx or not np.isfinite(cx).all() or got != {k: 2 * v for k, v in
+                                                                            REMAT_LAUNCHES["none"].items()}:
+        raise AssertionError(f"cli.train --lambdaCX 1: {out['cli']}")
+    return out
+
+
+def phase_zoo():
+    """Phase 9: the model zoo behind cli/convert on the card. Returns the
+    phase's numbers and the launches of its path (every counted forward and
+    step above; the kernel checks at C = 400 and 456 come after)."""
+    import os
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    shutil.rmtree(ZOO_ROOT, ignore_errors=True)
+    os.makedirs(ZOO_ROOT)
+    totals = collections.Counter({k: 0 for k in all_counts()})
+    out = {"models": {}}
+
+    def transmission_in_range(m):
+        # J = (I − A)/(|t| + 1e-10) + A: at random weights t crosses 0, where the division turns fp32
+        # rounding into any difference at all; a bias of 1 puts t = tanh(·) in the transmission's range
+        with torch.no_grad():
+            m.tran_dense.refine3.bias.fill_(1.0)
+
+    # 1. DCPDN's full generator at 512², batch 1 and 4
+    model, io_info = zoo_model("dehaze", transmission_in_range)
+    out["models"]["dehaze"] = {"convert": io_info}
+    for b in (1, 4):
+        out["models"]["dehaze"][f"b{b}"] = zoo_check("dehaze", model, (b, 512), 42, totals)
+    timed = zoo_turns(model, (4, 512))
+    out["models"]["dehaze"].update(timed)
+    log(f"zoo dehaze 4x512^2 bf16 batch BN: {json.dumps(timed)}")
+    del model
+    torch.cuda.empty_cache()
+    # 2. densenet_dehaze at 4×512² (no registry family: seed-0 weights made here)
+    from fdgan_tpu_torch.models.densenet_dehaze import DenseNetDehaze
+
+    model = DenseNetDehaze(device="cuda", generator=torch.Generator().manual_seed(0))
+    randomise_running_stats(model)
+    out["models"]["densenet_dehaze"] = {"b4": zoo_check("densenet_dehaze", model, (4, 512), 64, totals)}
+    timed = zoo_turns(model, (4, 512))
+    out["models"]["densenet_dehaze"].update(timed)
+    log(f"zoo densenet_dehaze 4x512^2 bf16 batch BN: {json.dumps(timed)}")
+    before = all_counts()
+    out["densenet_dehaze_remat_grad_max_abs_err"] = zoo_remat_grads(model)
+    totals.update({k: v - before[k] for k, v in all_counts().items()})
+    del model
+    torch.cuda.empty_cache()
+    # 3. the other families
+    for family, b, h in ZOO_OTHERS:
+        model, io_info = zoo_model(family)
+        k1 = 42 if family in ("dense", "dense2") else 0
+        out["models"][f"{family}_{b}x{h}"] = {"convert": io_info,
+                                              "check": zoo_check(family, model, (b, h), k1, totals)}
+        del model
+        torch.cuda.empty_cache()
+    # 4. the contextual term
+    out["contextual"] = zoo_contextual(totals)
+    launches = dict(totals)
+    log(f"zoo path launches {launches}")
+    # K1 and K2 at the C the path gave them that no earlier phase did
+    out["kernels_ragged_c"] = zoo_kernels_at_ragged_c()
+    shutil.rmtree(ZOO_ROOT, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 9: {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1397,12 +1856,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_cli, cli_launches = phase_train_cli(training["kernels"]["img_s"])
     log(json.dumps({"train_cli": train_cli}))
+    torch.cuda.empty_cache()
+    zoo, zoo_launches = phase_zoo()
+    log(json.dumps({"zoo": zoo}))
+    ragged_c = {f"c{r['shape'][-1]}": {k: r[k] for k in r if k.startswith(("k1_", "k2_"))} | {"shape": r["shape"]}
+                for r in zoo["kernels_ragged_c"] if r["dtype"] == "bfloat16"}
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
     k3_timed = {tuple(r["shape"]): r for r in k3_rows if r["dtype"] == "bfloat16"}[K3_SHAPES[0]]
 
     def by_path(k):
         return {"serving": launches.get(k, 0), "training": train_launches[k], "probes": 0,
-                "demo": demo_launches[k], "train_cli": cli_launches[k]}
+                "demo": demo_launches[k], "train_cli": cli_launches[k], "zoo": zoo_launches[k]}
 
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
@@ -1413,6 +1877,7 @@ def main() -> int:
          "bound_ms": timed["k1_bound_ms"], "bound_by": timed["k1_bound_by"], "library_ms": None,
          "device_ms": timed["k1_device_ms"],
          "view_device_ms": timed["k1_view_device_ms"],  # x and out channel slices of a buffer of ld 256
+         "at_ragged_c": {c: {k: v for k, v in r.items() if not k.startswith("k2_")} for c, r in ragged_c.items()},
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
         {"name": "h_batch_stats (K2)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
@@ -1423,6 +1888,7 @@ def main() -> int:
          "device_ms": timed["k2_device_ms"],
          "mma_ms": timed["k2_mma_ms"],  # the mma.sync body the wgmma kernel replaced, same run
          "mma_device_ms": timed["k2_mma_device_ms"],
+         "at_ragged_c": {c: {k: v for k, v in r.items() if not k.startswith("k1_")} for c, r in ragged_c.items()},
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
         {"name": "channel_stats", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/channel_stats.cu",
@@ -1448,7 +1914,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "fdgan_tpu_torch/csrc/probes.cu", "replaces": row["replaces"],
             "launches": probe_launches[name],
             "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name],
-                                 "demo": demo_probe_launches[name], "train_cli": 0},
+                                 "demo": demo_probe_launches[name], "train_cli": 0, "zoo": 0},
             "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call

@@ -1,5 +1,6 @@
-"""Shared CLI helpers: generator and discriminator loading, the reference's
-PNG output, fp32 without TF32, and the profiler context.
+"""Shared CLI helpers: model loading (any registry family, from a ``.pth``
+or a JAX ``.msgpack``), the reference's PNG output, fp32 without TF32, and
+the profiler context.
 
 Counterpart of ``fdgan_tpu/cli/_common.py``. Not ported:
 ``enable_compile_cache``, since eager PyTorch compiles nothing per shape.
@@ -25,41 +26,54 @@ def save_image_normalized(arr_hwc: np.ndarray, path: str) -> None:
     Image.fromarray(normalize_to_uint8(arr_hwc)).save(path)
 
 
-def _check_pth(path: str) -> None:
+def _check_format(path: str) -> bool:
+    """True for a JAX params file (``.msgpack``), False for a ``.pth`` or
+    ``.pt``; anything else raises."""
     if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: the port does not read .msgpack checkpoints yet (ROADMAP.md, Queue 1 item 5, "
-            "'.msgpack load'); convert it to .pth with `python -m fdgan_tpu.cli.convert`"
-        )
-    if not (path.endswith(".pth") or path.endswith(".pt")):
-        raise ValueError(f"{path}: the port loads .pth checkpoints only")
+        return True
+    if path.endswith((".pth", ".pt")):
+        return False
+    raise ValueError(f"{path}: the port loads .pth, .pt and .msgpack checkpoints only")
+
+
+def load_model(path: str, family: str, device="cuda", dtype=torch.float32, key: Optional[str] = None):
+    """A model of registry ``family`` (``io.torch_import.model_registry``) on
+    ``device`` in ``dtype``, from a reference ``.pth`` (DataParallel
+    prefixes and doubled blockUNet segments handled; torchvision names for
+    ``vgg16``; the entry ``key`` of a train checkpoint ``ckpt_{step}.pt``)
+    or from the JAX package's params ``.msgpack``, whose leaves must be
+    fp32 as JAX writes them. The floating parameters and buffers are cast
+    to ``dtype`` as they load."""
+    from fdgan_tpu_torch.io.checkpoint import load_params
+    from fdgan_tpu_torch.io.torch_import import model_registry, reference_state_dict
+
+    registry = model_registry()
+    if family not in registry:
+        raise KeyError(f"unknown model family {family!r}; choose from {sorted(registry)}")
+    fam = registry[family]
+    if _check_format(path):
+        model = load_params(path, fam.build(device="cpu"), fam.transposed)
+        return model.to(device=device, dtype=dtype)
+    model = fam.build(device=device, dtype=dtype)
+    model.load_state_dict(reference_state_dict(path, model, key=key), strict=True)
+    return model
 
 
 def load_generator(path: str, device="cuda", dtype=torch.float32):
     """An FDGAN generator on ``device`` in ``dtype`` from a reference
-    ``.pth`` checkpoint (DataParallel prefixes handled) or from the ``g`` of
-    a train checkpoint ``ckpt_{step}.pt`` (``io/checkpoint.py``). The
-    floating parameters and buffers are cast to ``dtype`` as they load."""
-    from fdgan_tpu_torch.io.torch_import import load_torch_state_dict
-    from fdgan_tpu_torch.models.fdgan import FDGAN
-
-    _check_pth(path)
-    model = FDGAN(device=device, dtype=dtype)
-    model.load_state_dict(load_torch_state_dict(path, key="g"), strict=True)
-    return model
+    ``.pth`` checkpoint (DataParallel prefixes handled), from the ``g`` of
+    a train checkpoint ``ckpt_{step}.pt`` (``io/checkpoint.py``), or from a
+    JAX params ``.msgpack`` (``netG_best.msgpack``, ``cli/convert``'s
+    output). The floating parameters and buffers are cast to ``dtype`` as
+    they load."""
+    return load_model(path, "fdgan", device, dtype, key="g")
 
 
 def load_discriminator(path: str, device="cuda", dtype=torch.float32):
     """The fusion discriminator ``NLayerDiscriminator(input_nc=9)`` on
-    ``device`` from a ``.pth`` state dict (``--netD``) or from the ``d`` of a
-    train checkpoint."""
-    from fdgan_tpu_torch.io.torch_import import load_torch_state_dict
-    from fdgan_tpu_torch.models.discriminators import NLayerDiscriminator
-
-    _check_pth(path)
-    model = NLayerDiscriminator(input_nc=9, device=device, dtype=dtype)
-    model.load_state_dict(load_torch_state_dict(path, key="d"), strict=True)
-    return model
+    ``device`` from a ``.pth`` state dict (``--netD``), from the ``d`` of a
+    train checkpoint, or from a JAX params ``.msgpack``."""
+    return load_model(path, "nlayer", device, dtype, key="d")
 
 
 def fp32_exact(precision: str, device):

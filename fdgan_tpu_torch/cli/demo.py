@@ -52,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--outputChannelSize", type=int, default=3)
     p.add_argument("--lrD", type=float, default=0.0002)
     p.add_argument("--lrG", type=float, default=0.0002)
-    p.add_argument("--netG", default="", help="path to netG (.pth)")
+    p.add_argument("--netG", default="", help="path to netG (.pth, or a JAX params .msgpack)")
     p.add_argument("--beta1", type=float, default=0.5)
     p.add_argument("--netD", default="")
     p.add_argument("--workers", type=int, default=1)

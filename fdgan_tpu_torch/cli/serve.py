@@ -26,7 +26,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inDir", default="", help="directory of hazy images "
                    "(required unless --http is given)")
     p.add_argument("--outDir", default="./result_serve/")
-    p.add_argument("--netG", default="", help="generator checkpoint (.pth); "
+    p.add_argument("--netG", default="", help="generator checkpoint (.pth or JAX params .msgpack); "
                    "random-init weights when omitted")
     p.add_argument("--precision", choices=["fp32", "bf16"], default="bf16")
     p.add_argument("--bn_mode", choices=["batch", "running"], default="running")

@@ -59,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="optimizer step at which linear LR decay begins (0 = decay off, the reference's default)")
     p.add_argument("--annealEvery", type=int, default=400,
                    help="decay reaches 0 this many steps after --annealStart (misc.py:164-172)")
-    p.add_argument("--netG", default="", help="generator .pth (or a ckpt_*.pt) to start from")
-    p.add_argument("--netD", default="", help="discriminator .pth to start from")
+    p.add_argument("--netG", default="", help="generator .pth, ckpt_*.pt or JAX params .msgpack to start from")
+    p.add_argument("--netD", default="", help="discriminator .pth or JAX params .msgpack to start from")
     p.add_argument("--workers", type=int, default=2)
     p.add_argument("--exp", default="./checkpoints_fdgan")
     p.add_argument("--display", type=int, default=5,
@@ -117,9 +117,6 @@ def refuse(opt: argparse.Namespace) -> None:
     if os.environ.get("FDGAN_TPU_DIST") == "1":
         raise SystemExit("FDGAN_TPU_DIST=1: multi-process training is not ported yet (ROADMAP.md, Queue 1 "
                          "item 10)")
-    if opt.lambdaCX > 0:
-        raise SystemExit("--lambdaCX > 0: the contextual loss is not ported yet (ROADMAP.md, Queue 1 item 6); "
-                         "train with --lambdaCX 0")
     if opt.poolSize > 0 and opt.accumSteps > 1:
         raise SystemExit("--accumSteps > 1 requires --poolSize 0 (the ImagePool G/D split does not "
                          "accumulate; it would silently ignore the flag)")
@@ -194,10 +191,10 @@ def _train(opt, loader, val_loader, device):
         from fdgan_tpu_torch.io.torch_import import load_vgg16
 
         vgg = load_vgg16(opt.vggWeights, device=device)
-    elif opt.lambdaPerceptual > 0:
-        print("WARNING: --lambdaPerceptual > 0 but no --vggWeights given; the perceptual loss is OFF. Supply a "
-              "VGG16 .pth in either the reference's Vgg16 format or stock torchvision format "
-              "(io.torch_import.load_vgg16 accepts both).")
+    elif opt.lambdaPerceptual > 0 or opt.lambdaCX > 0:
+        print("WARNING: --lambdaPerceptual or --lambdaCX > 0 but no --vggWeights given; the perceptual and "
+              "contextual losses are OFF. Supply a VGG16 .pth in either the reference's Vgg16 format or stock "
+              "torchvision format (io.torch_import.load_vgg16 accepts both).")
     weights = LossWeights(adv=opt.lambdaAdv, pixel=opt.lambdaPixel, pixel_norm=opt.pixelNorm,
                           perceptual=opt.lambdaPerceptual, ssim=opt.lambdaSSIM, contextual=opt.lambdaCX)
     compute_dtype = torch.bfloat16 if opt.precision == "bf16" else torch.float32

@@ -14,6 +14,13 @@ Files are written atomically (``path + ".tmp"``, then ``os.replace``) and
 read with ``weights_only=True``. A load checks every tensor's name, shape and
 dtype against the live state first, as the JAX ``load_checkpoint`` checks
 its leaves (``:97-126``). Not ported: ``AsyncCheckpointer`` (ROADMAP.md).
+
+:func:`save_params` and :func:`load_params` write and read one model in the
+JAX package's own params file, a ``.msgpack`` (``fdgan_tpu/io/checkpoint.py
+:21-34``): the ``netG_best.msgpack`` of the JAX training CLI, its ``--netD``
+and the JAX ``cli/convert``'s output. The leaves are the model's tensors in
+JAX's flatten order and layouts (``io/torch_import.py::jax_leaves``), coded
+by ``io/msgpack.py``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,10 @@ import re
 from typing import Mapping, Optional
 
 import torch
+from torch import nn
+
+from fdgan_tpu_torch.io import msgpack
+from fdgan_tpu_torch.io.torch_import import from_jax_layout, jax_leaves, to_jax_layout
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt$")
 
@@ -92,3 +103,44 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     if not paths:
         return None
     return max(paths, key=lambda p: int(_CKPT.search(p).group(1)))
+
+
+def save_params(path: str, model: nn.Module, transposed: frozenset) -> str:
+    """Write ``model``'s parameters and buffers to ``path`` as the JAX
+    package's params file; ``transposed`` is the family's set of
+    ConvTranspose2d paths. Atomic, as :func:`save_checkpoint`."""
+    state = model.state_dict()
+    leaves = [to_jax_layout(state[key], key.rsplit(".", 1)[0], transposed).contiguous()
+              for _, key in jax_leaves(model, transposed)]
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack.pack_leaves(leaves))
+    os.replace(tmp, path)
+    return path
+
+
+@torch.no_grad()
+def load_params(path: str, model: nn.Module, transposed: frozenset) -> nn.Module:
+    """Read a JAX params file into ``model`` in place and return it. Every
+    leaf's shape and dtype is checked against the model's tensor first, in
+    order, and the first mismatch raises ``ValueError`` naming the leaf's
+    JAX path (as the JAX ``load_checkpoint`` names it): a file of another
+    family or configuration fails there, or, where every leaf fits, on the
+    count of leaves."""
+    order = jax_leaves(model, transposed)
+    with open(path, "rb") as f:
+        leaves = msgpack.unpack_leaves(f.read(), [p for p, _ in order])
+    state = model.state_dict()
+    loaded = {}
+    for (jpath, key), leaf in zip(order, leaves):
+        want = to_jax_layout(state[key], key.rsplit(".", 1)[0], transposed)
+        if tuple(leaf.shape) != tuple(want.shape):
+            raise ValueError(f"{path}: leaf {jpath} has shape {tuple(leaf.shape)}, the model expects "
+                             f"{tuple(want.shape)}: wrong model family or configuration?")
+        if leaf.dtype != want.dtype:
+            raise ValueError(f"{path}: leaf {jpath} has dtype {leaf.dtype}, the model expects {want.dtype}")
+        loaded[key] = from_jax_layout(leaf, key.rsplit(".", 1)[0], transposed)
+    if len(leaves) != len(order):
+        raise ValueError(f"{path}: {len(leaves)} leaves, the model expects {len(order)}: wrong model family?")
+    model.load_state_dict(loaded, strict=True)
+    return model

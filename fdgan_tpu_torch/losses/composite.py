@@ -1,7 +1,8 @@
 """Composite generator and discriminator objectives of FD-GAN training.
 
 Counterpart of ``fdgan_tpu/losses/composite.py``: adversarial BCE through
-the fusion discriminator, pixel L1 (or MSE), VGG16 perceptual and 1 − SSIM.
+the fusion discriminator, pixel L1 (or MSE), VGG16 perceptual, 1 − SSIM and
+the contextual loss on VGG16's relu3_3 (where a VGG16 is given).
 
 Range contract, as the JAX package's: ``x_hat`` is the generator's tanh
 output in [−1, 1]; ``gt`` is in [0, 1], as the h5 pipeline stores it. Every
@@ -20,15 +21,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from fdgan_tpu_torch.losses.contextual import contextual_loss
 from fdgan_tpu_torch.losses.gan import d_loss, g_adv_loss
 from fdgan_tpu_torch.losses.perceptual import perceptual_loss
 from fdgan_tpu_torch.models.discriminators import NLayerDiscriminator, fusion_apply
 from fdgan_tpu_torch.models.vgg16 import VGG16
 from fdgan_tpu_torch.ops.ssim import ssim
-
-CONTEXTUAL_TODO = ("the contextual loss is not ported yet (ROADMAP.md Queue 1: "
-                   "losses/contextual.py); train with LossWeights(contextual=0.0)")
-
 
 @dataclasses.dataclass(frozen=True)
 class LossWeights:
@@ -37,7 +35,7 @@ class LossWeights:
     pixel_norm: str = "l1"  # 'l1' | 'mse'
     perceptual: float = 1.0
     ssim: float = 1.0
-    contextual: float = 0.0
+    contextual: float = 0.0  # CX on VGG16 relu3_3; needs a VGG16, as the perceptual term
 
 
 def pixel_loss(x: torch.Tensor, y: torch.Tensor, norm: str) -> torch.Tensor:
@@ -54,8 +52,6 @@ def generator_loss(
     impl: str = "kernels",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The generator's objective and its terms (NHWC ``x_hat``, ``gt``)."""
-    if weights.contextual > 0:
-        raise NotImplementedError(CONTEXTUAL_TODO)
     x01 = (x_hat + 1.0) * 0.5
     terms = {}
     total = torch.zeros((), dtype=torch.float32, device=x_hat.device)
@@ -70,6 +66,10 @@ def generator_loss(
     if weights.ssim > 0:
         terms["ssim"] = ssim(x01, gt)
         total = total + weights.ssim * (1.0 - terms["ssim"])
+    if weights.contextual > 0 and vgg is not None:
+        # relu3_3, downsampled enough for CX's cost, quadratic in H·W
+        terms["contextual"] = contextual_loss(vgg(x01)[2], vgg(gt)[2])
+        total = total + weights.contextual * terms["contextual"]
     terms["total"] = total
     return total, terms
 

@@ -4,6 +4,11 @@ Counterpart of ``fdgan_tpu/models/densenet.py``: dense layers
 ``denselayerN.norm1/conv1/norm2/conv2`` and transitions ``norm/conv``, so
 the reference ``.pth`` checkpoints load as they are. A dense block runs
 through ``ops.dense.dense_block_fused`` (kernels K1 and K2 on the GPU).
+
+``stem`` is torchvision's front with ``pool0`` (conv0 7×7 s2, norm0, relu,
+3×3 s2 max pool), as DCPDN's ``Dense`` runs it (dehaze1113.py:503);
+``dense_block`` and ``transition`` run a block under a ``BNCtx``, as JAX
+``dense_block_apply`` and ``transition_apply``.
 """
 
 from __future__ import annotations
@@ -11,11 +16,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fdgan_tpu_torch.nn.layers import BatchNorm, Conv2d, StatsOut, avg_pool, batch_norm, relu
+from fdgan_tpu_torch.nn.layers import BatchNorm, BNCtx, Conv2d, StatsOut, avg_pool, batch_norm, max_pool, relu
 from fdgan_tpu_torch.ops.dense import dense_block_fused
 
 GROWTH_RATE = 32
 BN_SIZE = 4
+INIT_FEATURES = 64
 
 
 class DenseLayer(nn.Module):
@@ -61,3 +67,24 @@ class Transition(nn.Module):
                 prefix: str = "", impl: str = "kernels") -> torch.Tensor:
         h = batch_norm(self.norm, x, bn_mode, stats_out=stats_out, stats_key=f"{prefix}norm", impl=impl)
         return avg_pool(self.conv(relu(h)), 2)
+
+
+def dense_block(block: DenseBlock, x: torch.Tensor, bn: BNCtx) -> torch.Tensor:
+    """``block`` under ``bn``, whose prefix is the block's path."""
+    return block(x, bn.mode, bn.impl, bn.stats_out, bn.prefix)
+
+
+def transition(trans: Transition, x: torch.Tensor, bn: BNCtx) -> torch.Tensor:
+    """``trans`` under ``bn``, whose prefix is the transition's path."""
+    return trans(x, bn.mode, bn.stats_out, bn.prefix, bn.impl)
+
+
+def stem_modules(device=None, dtype=torch.float32):
+    """conv0 (3 → 64, 7×7 s2 p3, bias-free) and norm0."""
+    return (Conv2d(3, INIT_FEATURES, 7, 2, 3, bias=False, device=device, dtype=dtype),
+            BatchNorm(INIT_FEATURES, device=device, dtype=dtype))
+
+
+def stem(conv0: Conv2d, norm0: BatchNorm, x: torch.Tensor, bn: BNCtx) -> torch.Tensor:
+    """pool0(relu0(norm0(conv0 x))): H/4 by W/4, 64 channels."""
+    return max_pool(relu(bn(norm0, conv0(x), "norm0")), 3, stride=2, padding=1)

@@ -15,7 +15,7 @@ from typing import List
 import torch
 from torch import nn
 
-from fdgan_tpu_torch.nn.layers import Conv2d, max_pool, relu, torch_style_init
+from fdgan_tpu_torch.nn.layers import Conv2d, finish, max_pool, relu
 
 _CFG = [
     ("conv1_1", 3, 64), ("conv1_2", 64, 64),
@@ -34,8 +34,7 @@ class VGG16(nn.Module):
         super().__init__()
         for name, cin, cout in _CFG:
             setattr(self, name, Conv2d(cin, cout, 3, padding=1, device="meta", dtype=dtype))
-        self.to_empty(device=device if device is not None else "cpu")
-        torch_style_init(self, generator if generator is not None else torch.Generator().manual_seed(0))
+        finish(self, device, generator)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """NHWC images → [relu1_2, relu2_2, relu3_3, relu4_3] as NHWC views."""

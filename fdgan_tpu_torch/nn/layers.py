@@ -18,6 +18,7 @@ module path, for :func:`update_running_stats`.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -79,18 +80,43 @@ def torch_style_init(model: nn.Module, generator: torch.Generator) -> None:
             module.running_var.fill_(1.0)
 
 
+def finish(model: nn.Module, device, generator) -> nn.Module:
+    """A model built on the meta device, materialised on ``device`` (the
+    CPU when None) with torch-style random weights from ``generator`` (seed
+    0 when None). ``device="meta"`` leaves it unmaterialised: a part of a
+    larger model, or a template of names and shapes."""
+    if device == "meta":
+        return model
+    model.to_empty(device=device if device is not None else "cpu")
+    torch_style_init(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    return model
+
+
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     """Torch-style avg_pool2d: stride = window, floor on odd sizes, no padding."""
     return F.avg_pool2d(x, window)
 
 
-def max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
-    return F.max_pool2d(x, window)
+def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None, padding: int = 0) -> torch.Tensor:
+    """Max pool, stride = window unless given; the padding is −inf, so a
+    padded position never wins (``fdgan_tpu/nn/layers.py:211-220``)."""
+    return F.max_pool2d(x, window, stride or window, padding)
 
 
 def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Nearest-neighbour ×scale upsample (reference: F.upsample_nearest)."""
     return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def upsample_nearest_to(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest upsample of NCHW x to an exact (H, W) by JAX's integer rule,
+    output row i from input row ⌊i·h / H⌋ (``fdgan_tpu/nn/layers.py:231-237``;
+    ``F.interpolate`` rounds a float scale instead). The index tensors are
+    made on x's device; the result is channels_last."""
+    h, w = x.shape[2:]
+    rows = torch.arange(size[0], device=x.device) * h // size[0]
+    cols = torch.arange(size[1], device=x.device) * w // size[1]
+    return x[:, :, rows][:, :, :, cols].contiguous(memory_format=torch.channels_last)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -99,6 +125,22 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    return F.elu(x)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: with ``train`` and a ``generator``, each element is
+    kept with probability 1 − rate and scaled by 1/(1 − rate), else zeroed;
+    otherwise x as it is, as JAX ``dropout`` without an rng. The mask is
+    drawn on the generator's device and moved to x's."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -118,9 +160,16 @@ def batch_stats(x: torch.Tensor, impl: str = "kernels") -> Tuple[torch.Tensor, t
     ``impl='kernels'`` takes bf16 through ``ops.stats.channel_stats``: the
     hand-written kernel on a CUDA tensor, which reads x once in bf16 and so
     needs x channels_last (NHWC in memory; any other layout raises), and its
-    twin on a CPU one. ``impl='plain'`` runs the plain formula on any device."""
+    twin on a CPU one. ``impl='plain'`` runs the plain formula on any device.
+    The kernel reads 8-channel vectors: a bf16 x whose C is not a multiple
+    of 8 (DCPDN's ``batchnorm20``) goes to it zero-padded to the next
+    multiple, and the padded channels' statistics are dropped."""
     nhwc = x.permute(0, 2, 3, 1)
     if impl == "kernels":
+        c = nhwc.shape[-1]
+        if nhwc.dtype == torch.bfloat16 and c % 8:
+            mean, var = channel_stats(F.pad(nhwc, (0, -c % 8)))
+            return mean[:c], var[:c]
         return channel_stats(nhwc)
     if impl == "plain":
         return plain_channel_stats(nhwc)
@@ -177,6 +226,27 @@ def batch_norm(
     inv = bn.weight.float() * torch.rsqrt(var + eps)
     shift = bn.bias.float() - mean * inv
     return x * inv.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BNCtx:
+    """The BatchNorm mode, the batch statistics' ``impl`` and the statistics
+    collector, threaded through a model with each BN's path, as JAX
+    ``BNCtx`` (``fdgan_tpu/models/blocks.py:44-67``): ``sub(name)`` is the
+    context of a child, and ``ctx(bn, x, name)`` normalises x with ``bn``,
+    recording its batch statistics under ``{prefix}{name}``."""
+
+    mode: str = "batch"
+    impl: str = "kernels"
+    stats_out: StatsOut = None
+    prefix: str = ""
+
+    def sub(self, name: str) -> "BNCtx":
+        return dataclasses.replace(self, prefix=f"{self.prefix}{name}.")
+
+    def __call__(self, bn: BatchNorm, x: torch.Tensor, name: str) -> torch.Tensor:
+        return batch_norm(bn, x, self.mode, stats_out=self.stats_out, stats_key=f"{self.prefix}{name}",
+                          impl=self.impl)
 
 
 @torch.no_grad()

@@ -1,11 +1,13 @@
-"""Where the time of the generator's forward goes, on one CUDA GPU.
+"""Where the time of a generator's forward goes, on one CUDA GPU.
 
     python -m fdgan_tpu_torch.tools.prof_serve [--batch 8] [--size 512] [--impl kernels plain] [--bn running batch]
-        [--forward fast module]
+        [--forward fast module dehaze densenet_dehaze]
 
 For each ``forward`` (``fast``: ``models.fdgan_fast.apply``, what the engine
-and the train step run; ``module``: ``FDGAN.forward``), ``impl`` and BN mode,
-on the full-width FDGAN generator (random
+and the train step run; ``module``: ``FDGAN.forward``; ``dehaze`` and
+``densenet_dehaze``: the forwards of ``models/dcpdn.DehazePhysical`` and
+``models/densenet_dehaze.DenseNetDehaze``), ``impl`` and BN mode,
+on the full-width model (random
 weights from seed 0, randomised running statistics, bf16) and after
 ``--warmup`` forwards, prints one JSON line:
 
@@ -79,7 +81,8 @@ def main(argv=None) -> int:
     parser.add_argument("--size", type=int, default=512)
     parser.add_argument("--impl", nargs="+", default=["kernels", "plain"], choices=["kernels", "plain"])
     parser.add_argument("--bn", nargs="+", default=["running", "batch"], choices=["running", "batch"])
-    parser.add_argument("--forward", nargs="+", default=["fast"], choices=["fast", "module"])
+    parser.add_argument("--forward", nargs="+", default=["fast"],
+                        choices=["fast", "module", "dehaze", "densenet_dehaze"])
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--forwards", type=int, default=5)
     parser.add_argument("--prof-forwards", type=int, default=3)
@@ -89,17 +92,20 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
 
+    from fdgan_tpu_torch.models.dcpdn import DehazePhysical
+    from fdgan_tpu_torch.models.densenet_dehaze import DenseNetDehaze
     from fdgan_tpu_torch.models.fdgan import FDGAN
 
-    model = FDGAN(device="cuda", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for m in model.modules():  # running stats that are not the identity: mean ~ N(0, 0.1²), var ~ 1 + U(0, 0.1)
-        if getattr(m, "running_mean", None) is not None:
-            m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, device="cuda", generator=gen))
-            m.running_var.copy_(1 + 0.1 * torch.rand(m.running_var.shape, device="cuda", generator=gen))
+    classes = {"fast": FDGAN, "module": FDGAN, "dehaze": DehazePhysical, "densenet_dehaze": DenseNetDehaze}
     x = torch.from_numpy(np.random.default_rng(0).uniform(size=(args.batch, args.size, args.size, 3)).astype(np.float32))
     x = x.cuda().bfloat16()
     for forward_name in args.forward:
+        model = classes[forward_name](device="cuda", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for m in model.modules():  # running stats that are not the identity: mean ~ N(0, 0.1²), var ~ 1 + U(0, 0.1)
+            if getattr(m, "running_mean", None) is not None:
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, device="cuda", generator=gen))
+                m.running_var.copy_(1 + 0.1 * torch.rand(m.running_var.shape, device="cuda", generator=gen))
         for impl in args.impl:
             for bn_mode in args.bn:
                 print(json.dumps(profile_forward(model, x, forward_name, impl, bn_mode, args)), flush=True)

@@ -40,7 +40,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
-from fdgan_tpu_torch.losses.composite import CONTEXTUAL_TODO, LossWeights, discriminator_loss, generator_loss
+from fdgan_tpu_torch.losses.composite import LossWeights, discriminator_loss, generator_loss
 from fdgan_tpu_torch.models import fdgan_fast
 from fdgan_tpu_torch.models.discriminators import NLayerDiscriminator
 from fdgan_tpu_torch.models.fdgan import FDGAN
@@ -137,8 +137,6 @@ def _frozen(*modules: Optional[nn.Module]):
 
 
 def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=False, accum_steps=1):
-    if weights.contextual > 0:
-        raise NotImplementedError(CONTEXTUAL_TODO)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 

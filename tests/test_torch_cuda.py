@@ -222,6 +222,8 @@ def test_generator_kernels_match_plain(cuda, exact, mode):
     ((2, 16, 24, 256), None, 0),     # block 3's input: one window of 256 channels
     ((1, 9, 13, 992), None, 0),      # four windows, the last of 224 channels; a ragged pixel count
     ((3, 17, 29, 40), 48, 8),        # 5 channel groups (not a power of two), a ragged tail tile
+    ((1, 1, 1, 512), None, 0),       # a U-Net's innermost BN at batch 1: one pixel
+    ((1, 2, 2, 512), None, 0),       # DenseG's decoder and unetg's innermost: four pixels
 ])
 def test_channel_stats_matches_twin(cuda, shape, ld, c0):
     """The kernel against its twin (the one-pass formula in fp32 on the
@@ -242,6 +244,23 @@ def test_channel_stats_matches_twin(cuda, shape, ld, c0):
     torch.testing.assert_close(var, vr, atol=1e-4, rtol=1e-3)
     again = stats.channel_stats(x.contiguous())
     assert torch.equal(again[0], mean) and torch.equal(again[1], var)
+
+
+@pytest.mark.parametrize("shape", [(1, 20, 64, 64), (4, 20, 3, 5)])
+def test_batch_stats_pads_channels_to_eight_on_the_card(cuda, shape):
+    """A bf16 BN input whose C is not a multiple of 8 (DCPDN's batchnorm20):
+    batch_stats sends it to the kernel zero-padded to 24 channels and drops
+    the padding's statistics; against the plain statistics at
+    test_channel_stats_matches_twin's tolerances."""
+    x = torch.tensor(np.random.default_rng(14).standard_normal(shape) * 1.5 + 0.7, device=cuda).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    stats.reset_launch_count()
+    mean, var = layers.batch_stats(x)
+    torch.cuda.synchronize()
+    assert stats.launches == 1 and mean.shape == var.shape == (shape[1],)
+    mr, vr = layers.batch_stats(x, impl="plain")
+    torch.testing.assert_close(mean, mr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(var, vr, atol=1e-4, rtol=1e-3)
 
 
 @pytest.mark.parametrize("shape,ld,c0", [
@@ -695,3 +714,27 @@ def test_probe_tool_prints_rows_and_answers(cuda, capsys):
                 assert r[f"{key}_spread"][0] <= r[key] <= r[f"{key}_spread"][1]
     assert len([r for r in lines if "question" in r]) == 8  # P1, P2/P3b, P3a, P4, P5 Q1-Q3, wgmma
     assert lines[-1]["wgmma_selfcheck_max_abs_err"] <= 1e-3 and len(lines[-1]["wgmma_rates"]) == 9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [400, 456])
+def test_k1_k2_at_channels_that_are_not_multiples_of_32(cuda, exact, c, dtype):
+    """densenet_dehaze's layer inputs reach C = 400 + 32k and 456 + 32k,
+    which are 16 and 8 modulo 32: K1's t·W1 chunks and bf16 K2's 64-channel
+    W1 padding (``ops.dense.w1_tw1_planes``) end mid-chunk. Both against
+    their twins, from a contiguous tensor and from a channel slice of a
+    wider buffer (ld = C + 64), where they must give the same bits."""
+    args = _layer_args((2, 24, 40, c), 12, cuda, dtype)
+    f = dense.fused_dense_layer(*args)
+    m, v = dense.h_batch_stats(*args[:4])
+    buf, xv, out = _buffer_view(args[0], c + 64)
+    with torch.inference_mode():
+        dense.fused_dense_layer(xv, *args[1:], out=out)
+    mv, vv = dense.h_batch_stats(xv, *args[1:4])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(f.float(), dense.layer_reference(*args).float(),
+                               **(K1_TOL if dtype == torch.float32 else K1_TOL_BF16))
+    mr, vr = dense.h_stats_reference(*args[:4])
+    torch.testing.assert_close(m, mr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(v, vr, atol=1e-4, rtol=1e-3)
+    assert torch.equal(out, f) and torch.equal(mv, m) and torch.equal(vv, v)

@@ -164,8 +164,19 @@ def test_demo_without_a_card_fails(case, monkeypatch):
         demo.main(["--valDataroot", case["ds"], "--netG", case["pth"]])
 
 
-def test_msgpack_checkpoints_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        load_generator("netG.msgpack", device="cpu")
+def test_msgpack_checkpoints_raise(case):
+    """Ported now, so a JAX params ``.msgpack`` no longer raises: the same
+    weights written by JAX ``save_checkpoint`` load bit for bit as the
+    ``.pth`` does, and the demo run from it writes the same PNGs. Any other
+    suffix still raises."""
+    from fdgan_tpu.io.checkpoint import save_checkpoint as jsave_checkpoint
+
+    path = jsave_checkpoint(str(case["tmp"] / "netG.msgpack"), case["params"])
+    got, want = load_generator(path, device="cpu").state_dict(), load_generator(case["pth"], device="cpu").state_dict()
+    assert got.keys() == want.keys() and all(torch.equal(got[k], v) for k, v in want.items())
+    out = str(case["tmp"] / "port_msgpack")
+    demo.main(["--valDataroot", case["ds"], "--netG", path, "--imageSize", "32", "--outDir", out, "--device", "cpu"])
+    pngs, ref = _pngs(out), _pngs(case["outs"]["port"])
+    assert pngs.keys() == ref.keys() and all(np.array_equal(pngs[k], ref[k]) for k in ref)
     with pytest.raises(ValueError, match=".pth"):
         load_generator("netG.ckpt", device="cpu")

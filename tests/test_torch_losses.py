@@ -170,6 +170,19 @@ def test_zero_weight_terms_are_left_out(case):
 
 
 def test_contextual_raises_until_ported(case):
-    d_params, _, x, _ = case
-    with pytest.raises(NotImplementedError, match="contextual"):
-        composite.generator_loss(_d(d_params), _t(x["x_hat"]), _t(x["gt"]), composite.LossWeights(contextual=1.0))
+    """Ported now, so it no longer raises: with a VGG16 the contextual term
+    (CX on relu3_3) is JAX's and enters the total with its weight; without
+    one it is left out, as in JAX."""
+    d_params, vgg_params, x, _ = case
+    weights = dict(WEIGHTS, contextual=2.0)
+    _, jterms = jcomposite.generator_loss(d_params, jnp.asarray(x["x_hat"]), jnp.asarray(x["gt"]),
+                                          jcomposite.LossWeights(**weights), vgg_params)
+    with torch.no_grad():
+        _, terms = composite.generator_loss(_d(d_params), _t(x["x_hat"]), _t(x["gt"]),
+                                            composite.LossWeights(**weights), _vgg(vgg_params))
+        _, no_vgg = composite.generator_loss(_d(d_params), _t(x["x_hat"]), _t(x["gt"]),
+                                             composite.LossWeights(**weights), None)
+    assert set(terms) == {k for k in jterms}
+    for k in ("contextual", "total"):
+        np.testing.assert_allclose(float(terms[k]), float(jterms[k]), **TOL, err_msg=k)
+    assert "contextual" not in no_vgg

@@ -4,8 +4,9 @@ fp32 parameters under bf16 activations.
 
 The JAX reference is one fp32 step of ``make_train_step`` at its default
 ``impl="xla"``, whose G forward is ``fdgan_fast.apply``, as the port's step
-runs ``models/fdgan_fast.py``, at 2×32², computed once per module. G and D cross from ``create_train_state``'s JAX trees; both
-sides start from fresh Adam state.
+runs ``models/fdgan_fast.py``, at 2×32², computed once per module, without
+and with the contextual term. G and D cross from ``create_train_state``'s
+JAX trees; both sides start from fresh Adam state.
 """
 
 import json
@@ -19,6 +20,7 @@ import torch
 
 from fdgan_tpu.losses.composite import LossWeights as JLossWeights
 from fdgan_tpu.models import densenet as jdensenet
+from fdgan_tpu.models import vgg16 as jvgg16
 from fdgan_tpu.ops import pallas_dense as jpd
 from fdgan_tpu.train import loop as jloop
 from fdgan_tpu.train.pool import ImagePool as JImagePool
@@ -27,6 +29,7 @@ from fdgan_tpu_torch.io.torch_import import state_dict_from_jax
 from fdgan_tpu_torch.losses.composite import LossWeights
 from fdgan_tpu_torch.models.densenet import DenseBlock
 from fdgan_tpu_torch.models.fdgan import FDGAN
+from fdgan_tpu_torch.models.vgg16 import VGG16
 from fdgan_tpu_torch.nn.layers import BatchNorm
 from fdgan_tpu_torch.ops import dense
 from fdgan_tpu_torch.train.loop import clip_grad, create_train_state, make_gd_steps, make_train_step
@@ -69,35 +72,48 @@ def _record_grads(net, opt, into):
     opt.register_step_pre_hook(hook)
 
 
-@pytest.fixture(scope="module")
-def parity():
+@pytest.fixture(scope="module", params=["no_vgg", "contextual"])
+def parity(request):
+    """One step on each side. ``contextual``: the CX term (weight 1) on
+    relu3_3 of a VGG16 from JAX ``vgg16.init``, so that its gradients (amax,
+    exp and normalisation over the cosine distances) reach Adam."""
+    cx = request.param == "contextual"
+    weights = dict(perceptual=0.0, contextual=1.0 if cx else 0.0)
+    jvgg = jax.tree.map(np.asarray, jvgg16.init(jax.random.PRNGKey(2))) if cx else None
     jstate, jtx_g, jtx_d = jloop.create_train_state(jax.random.PRNGKey(0))
     jtx_g, jtx_d = optax.chain(_capture_grads(), jtx_g), optax.chain(_capture_grads(), jtx_d)
     jstate = jloop.TrainState(step=jstate.step, g_params=jstate.g_params, d_params=jstate.d_params,
                               g_opt=jtx_g.init(jstate.g_params), d_opt=jtx_d.init(jstate.d_params))
     g0, d0 = _sd(jstate.g_params), _sd(jstate.d_params)
     haze, gt = _batch()
-    jstep = jloop.make_train_step(jtx_g, jtx_d, JLossWeights(perceptual=0.0))
+    jstep = jloop.make_train_step(jtx_g, jtx_d, JLossWeights(**weights), jvgg)
     jnew, jmetrics = jstep(jstate, jnp.asarray(haze), jnp.asarray(gt), jax.random.PRNGKey(1))
     want = {"metrics": {k: float(v) for k, v in jmetrics.items()},
             "g": _sd(jnew.g_params), "d": _sd(jnew.d_params),
             "grads": {"g": _sd(jnew.g_opt[0]), "d": _sd(jnew.d_opt[0])}}
 
+    vgg = None
+    if cx:
+        vgg = VGG16()
+        vgg.load_state_dict(state_dict_from_jax(jvgg), strict=True)
     state, tx_g, tx_d = create_train_state(0, device="cpu")
     state.g.load_state_dict(g0, strict=True)
     state.d.load_state_dict(d0, strict=True)
     grads = {"g": {}, "d": {}}
     _record_grads(state.g, state.g_opt, grads["g"])
     _record_grads(state.d, state.d_opt, grads["d"])
-    step = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0))
+    step = make_train_step(tx_g, tx_d, LossWeights(**weights), vgg)
     state, metrics = step(state, torch.from_numpy(haze), torch.from_numpy(gt))
     return {"g0": g0, "state": state, "metrics": {k: float(v) for k, v in metrics.items()}, "want": want,
             "grads": grads}
 
 
-@pytest.mark.parametrize("name", METRICS)
+@pytest.mark.parametrize("name", METRICS + ["g_contextual"])
 def test_step_metrics_match_jax(parity, name):
-    # fp32 on both sides; the sums differ only in order (measured ≤ 4e-7 relative)
+    # fp32 on both sides; the sums differ only in order (measured ≤ 4e-7 relative, g_contextual 1.2e-6)
+    if name not in parity["want"]["metrics"]:  # the term is reported only where it is weighted
+        assert name not in parity["metrics"]
+        return
     got, want = parity["metrics"][name], parity["want"]["metrics"][name]
     assert np.isfinite(got)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -120,7 +136,9 @@ def test_step_gradients_match_jax(parity, net):
     G, with 4 of the 282 tensors that have a gradient beyond 1e-2 per
     tensor (conv biases under batch BN, whose gradient is rounding noise
     around 0, the worst). Held at 2e-2 over all of G and
-    per tensor on all but 2 % of the tensors. A gradient scaled wrongly
+    per tensor on all but 2 % of the tensors. With the contextual term G
+    reads 4.2e-3 over all of G, 2 tensors beyond 2e-2, and D 5.2e-6 per
+    tensor (measured). A gradient scaled wrongly
     shows far beyond that: BN statistics detached from the graph read 1.55,
     the adversarial term weighted 1.05 instead of 1 read 3.8e-2."""
     want, got = parity["want"]["grads"][net], parity["grads"][net]
@@ -197,9 +215,24 @@ def test_gd_steps_with_image_pool():
 
 
 def test_contextual_raises_until_ported():
-    _, tx_g, tx_d = create_train_state(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="contextual"):
-        make_train_step(tx_g, tx_d, LossWeights(contextual=1.0))
+    """Ported now, so a step with ``contextual > 0`` and a VGG16 runs: its
+    ``g_contextual`` is ``contextual_loss`` of relu3_3 on the step's own G
+    output (rtol 1e-6), the total counts it, and G and D move."""
+    from fdgan_tpu_torch.losses.contextual import contextual_loss
+    from fdgan_tpu_torch.models.vgg16 import VGG16
+
+    state, tx_g, tx_d = create_train_state(0, device="cpu")
+    vgg = VGG16(generator=torch.Generator().manual_seed(2))
+    g_step, d_step = make_gd_steps(tx_g, tx_d, LossWeights(perceptual=0.0, contextual=1.0), vgg)
+    haze, gt = (torch.from_numpy(a) for a in _batch())
+    g_before = state.g.conv_refin3.weight.clone()
+    state, metrics, x_hat = g_step(state, haze, gt)
+    state, d_metrics = d_step(state, x_hat, gt)
+    with torch.no_grad():
+        want = contextual_loss(vgg((x_hat + 1.0) * 0.5)[2], vgg(gt)[2])
+    torch.testing.assert_close(metrics["g_contextual"], want, rtol=1e-6, atol=0)
+    assert all(torch.isfinite(v) for v in list(metrics.values()) + list(d_metrics.values()))
+    assert not torch.equal(g_before, state.g.conv_refin3.weight) and state.d_updates == 1
 
 
 # --- schedule, clip, pool, meters -------------------------------------------

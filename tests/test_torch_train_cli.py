@@ -189,7 +189,6 @@ def test_best_snapshot_is_a_copy(tmp_path):
     (["--deviceSteps", "4"], "Queue 1 item 4"),
     (["--noAsyncCkpt"], "Queue 1 item 4"),
     (["--spatialShards", "2"], "Queue 1 item 11"),
-    (["--lambdaCX", "1"], "Queue 1 item 6"),
     (["--accumSteps", "2"], "requires --poolSize 0"),
     ([], "Queue 1 item 10"),  # FDGAN_TPU_DIST=1
 ])
@@ -198,6 +197,27 @@ def test_refused_flags_exit_with_their_messages(monkeypatch, flags, message):
         monkeypatch.setenv("FDGAN_TPU_DIST", "1")
     with pytest.raises(SystemExit, match=message):
         cli.main(flags + ["--device", "cpu"])
+
+
+def test_lambda_cx_trains_and_its_first_step_is_the_port_step(runs, tmp_path):
+    """``--lambdaCX 1`` (with ``--vggWeights``, a seed-0 VGG16 .pth) trains:
+    the CLI's first logged step equals one ``make_train_step`` with the
+    contextual and perceptual terms on the same state and batch (rtol 1e-6),
+    and its contextual term is logged and finite."""
+    vgg_path = str(tmp_path / "vgg16.pth")
+    torch.save(VGG16(generator=torch.Generator().manual_seed(0)).state_dict(), vgg_path)
+    exp = str(tmp_path / "exp")
+    cli.main(["--dataroot", runs["ds"], "--exp", exp, "--imageSize", str(SIZE), "--batchSize", str(BATCH),
+              "--epochs", "1", "--logEvery", "1", "--device", "cpu", "--lambdaCX", "1", "--vggWeights", vgg_path])
+    haze, gt = next(iter(get_loader("pix2pix", runs["ds"], 286, SIZE, batch_size=BATCH, workers=0, seed=0)))
+    state, tx_g, tx_d = create_train_state(0, device="cpu")
+    weights = LossWeights(perceptual=cli.build_parser().parse_args([]).lambdaPerceptual, contextual=1.0)
+    _, metrics = make_train_step(tx_g, tx_d, weights, load_vgg16(vgg_path, device="cpu"))(
+        state, torch.from_numpy(haze), torch.from_numpy(gt))
+    logged = next(r for r in _log(exp) if "g_total" in r)
+    for k in METRICS + ["g_perceptual", "g_contextual"]:
+        np.testing.assert_allclose(logged[k], float(metrics[k]), rtol=1e-6, err_msg=k)
+    assert np.isfinite(logged["g_contextual"]) and logged["g_contextual"] > 0
 
 
 def test_no_card_and_no_cpu_flag_stops(monkeypatch):
@@ -228,12 +248,25 @@ def test_net_g_and_net_d_are_honoured(tmp_path):
 
 
 def test_msgpack_raises_naming_item_5(tmp_path):
-    for loader in (load_generator, load_discriminator):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            loader(str(tmp_path / "net.msgpack"), device="cpu")
-    opt = cli.build_parser().parse_args(["--netD", "d.msgpack", "--exp", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cli.train(opt, [], None, "cpu")
+    """Ported now, so a JAX params ``.msgpack`` no longer raises: G and D
+    trees written by JAX ``save_checkpoint`` load through
+    ``load_generator`` / ``load_discriminator`` and through ``--netG`` /
+    ``--netD``, equal bit for bit to the trees."""
+    from fdgan_tpu.io.checkpoint import save_checkpoint as jsave_checkpoint
+    from zoo_params import random_params
+
+    g_tree = random_params(lambda: jfdgan.init(jax.random.PRNGKey(0)), seed=3)
+    d_tree = random_params(lambda: nlayer_init(jax.random.PRNGKey(1)), seed=4)
+    g_path = jsave_checkpoint(str(tmp_path / "netG.msgpack"), g_tree)
+    d_path = jsave_checkpoint(str(tmp_path / "netD.msgpack"), d_tree)
+    want = {"g": state_dict_from_jax(g_tree), "d": state_dict_from_jax(d_tree)}
+    opt = cli.build_parser().parse_args(["--netG", g_path, "--netD", d_path, "--exp", str(tmp_path / "exp"),
+                                         "--epochs", "0", "--device", "cpu"])
+    state = cli.train(opt, [], None, "cpu")
+    for name, loaded in (("g", load_generator(g_path, device="cpu")), ("d", load_discriminator(d_path, device="cpu")),
+                         ("g", state.g), ("d", state.d)):
+        got = loaded.state_dict()
+        assert got.keys() == want[name].keys() and all(torch.equal(got[k], v) for k, v in want[name].items())
 
 
 def _all_tensors(state):
