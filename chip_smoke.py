@@ -8,12 +8,19 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 
 1. device and build: the card's name and power limit from nvidia-smi, then
    the kernels of fdgan_tpu_torch/csrc built from source;
-2. kernels against their plain twins at the dense-layer shapes of the
-   8×512² serving path and of the 4×256² train path (fp32 without TF32,
-   and bf16), with CUDA-event times; K1 and K2 also from a channel slice of
-   a wider buffer (the dense block's concat), K1 into one, held bit for bit
-   against the contiguous launch; in bf16 K2 (wgmma) is also held against
-   and timed beside its earlier mma.sync body;
+2. the fp32 kernels' 3×TF32 helpers on one tile against a float64 product
+   (``ops.dense.tf32x3_selfcheck``) and what a 3×TF32 k-step costs an SM
+   (``tools.probes.tf32x3_rates``: the ceiling of their products); then
+   kernels against their plain twins at the dense-layer shapes of the
+   8×512² serving path, of the 4×256² train path and of the demo's batch-1
+   forward at 1024² (fp32, whose K1 and K2 take 3×TF32 products, against
+   twins without TF32; and bf16), fp32 also at C = 20 from a buffer of
+   ld 52, with CUDA-event times, on the device alone too (``k*_device_ms``),
+   and both fp32 bounds (3×TF32, the one a kernel is held to, and the CUDA
+   cores'); K1 and K2 also from a channel slice of a wider buffer (the
+   dense block's concat), K1 into one, held bit for bit against the
+   contiguous launch; in bf16 K2 (wgmma) is also held against and timed
+   beside its earlier mma.sync body;
 2b. channel_stats (csrc/channel_stats.cu) against its twin, and on a second
    launch (the same bits), at the shapes both paths give it: the 45 a
    batch-BN forward reduces (3 block inputs and 42 new 32-channel slices,
@@ -76,7 +83,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    its difference from the untiled forward beside the JAX suite's bounds
    (reported, not gated); ``ops.metrics`` PSNR/SSIM on the 8-bit outputs;
    one 1024² image per precision under ``cli._common.maybe_profile``, whose
-   trace must name K1's kernel 42 times (and gives the device's busy time);
+   trace must name K1's and K2's kernels 42 times each (fp32: the 3×TF32
+   kernels; it gives the device's busy time);
    ms per image in turns (kernels, plain, plain, kernels) for fp32 and bf16,
    the tiled route's ms and the 1200×1600 forward's peak memory;
 8. the training CLI: the core of ``python -m fdgan_tpu_torch.cli.train``
@@ -129,7 +137,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
 launches per path, the training CLI's and the zoo's included; K1's and K2's
-times at C = 400 and 456); the last
+times at C = 400 and 456; the fp32 K1 and K2 as entries of their own, timed
+at 1×1024²×64 with their launches from the fp32 demo run); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails.
 """
@@ -158,8 +167,18 @@ SHAPES = [  # (B, H, W, C): one layer per dense block of the 8×512² serving pa
     (4, 128, 128, 128),
     (4, 64, 64, 256),
     (4, 64, 64, 992),
+    # the demo's batch-1 layers at 1024² (cli/demo, fp32 by default): block 1's first at 1024², block 2's at
+    # 512², block 3's first and last at 256²
+    (1, 1024, 1024, 64),
+    (1, 512, 512, 128),
+    (1, 256, 256, 256),
+    (1, 256, 256, 992),
 ]
 TIMED_SHAPE = SHAPES[0]
+DEMO_LAYER = (1, 1024, 1024, 64)  # where the fp32 kernels' line is timed
+# fp32 only (bf16 needs C % 8 == 0): C = 20 from a buffer slice of ld 52, which the fp32 kernels read
+# with 16-byte loads as it is
+F32_RAGGED = ((1, 256, 256, 20), 52)
 # fp32 tolerances are the JAX suite's (tests/test_pallas_dense.py:52,67-68)
 K1_TOL_F32 = dict(atol=2e-4, rtol=1e-3)
 K2_MEAN_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -266,16 +285,24 @@ def layer_inputs(shape, dtype, gen):
 
 def dense_bounds(x, a1, b1, w1, a2, b2, w2):
     """K1's and K2's bounds on these inputs: every input read once, every
-    output written once; bf16 products at the tensor cores' peak, fp32 ones
-    at the CUDA cores'."""
+    output written once. bf16 products at the tensor cores' bf16 peak. fp32
+    products two ways: as the kernels take them, 3×TF32 (three tf32 products
+    each) at the tensor cores' tf32 peak, the bound a kernel is held to
+    (``k*_bound_ms``), and on the CUDA cores (``k*_cuda_core_bound_ms``)."""
     from fdgan_tpu_torch.tools.probes import bound_ms, nbytes
 
     npix, c = x.numel() // x.shape[-1], x.shape[-1]
-    tensor_cores = x.element_size() == 2
-    k1, k1_by = bound_ms(2 * npix * (c * 128 + 9 * 128 * 32),
-                         nbytes(x, a1, b1, w1, a2, b2, w2) + npix * 32 * x.element_size(), tensor_cores)
-    k2, k2_by = bound_ms(2 * npix * c * 128, nbytes(x, a1, b1, w1) + 2 * 128 * 4, tensor_cores)
-    return {"k1_bound_ms": k1, "k1_bound_by": k1_by, "k2_bound_ms": k2, "k2_bound_by": k2_by}
+    work = {"k1": (2 * npix * (c * 128 + 9 * 128 * 32),
+                   nbytes(x, a1, b1, w1, a2, b2, w2) + npix * 32 * x.element_size()),
+            "k2": (2 * npix * c * 128, nbytes(x, a1, b1, w1) + 2 * 128 * 4)}
+    out = {}
+    for k, (flop, moved) in work.items():
+        if x.element_size() == 2:
+            out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bound_ms(flop, moved)
+        else:
+            out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bound_ms(3 * flop, moved, tf32=True)
+            out[f"{k}_cuda_core_bound_ms"], out[f"{k}_cuda_core_bound_by"] = bound_ms(flop, moved, tensor_cores=False)
+    return out
 
 
 def buffer_view(x, ld):
@@ -294,81 +321,97 @@ def phase_kernels():
     import torch
 
     from fdgan_tpu_torch.ops import dense
+    from fdgan_tpu_torch.tools.probes import tf32x3_rates
     from fdgan_tpu_torch.tools.timing import device_ms
 
+    # the fp32 kernels' 3xTF32 helpers on one tile against a float64 product, and what a
+    # 3xTF32 k-step costs an SM: the ceiling of their products
+    rng = np.random.default_rng(0)
+    for n in (96, 128):
+        a = torch.tensor(rng.standard_normal((64, 64)), dtype=torch.float32, device="cuda")
+        b = torch.tensor(rng.standard_normal((64, n)), dtype=torch.float32, device="cuda")
+        err = (dense.tf32x3_selfcheck(a, b).double() - a.double() @ b.double()).abs().max().item()
+        if err > 2.0**-18 * (a.double().abs() @ b.double().abs()).max().item():
+            raise AssertionError(f"the 3xTF32 self-check at N = {n} is off by {err}")
+    ceiling = {}
+    for r in tf32x3_rates():
+        log(json.dumps(r))
+        ceiling[r["tf32x3"]] = max(ceiling.get(r["tf32x3"], 0.0), r["tflops"])
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, worst = [], {"k1": 0.0, "k2": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape in SHAPES:
-            x, a1, b1, w1, a2, b2, w2 = layer_inputs(shape, dtype, gen)
-            bf16 = dtype == torch.bfloat16
-            # a dense block's concat: ld 256 at the timed shape, as block 1's buffer
-            xv, fv = buffer_view(x, max(256, shape[-1] + 32))
-            with exact_fp32():
-                f_k = dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2)
-                f_p = dense.layer_reference(x, a1, b1, w1, a2, b2, w2)
-                m_k, v_k = dense.h_batch_stats(x, a1, b1, w1)
-                m_p, v_p = dense.h_stats_reference(x, a1, b1, w1)
-                with torch.inference_mode():
-                    dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv)
-                m_v, v_v = dense.h_batch_stats(xv, a1, b1, w1)
-                m_k2, v_k2 = dense.h_batch_stats(x, a1, b1, w1)
-            torch.cuda.synchronize()
-            tol = K1_TOL_F32 if dtype == torch.float32 else K1_TOL_BF16
-            e1 = (f_k.float() - f_p.float()).abs().max().item()
-            e2 = max((m_k - m_p).abs().max().item(), (v_k - v_p).abs().max().item())
-            ok1 = torch.allclose(f_k.float(), f_p.float(), **tol)
-            ok2 = torch.allclose(m_k, m_p, **K2_MEAN_TOL) and torch.allclose(v_k, v_p, **K2_VAR_TOL)
-            # the buffer view changes addresses, not arithmetic: the same bits; and K2's static
-            # tile walk gives the same bits on every launch
-            ok_view = torch.equal(fv, f_k) and torch.equal(m_v, m_k) and torch.equal(v_v, v_k)
-            ok_again = torch.equal(m_k2, m_k) and torch.equal(v_k2, v_k)
-            ok_mma, e_mma = True, None
+    rows, worst = [], {"float32": {"k1": 0.0, "k2": 0.0}, "bfloat16": {"k1": 0.0, "k2": 0.0}}
+    # a dense block's concat: ld 256 at the timed shape, as block 1's buffer
+    cases = [(dtype, shape, max(256, shape[-1] + 32)) for dtype in (torch.float32, torch.bfloat16) for shape in SHAPES]
+    cases.append((torch.float32,) + F32_RAGGED)
+    for dtype, shape, ld in cases:
+        x, a1, b1, w1, a2, b2, w2 = layer_inputs(shape, dtype, gen)
+        bf16 = dtype == torch.bfloat16
+        xv, fv = buffer_view(x, ld)
+        with exact_fp32():
+            f_k = dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2)
+            f_p = dense.layer_reference(x, a1, b1, w1, a2, b2, w2)
+            m_k, v_k = dense.h_batch_stats(x, a1, b1, w1)
+            m_p, v_p = dense.h_stats_reference(x, a1, b1, w1)
+            with torch.inference_mode():
+                dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv)
+            m_v, v_v = dense.h_batch_stats(xv, a1, b1, w1)
+            m_k2, v_k2 = dense.h_batch_stats(x, a1, b1, w1)
+        torch.cuda.synchronize()
+        tol = K1_TOL_F32 if dtype == torch.float32 else K1_TOL_BF16
+        e1 = (f_k.float() - f_p.float()).abs().max().item()
+        e2 = max((m_k - m_p).abs().max().item(), (v_k - v_p).abs().max().item())
+        ok1 = torch.allclose(f_k.float(), f_p.float(), **tol)
+        ok2 = torch.allclose(m_k, m_p, **K2_MEAN_TOL) and torch.allclose(v_k, v_p, **K2_VAR_TOL)
+        # the buffer view changes addresses, not arithmetic: the same bits; and K2's static
+        # tile walk gives the same bits on every launch
+        ok_view = torch.equal(fv, f_k) and torch.equal(m_v, m_k) and torch.equal(v_v, v_k)
+        ok_again = torch.equal(m_k2, m_k) and torch.equal(v_k2, v_k)
+        ok_mma, e_mma = True, None
+        if bf16:
+            # the two K2 bodies sum the same fp32 products in other orders
+            m_m, v_m = dense._launch_k2_mma(x, a1, b1, w1)
+            e_mma = max((m_k - m_m).abs().max().item(), (v_k - v_m).abs().max().item())
+            ok_mma = torch.allclose(m_k, m_m, **K2_MEAN_TOL) and torch.allclose(v_k, v_m, **K2_VAR_TOL)
+        w = worst[str(dtype).split(".")[-1]]
+        w["k1"], w["k2"] = max(w["k1"], e1), max(w["k2"], e2)
+        # bf16's twin runs fp32 convs on bf16 values: TF32 holds bf16
+        # operands exactly, so it is left on (the serving default) for timing
+        with exact_fp32() if dtype == torch.float32 else contextlib.nullcontext():
+            t = {
+                "k1_ms": cuda_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2)),
+                "k1_plain_ms": cuda_ms(lambda: dense.layer_reference(x, a1, b1, w1, a2, b2, w2)),
+                "k2_ms": cuda_ms(lambda: dense.h_batch_stats(x, a1, b1, w1)),
+                "k2_plain_ms": cuda_ms(lambda: dense.h_stats_reference(x, a1, b1, w1)),
+            }
+            if bf16:  # K2's old body and new in turns, in one run
+                t["k2_mma_ms"] = cuda_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))
+                t["k2_ms"] = (t["k2_ms"] + cuda_ms(lambda: dense.h_batch_stats(x, a1, b1, w1))) / 2
+                t["k2_mma_ms"] = (t["k2_mma_ms"] + cuda_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))) / 2
+            # on the device alone (the kernel and the wrapper's weight-layout copies and
+            # reductions): the wrapper's host time, ~0.1 ms, is inside the single-launch times
+            with torch.inference_mode():
+                t["k1_device_ms"] = device_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))
+                t["k1_view_device_ms"] = device_ms(
+                    lambda: dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv))
+                t["k1_device_ms"] = (t["k1_device_ms"] + device_ms(
+                    lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))) / 2
+                t["k1_view_device_ms"] = (t["k1_view_device_ms"] + device_ms(
+                    lambda: dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv))) / 2
+            t["k2_device_ms"] = device_ms(lambda: dense.h_batch_stats(x, a1, b1, w1))
             if bf16:
-                # the two K2 bodies sum the same fp32 products in other orders
-                m_m, v_m = dense._launch_k2_mma(x, a1, b1, w1)
-                e_mma = max((m_k - m_m).abs().max().item(), (v_k - v_m).abs().max().item())
-                ok_mma = torch.allclose(m_k, m_m, **K2_MEAN_TOL) and torch.allclose(v_k, v_m, **K2_VAR_TOL)
-            if dtype == torch.float32:
-                worst["k1"], worst["k2"] = max(worst["k1"], e1), max(worst["k2"], e2)
-            # bf16's twin runs fp32 convs on bf16 values: TF32 holds bf16
-            # operands exactly, so it is left on (the serving default) for timing
-            with exact_fp32() if dtype == torch.float32 else contextlib.nullcontext():
-                t = {
-                    "k1_ms": cuda_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2)),
-                    "k1_plain_ms": cuda_ms(lambda: dense.layer_reference(x, a1, b1, w1, a2, b2, w2)),
-                    "k2_ms": cuda_ms(lambda: dense.h_batch_stats(x, a1, b1, w1)),
-                    "k2_plain_ms": cuda_ms(lambda: dense.h_stats_reference(x, a1, b1, w1)),
-                }
-                if bf16:  # K2's old body and new in turns, in one run
-                    t["k2_mma_ms"] = cuda_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))
-                    t["k2_ms"] = (t["k2_ms"] + cuda_ms(lambda: dense.h_batch_stats(x, a1, b1, w1))) / 2
-                    t["k2_mma_ms"] = (t["k2_mma_ms"] + cuda_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))) / 2
-                    # on the device alone (the kernel and the wrapper's weight-layout copies and
-                    # reductions): the wrapper's host time, ~0.1 ms, is inside the single-launch times
-                    with torch.inference_mode():
-                        t["k1_device_ms"] = device_ms(lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))
-                        t["k1_view_device_ms"] = device_ms(
-                            lambda: dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv))
-                        t["k1_device_ms"] = (t["k1_device_ms"] + device_ms(
-                            lambda: dense.fused_dense_layer(x, a1, b1, w1, a2, b2, w2))) / 2
-                        t["k1_view_device_ms"] = (t["k1_view_device_ms"] + device_ms(
-                            lambda: dense.fused_dense_layer(xv, a1, b1, w1, a2, b2, w2, out=fv))) / 2
-                    t["k2_device_ms"] = device_ms(lambda: dense.h_batch_stats(x, a1, b1, w1))
-                    t["k2_mma_device_ms"] = device_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))
-            row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "ld": xv.stride(2),
-                   "k1_max_abs_err": e1, "k2_max_abs_err": e2, "k2_vs_mma_max_abs_err": e_mma, **t,
-                   **dense_bounds(x, a1, b1, w1, a2, b2, w2)}
-            rows.append(row)
-            log(json.dumps(row))
-            if not (ok1 and ok2 and ok_mma and ok_view and ok_again):
-                raise AssertionError(f"kernel disagrees at {shape} {dtype}: K1 vs twin ok={ok1} err={e1}, K2 vs twin "
-                                     f"ok={ok2} err={e2}, K2 vs its mma.sync body ok={ok_mma} err={e_mma}, "
-                                     f"from a buffer view the same bits ok={ok_view}, K2 twice the same bits "
-                                     f"ok={ok_again}")
-            del x, xv, fv, f_k, f_p
-            torch.cuda.empty_cache()
-    return rows, worst
+                t["k2_mma_device_ms"] = device_ms(lambda: dense._launch_k2_mma(x, a1, b1, w1))
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "ld": xv.stride(2),
+               "k1_max_abs_err": e1, "k2_max_abs_err": e2, "k2_vs_mma_max_abs_err": e_mma, **t,
+               **dense_bounds(x, a1, b1, w1, a2, b2, w2)}
+        rows.append(row)
+        log(json.dumps(row))
+        if not (ok1 and ok2 and ok_mma and ok_view and ok_again):
+            raise AssertionError(f"kernel disagrees at {shape} {dtype} ld {ld}: K1 vs twin ok={ok1} err={e1}, K2 vs "
+                                 f"twin ok={ok2} err={e2}, K2 vs its mma.sync body ok={ok_mma} err={e_mma}, "
+                                 f"from a buffer view the same bits ok={ok_view}, K2 twice the same bits "
+                                 f"ok={ok_again}")
+        del x, xv, fv, f_k, f_p
+        torch.cuda.empty_cache()
+    return rows, worst, ceiling
 
 
 def stats_views(b, h, c0, layers, gen):
@@ -1071,7 +1114,7 @@ def phase_demo():
     if not all(p >= 20 * np.log10(255.0) and q >= 0.99 for p, q in scores):
         raise AssertionError(f"ops.metrics on the kernels' and plain outputs: {scores}")
     out["metrics_psnr_ssim"] = scores
-    # 6. one 1024² image per precision under the demo's profiler: the trace must name K1's kernel;
+    # 6. one 1024² image per precision under the demo's profiler: the trace must name K1's and K2's kernels;
     # the device's busy time per image is the sum of its kernels and copies (one stream: no overlap)
     for prec in ("fp32", "bf16"):
         with tempfile.TemporaryDirectory() as tmp:
@@ -1079,24 +1122,27 @@ def phase_demo():
                 ms = run(pairs[:1], precision=prec)[1][0]
             with open(os.path.join(tmp, "trace.json")) as f:
                 events = json.load(f)["traceEvents"]
-        k1 = f"dense_layer_{'f32' if prec == 'fp32' else 'bf16'}_kernel"
+        # fp32: the 3xTF32 kernels; bf16: the bf16 ones (K2's name is not a part of its mma.sync body's)
+        k1, k2 = (f"{k}_{'tf32x3' if prec == 'fp32' else 'bf16'}_kernel" for k in ("dense_layer", "h_stats"))
         on_device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         named = sum(1 for e in on_device if k1 in e.get("name", ""))
+        named2 = sum(1 for e in on_device if k2 in e.get("name", ""))
         busy = sum(e.get("dur", 0) for e in on_device) / 1000.0
         by_name = collections.defaultdict(lambda: [0.0, 0])
         for e in on_device:
-            # the port's kernels sit in an anonymous namespace: "(anonymous namespace)::dense_layer_f32_kernel(...)"
+            # the port's kernels sit in an anonymous namespace: "(anonymous namespace)::dense_layer_tf32x3_kernel(...)"
             row = by_name[e.get("name", "").replace("(anonymous namespace)::", "").split("(")[0][:80]]
             row[0] += e.get("dur", 0) / 1000.0
             row[1] += 1
         top = sorted(([n, ms_, c] for n, (ms_, c) in by_name.items()), key=lambda r: -r[1])[:8]
         out[f"{prec}_batch_1024x1024_profiled"] = {"ms": ms, "device_busy_ms": busy, "device_events": len(on_device),
-                                                   "k1_events": named, "top_ms_count": top}
+                                                   "k1_events": named, "k2_events": named2, "top_ms_count": top}
         log(f"demo profile {prec} 1024x1024: {ms:.2f} ms (profiled), device busy {busy:.2f} ms in "
-            f"{len(on_device)} events, {named} named {k1}; largest (ms, count): "
+            f"{len(on_device)} events, {named} named {k1}, {named2} named {k2}; largest (ms, count): "
             + "; ".join(f"{n} {t:.2f} x{c}" for n, t, c in top))
-        if named != 42:
-            raise AssertionError(f"the profiler's trace of the demo names {k1} {named} times, expected 42")
+        if (named, named2) != (42, 42):
+            raise AssertionError(f"the profiler's trace of the demo names {k1} {named} times and {k2} {named2} "
+                                 f"times, expected 42 each")
     # times: ms per image in turns (kernels, plain, plain, kernels), after the runs above
     sizes = {"1024x1024": [0, 1], "1200x1600": [2], "1021x1533": [3]}
     for prec in ("fp32", "bf16"):
@@ -1835,7 +1881,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references run in full fp32
     t_start = time.perf_counter()
     phase_device()
-    rows, worst = phase_kernels()
+    rows, worst, tf32x3_ceiling = phase_kernels()
     stats_timed, stats_worst = phase_channel_stats()
     model, gen = phase_generator()
     log(json.dumps({"generator": gen}))
@@ -1862,6 +1908,8 @@ def main() -> int:
     ragged_c = {f"c{r['shape'][-1]}": {k: r[k] for k in r if k.startswith(("k1_", "k2_"))} | {"shape": r["shape"]}
                 for r in zoo["kernels_ragged_c"] if r["dtype"] == "bfloat16"}
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
+    timed32 = {tuple(r["shape"]): r for r in rows if r["dtype"] == "float32"}[DEMO_LAYER]
+    demo32 = demo["launches_per_run"]["fp32"]  # the demo's default: 2 images of 1024², 1200x1600 and 1021x1533
     k3_timed = {tuple(r["shape"]): r for r in k3_rows if r["dtype"] == "bfloat16"}[K3_SHAPES[0]]
 
     def by_path(k):
@@ -1873,23 +1921,42 @@ def main() -> int:
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": train_launches["k1"],
          "launches_by_path": by_path("k1"),
-         "max_abs_err": worst["k1"], "ms": timed["k1_ms"], "plain_ms": timed["k1_plain_ms"],
+         "max_abs_err": worst["bfloat16"]["k1"], "ms": timed["k1_ms"], "plain_ms": timed["k1_plain_ms"],
          "bound_ms": timed["k1_bound_ms"], "bound_by": timed["k1_bound_by"], "library_ms": None,
          "device_ms": timed["k1_device_ms"],
          "view_device_ms": timed["k1_view_device_ms"],  # x and out channel slices of a buffer of ld 256
          "at_ragged_c": {c: {k: v for k, v in r.items() if not k.startswith("k2_")} for c, r in ragged_c.items()},
-         "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
+         "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "bf16, all shapes"},
+        {"name": "fused_dense_layer fp32 (K1, 3xTF32)", "route": "cuda",
+         "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
+         "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": demo32["k1"],
+         "launches_by_path": {"demo_fp32": demo32["k1"]},
+         "max_abs_err": worst["float32"]["k1"], "ms": timed32["k1_ms"], "plain_ms": timed32["k1_plain_ms"],
+         "bound_ms": timed32["k1_bound_ms"], "bound_by": timed32["k1_bound_by"],
+         "cuda_core_bound_ms": timed32["k1_cuda_core_bound_ms"], "library_ms": None,
+         "device_ms": timed32["k1_device_ms"], "view_device_ms": timed32["k1_view_device_ms"],
+         "tf32x3_ceiling_tflops": tf32x3_ceiling,  # what the 3xTF32 k-steps reach alone (fp32-product TFLOP/s)
+         "timed_at": list(DEMO_LAYER) + ["float32"], "err_of": "fp32 against the twin in full fp32, all shapes"},
         {"name": "h_batch_stats (K2)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": train_launches["k2"],
          "launches_by_path": by_path("k2"),
-         "max_abs_err": worst["k2"], "ms": timed["k2_ms"], "plain_ms": timed["k2_plain_ms"],
+         "max_abs_err": worst["bfloat16"]["k2"], "ms": timed["k2_ms"], "plain_ms": timed["k2_plain_ms"],
          "bound_ms": timed["k2_bound_ms"], "bound_by": timed["k2_bound_by"], "library_ms": None,
          "device_ms": timed["k2_device_ms"],
          "mma_ms": timed["k2_mma_ms"],  # the mma.sync body the wgmma kernel replaced, same run
          "mma_device_ms": timed["k2_mma_device_ms"],
          "at_ragged_c": {c: {k: v for k, v in r.items() if not k.startswith("k1_")} for c, r in ragged_c.items()},
-         "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "fp32, all shapes"},
+         "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "bf16, all shapes"},
+        {"name": "h_batch_stats fp32 (K2, 3xTF32)", "route": "cuda",
+         "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
+         "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": demo32["k2"],
+         "launches_by_path": {"demo_fp32": demo32["k2"]},
+         "max_abs_err": worst["float32"]["k2"], "ms": timed32["k2_ms"], "plain_ms": timed32["k2_plain_ms"],
+         "bound_ms": timed32["k2_bound_ms"], "bound_by": timed32["k2_bound_by"],
+         "cuda_core_bound_ms": timed32["k2_cuda_core_bound_ms"], "library_ms": None,
+         "device_ms": timed32["k2_device_ms"], "tf32x3_ceiling_tflops": tf32x3_ceiling,
+         "timed_at": list(DEMO_LAYER) + ["float32"], "err_of": "fp32 against the twin in full fp32, all shapes"},
         {"name": "channel_stats", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/channel_stats.cu",
          "replaces": "none: XLA's fused reduction, fdgan_tpu/nn/layers.py:125-145",

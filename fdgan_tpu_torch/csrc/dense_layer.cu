@@ -25,14 +25,23 @@
 // copies the concat (ops/dense.py::dense_block_fused). A pixel's 64-channel
 // chunk stays 128 contiguous bytes, so the reads stay whole lines.
 //
-// What bounds them on an H100: K1 does 2*C*128 + 2*9*128*32 FLOP per output
-// pixel against C+32 values read and written. In bf16 that is ~470 FLOP per
-// byte at C = 64 (dense block 1), above the card's ridge of ~295: block 1 is
-// bound by tensor-core throughput; at C = 256..992 (block 3) it falls to
-// 240..160 FLOP/B, below the ridge: memory-bound. The design keeps h and g on
-// chip (the Pallas kernel's point), reads x once per tile plus a one-pixel
-// halo ring (180 rows of t.W1 for 128 outputs), and writes only the 32 new
-// channels. K2 does 128 FLOP per byte at every C: bound by reading x.
+// What bounds them on an H100 (NVIDIA H100 80GB HBM3, 700 W; data-sheet peaks:
+// 989 TFLOP/s bf16 and 495 tf32 in the tensor cores, 67 fp32 on the CUDA
+// cores, 3.35 TB/s): K1 does 2*C*128 + 2*9*128*32 FLOP per output pixel
+// against C+32 values read and written; K2 does 2*C*128 against C.
+// - bf16: K1 ~470 FLOP per byte at C = 64 (dense block 1), above the card's
+//   ridge of ~295: tensor-core bound; at C = 256..992 (block 3) 240..160
+//   FLOP/B, memory-bound. K2 128 FLOP/B at every C: bound by reading x.
+// - fp32 in full precision (the demo's default, the training CLI's eval, the
+//   fp32 train step and the zoo's fp32 forwards): K1 does 235 (C = 64) to 80
+//   (C = 992) FLOP per byte, K2 64; 3xTF32 takes each product three times in
+//   tf32, and at 495 TFLOP/s against 3.35 TB/s (a ridge of ~148 for the
+//   tripled count) both are bound by the tensor cores' tf32 rate at every C
+//   of the encoder. Summed over the demo's 42 layers at 1024^2 the 3xTF32
+//   bounds are ~9.3 ms (K1) and ~4.4 ms (K2); on the CUDA cores 23.0 and 10.9.
+// The design keeps h and g on chip (the Pallas kernel's point), reads x once
+// per tile plus a one-pixel halo ring (192 rows of t.W1 for 128 outputs),
+// and writes only the 32 new channels.
 // - bf16 K1 (dense_layer_bf16_kernel): both products are wgmma, Hopper's
 //   warpgroup products, whose operands the tensor core reads from shared
 //   memory itself (wgmma_bf16.cuh). Its mma.sync predecessor was held at
@@ -61,233 +70,45 @@
 //   each thread adds its fragment's two rows into running fp32 sums of its
 //   32 columns; every 16 tiles, and at the end, a butterfly over the 8 lanes
 //   that share columns and a pass through shared memory bring them into one
-//   float64 total per column and block. One row of partials per block. Its
-//   mma.sync body (h_stats_bf16_mma_kernel: 192-pixel blocks, W1 restaged
-//   from L2 in 32-channel chunks with block barriers, fragments loaded by
-//   every warp, one row of partials per 192 pixels) is kept to time old
-//   against new; no model path reaches it.
-// - fp32: plain FMAs on the CUDA cores, so fp32 keeps full precision (no
-//   TF32); its bound is the shared-memory read rate of the register-tiled
-//   GEMM loops. It serves checkpoint-parity runs, not the serving default.
+//   float64 total per column and block (HStatsSums). One row of partials per
+//   block. Its mma.sync body (h_stats_bf16_mma_kernel: 192-pixel blocks, W1
+//   restaged from L2 in 32-channel chunks with block barriers, fragments
+//   loaded by every warp, one row of partials per 192 pixels) is kept to
+//   time old against new; no model path reaches it.
+// - fp32 K1 and K2 (dense_layer_tf32x3_kernel, h_stats_tf32x3_kernel): the
+//   same two designs on tf32 wgmma with the 3xTF32 split (wgmma_tf32.cuh),
+//   which keeps fp32's precision (plain tf32 would not: the fp32 path must
+//   match the JAX package's "highest" matmul precision). Where fp32 differs
+//   from bf16: operands are split in
+//   registers as they are made (t) or loaded (g), since tf32 wgmma takes no
+//   transposed operand and g in big and small copies would not fit beside
+//   W2; W2 in big and small planes (288 KB) cannot be resident, so W1's and
+//   W2's chunks stream through one ring of bulk copies; steps are 32
+//   channels (a 128-byte row of x). The tile, by measurement (NVIDIA H100
+//   80GB HBM3, 700 W; tools/compare_trees.py at the demo's four layer
+//   shapes): the fp32 K1 takes ~19 us a tile plus ~0.08 us per input
+//   channel; the halo's 64 extra rows of t.W1 are a third of the per-channel
+//   part, ~7 % of a tile's time at C = 64 and ~27 % at C = 992. A tile with
+//   fewer halo rows per output needs more g than a block holds beside the
+//   rings: 16 x 16 keeps the 1.5x (324 halo pixels, 384 rows for 256
+//   outputs), 16 x 32 (1.25x) needs 640 rows of g, 320 KB. So the 8 x 16
+//   tile of the bf16 K1 (FlatTile) stays. Alone, a 3xTF32 k-step runs at
+//   ~162 TFLOP/s of fp32 products on that card (tools/probes.py::
+//   tf32x3_rates, 98 % of the tf32 peak, one warpgroup per SM enough); the
+//   two kernels reach 40-60 % of that. Details at each kernel.
 //
-// Tiles: an 8x16 output tile (K1; a 256-thread block each in fp32, walked by
-// persistent 384-thread blocks in bf16), 192 flat pixels per 256-thread block
-// (fp32 K2 and the mma.sync K2) or 128 flat pixels walked by persistent
-// 256-thread blocks (bf16 K2); the ragged last chunk of C is zero-filled.
+// Tiles: an 8x16 output tile (K1, walked by persistent 384-thread blocks),
+// 128 flat pixels walked by persistent 256-thread blocks (K2; 192 flat pixels
+// per 256-thread block in the mma.sync K2); the ragged last chunk of C is
+// zero-filled.
 
-#include "wgmma_bf16.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-using namespace fdgan_dev;  // bf16, INTER, GROWTH, THREADS, KC, the mma.sync helpers, gemm1_bf16
+using namespace fdgan_dev;  // bf16, INTER, GROWTH, THREADS, KC, the mma.sync and wgmma helpers
 
-constexpr int TILE_H = 8;    // K1 output tile: 8 x 16 pixels
-constexpr int TILE_W = 16;
-constexpr int HALO_W = TILE_W + 2;                  // 18
-constexpr int HALO_PIX = (TILE_H + 2) * HALO_W;     // 180
-constexpr int NPIX = 192;    // GEMM1 rows per block (180 halo pixels, padded)
-
-// --- the fp32 path: CUDA-core FMAs ------------------------------------------
-
-constexpr int ROWS_PER_T = NPIX / 16;               // 12 GEMM1 rows per thread
-constexpr int CH_PER_T = INTER / 16;                // 8 GEMM1 columns per thread
-constexpr int TS_LD = NPIX + 1;   // padded strides keep shared reads conflict-free
-constexpr int GS_LD = INTER + 1;
-// shared-memory layout, in 4-byte words
-constexpr int GS_WORDS = NPIX * GS_LD;     // g of the halo tile (K1 only)
-constexpr int TS_WORDS = KC * TS_LD;       // t chunk, [k][row]
-constexpr int W1S_WORDS = KC * INTER;      // W1 chunk, [k][i]
-constexpr size_t F32_K1_SMEM = 4 * (GS_WORDS + TS_WORDS + W1S_WORDS + NPIX);
-constexpr size_t F32_K2_SMEM = 4 * (TS_WORDS + W1S_WORDS + NPIX);
-static_assert(INTER * GROWTH <= TS_WORDS, "a W2 tap must fit in the t staging area");
-static_assert(2 * 16 * INTER <= TS_WORDS, "K2's reduction must fit in the t staging area");
-
-// acc[r][j] = h[row][col] for the thread's rows row = pg + 16*r and columns
-// col = cg + 16*j, where h[row] = relu(a1*x[pix[row]] + b1) . W1 and h = 0
-// for rows whose pix is -1; pixel p of x starts at x + p * ldx. pix must be
-// written before the call.
-__device__ __forceinline__ void gemm1_f32(const float* __restrict__ x, int ldx, const float* __restrict__ a1,
-                                          const float* __restrict__ b1, const float* __restrict__ w1,
-                                          int C, const int* pix, float* ts, float* w1s,
-                                          float acc[ROWS_PER_T][CH_PER_T]) {
-  const int tid = threadIdx.x;
-  const int pg = tid / 16, cg = tid % 16;
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_T; ++r)
-#pragma unroll
-    for (int j = 0; j < CH_PER_T; ++j) acc[r][j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += KC) {
-    __syncthreads();  // pix is written / the previous chunk is consumed
-    {
-      const int k = tid % KC;
-      const int c = c0 + k;
-      const bool cok = c < C;
-      const float a = cok ? a1[c] : 0.f;
-      const float b = cok ? b1[c] : 0.f;
-      for (int row = tid / KC; row < NPIX; row += THREADS / KC) {
-        const int gp = pix[row];
-        ts[k * TS_LD + row] = (cok && gp >= 0) ? fmaxf(x[(size_t)gp * ldx + c] * a + b, 0.f) : 0.f;
-      }
-    }
-    for (int e = tid; e < KC * INTER; e += THREADS) {
-      const int c = c0 + e / INTER;
-      w1s[e] = c < C ? w1[(size_t)c0 * INTER + e] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < KC; ++k) {
-      float tv[ROWS_PER_T], wv[CH_PER_T];
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_T; ++r) tv[r] = ts[k * TS_LD + pg + 16 * r];
-#pragma unroll
-      for (int j = 0; j < CH_PER_T; ++j) wv[j] = w1s[k * INTER + cg + 16 * j];
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_T; ++r)
-#pragma unroll
-        for (int j = 0; j < CH_PER_T; ++j) acc[r][j] = fmaf(tv[r], wv[j], acc[r][j]);
-    }
-  }
-}
-
-// halo row r of the tile at (y0, x0) is image pixel (y0 - 1 + r / 18, x0 - 1 + r % 18)
-__device__ __forceinline__ void halo_pixels(int* pix, int b, int y0, int x0, int H, int W) {
-  for (int row = threadIdx.x; row < NPIX; row += THREADS) {
-    int gp = -1;
-    if (row < HALO_PIX) {
-      const int iy = y0 - 1 + row / HALO_W, ix = x0 - 1 + row % HALO_W;
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W) gp = (b * H + iy) * W + ix;
-    }
-    pix[row] = gp;
-  }
-}
-
-// K1, fp32. Grid (ceil(W/16), ceil(H/8), B).
-__global__ void __launch_bounds__(THREADS)
-dense_layer_f32_kernel(const float* __restrict__ x, const float* __restrict__ a1,
-                       const float* __restrict__ b1, const float* __restrict__ w1,
-                       const float* __restrict__ a2, const float* __restrict__ b2,
-                       const float* __restrict__ w2, float* __restrict__ out, int H, int W, int C, int ldx,
-                       int ldo) {
-  extern __shared__ float smem[];
-  float* gs = smem;
-  float* ts = gs + GS_WORDS;
-  float* w1s = ts + TS_WORDS;
-  int* pix = reinterpret_cast<int*>(w1s + W1S_WORDS);
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
-  halo_pixels(pix, b, y0, x0, H, W);
-
-  float acc[ROWS_PER_T][CH_PER_T];
-  gemm1_f32(x, ldx, a1, b1, w1, C, pix, ts, w1s, acc);
-
-  // g = relu(a2*h + b2), exactly 0 outside the image: that is conv2's zero
-  // padding (a zero x there would leak relu(b1), relu(b2) through the affines)
-  {
-    const int pg = tid / 16, cg = tid % 16;
-#pragma unroll
-    for (int j = 0; j < CH_PER_T; ++j) {
-      const int i = cg + 16 * j;
-      const float a = a2[i], bb = b2[i];
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_T; ++r) {
-        const int row = pg + 16 * r;
-        gs[row * GS_LD + i] = pix[row] >= 0 ? fmaxf(acc[r][j] * a + bb, 0.f) : 0.f;
-      }
-    }
-  }
-
-  // GEMM2: thread owns output pixels q = qg + 32*m and channels f = fq + 8*j
-  const int fq = tid % 8, qg = tid / 8;
-  float acc2[4][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc2[m][j] = 0.f;
-
-  float* w2s = ts;  // one W2 tap at a time, in the t staging area
-  for (int tap = 0; tap < 9; ++tap) {
-    __syncthreads();  // g is written / the previous tap is consumed
-    for (int e = tid; e < INTER * GROWTH; e += THREADS) w2s[e] = w2[(size_t)tap * INTER * GROWTH + e];
-    __syncthreads();
-    const int dy = tap / 3, dx = tap % 3;
-    int base[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int q = qg + 32 * m;
-      base[m] = ((q / TILE_W + dy) * HALO_W + q % TILE_W + dx) * GS_LD;
-    }
-#pragma unroll 4
-    for (int i = 0; i < INTER; ++i) {
-      float gv[4], wv[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) gv[m] = gs[base[m] + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = w2s[i * GROWTH + fq + 8 * j];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc2[m][j] = fmaf(gv[m], wv[j], acc2[m][j]);
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int q = qg + 32 * m;
-    const int oy = y0 + q / TILE_W, ox = x0 + q % TILE_W;
-    if (oy < H && ox < W) {
-      float* o = out + ((size_t)(b * H + oy) * W + ox) * ldo;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[fq + 8 * j] = acc2[m][j];
-    }
-  }
-}
-
-// K2, fp32. Grid (ceil(npix/192)); block n covers flat pixels [192n, 192n+192).
-__global__ void __launch_bounds__(THREADS)
-h_stats_f32_kernel(const float* __restrict__ x, int ldx, const float* __restrict__ a1,
-                   const float* __restrict__ b1, const float* __restrict__ w1,
-                   float* __restrict__ psum, float* __restrict__ psq, int npix, int C) {
-  extern __shared__ float smem[];
-  float* ts = smem;
-  float* w1s = ts + TS_WORDS;
-  int* pix = reinterpret_cast<int*>(w1s + W1S_WORDS);
-
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * NPIX;
-  for (int row = tid; row < NPIX; row += THREADS) pix[row] = p0 + row < npix ? p0 + row : -1;
-
-  float acc[ROWS_PER_T][CH_PER_T];
-  gemm1_f32(x, ldx, a1, b1, w1, C, pix, ts, w1s, acc);
-
-  // rows past the end hold h = 0, so they add nothing to either sum
-  const int pg = tid / 16, cg = tid % 16;
-  float* red = ts;  // [2][16][INTER]
-  __syncthreads();  // every thread is done reading ts
-#pragma unroll
-  for (int j = 0; j < CH_PER_T; ++j) {
-    float s = 0.f, q = 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_T; ++r) {
-      s += acc[r][j];
-      q = fmaf(acc[r][j], acc[r][j], q);
-    }
-    red[pg * INTER + cg + 16 * j] = s;
-    red[(16 + pg) * INTER + cg + 16 * j] = q;
-  }
-  __syncthreads();
-  if (tid < INTER) {
-    float s = 0.f, q = 0.f;
-    for (int r = 0; r < 16; ++r) {
-      s += red[r * INTER + tid];
-      q += red[(16 + r) * INTER + tid];
-    }
-    psum[(size_t)blockIdx.x * INTER + tid] = s;
-    psq[(size_t)blockIdx.x * INTER + tid] = q;
-  }
-}
+constexpr int NPIX = 192;    // pixels per block of the mma.sync K2 body
 
 // --- K2 bf16, the mma.sync body ------------------------------------------------
 //
@@ -681,24 +502,27 @@ constexpr int K2_RES = 6;     // W1 chunks resident: all of W1 for C <= 384 (wha
 constexpr int K2_FLUSH = 16;  // tiles between two reductions of the running sums
 typedef TW1Smem<K2_RES> K2S;
 constexpr int K2_WARPS = TW1_THREADS / 32;
-constexpr size_t K2_SMEM = K2S::BYTES + K2_WARPS * 2 * INTER * sizeof(float);
+constexpr uint32_t K2_RED_BYTES = K2_WARPS * 2 * INTER * sizeof(float);  // [warp][statistic][column]
+constexpr size_t K2_SMEM = K2S::BYTES + K2_RED_BYTES;
 static_assert(K2_SMEM <= 232448, "a block's shared memory");
 static_assert(TW1_THREADS == 2 * INTER, "a thread per (statistic, column) keeps the block's float64 total");
 
-__global__ void __launch_bounds__(TW1_THREADS, 1)
-h_stats_bf16_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ a1, const float* __restrict__ b1,
-                    const bf16* __restrict__ w1p, double* __restrict__ psum, double* __restrict__ psq, int npix,
-                    int C) {
-  extern __shared__ __align__(128) unsigned char smem_wg[];
-  float* red = reinterpret_cast<float*>(smem_wg + K2S::BYTES);  // [warp][statistic][column]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, tq = lane % 4;
-
+// The epilogue of both K2 kernels (bf16 and fp32): a warpgroup's 64 x 128
+// accumulators per tile into running sums, and their reduction into the
+// block's float64 total. Every thread calls add() the same number of times
+// (the barriers inside flush() are reached by all).
+struct HStatsSums {
   float run[64];  // run[2j + e]: sum of h at column 8j + 2tq + e over the thread's rows; run[32 + 2j + e]: of h*h
+  double total;   // statistic tid / 128 of column tid % 128 over the block's tiles
+  int since_flush;
+
+  __device__ __forceinline__ HStatsSums() : total(0.0), since_flush(0) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) run[i] = 0.f;
-  double total = 0.0;  // statistic tid / 128 of column tid % 128 over the block's tiles
-  int since_flush = 0;
-  auto flush = [&]() {
+    for (int i = 0; i < 64; ++i) run[i] = 0.f;
+  }
+
+  __device__ __forceinline__ void flush(float* red) {
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, tq = lane % 4;
     // reduce-scatter over lane bits 4, 3, 2 (constant indices throughout: run stays in registers)
     reduce_scatter_step<32>(run, lane, 16);
     reduce_scatter_step<16>(run, lane, 8);
@@ -717,8 +541,10 @@ h_stats_bf16_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict
     __syncthreads();  // red is free again
 #pragma unroll
     for (int i = 0; i < 64; ++i) run[i] = 0.f;
-  };
-  auto accumulate = [&](const float (&acc)[64], int) {
+    since_flush = 0;
+  }
+
+  __device__ __forceinline__ void add(const float (&acc)[64], float* red) {
 #pragma unroll
     for (int j = 0; j < INTER / 8; ++j)
 #pragma unroll
@@ -727,14 +553,553 @@ h_stats_bf16_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict
         run[2 * j + e] += v0 + v1;
         run[32 + 2 * j + e] = fmaf(v1, v1, fmaf(v0, v0, run[32 + 2 * j + e]));
       }
-    if (++since_flush == K2_FLUSH) {  // the same count in every thread: the barriers inside are reached by all
-      flush();
-      since_flush = 0;
+    if (++since_flush == K2_FLUSH) flush(red);
+  }
+
+  // the sums not yet flushed, then the block's row of partials
+  __device__ __forceinline__ void finish(float* red, double* __restrict__ psum, double* __restrict__ psq) {
+    if (since_flush > 0) flush(red);
+    const int tid = threadIdx.x;
+    (tid < INTER ? psum : psq)[(size_t)blockIdx.x * INTER + tid % INTER] = total;
+  }
+};
+
+__global__ void __launch_bounds__(TW1_THREADS, 1)
+h_stats_bf16_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ a1, const float* __restrict__ b1,
+                    const bf16* __restrict__ w1p, double* __restrict__ psum, double* __restrict__ psq, int npix,
+                    int C) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  float* red = reinterpret_cast<float*>(smem_wg + K2S::BYTES);
+  HStatsSums sums;
+  tw1_stream<K2_RES>(StridedX{x, ldx}, a1, b1, w1p, npix, C, smem_wg,
+                     [&](const float (&acc)[64], int) { sums.add(acc, red); });
+  sums.finish(red, psum, psq);
+}
+
+// --- fp32 on wgmma: 3xTF32 products (wgmma_tf32.cuh) -------------------------
+//
+// Both fp32 kernels take x in steps of 32 channels: a step's x is a row of 128
+// bytes per pixel in shared memory (rows swizzled by tf32_swz), brought by
+// cp.async, each warp copying and reading only its own 16 rows (a warp
+// barrier orders them, no block barrier). A thread computes t = relu(a1*x +
+// b1) for its two rows and eight channels of the step in fp32 and splits it
+// into the A fragments of wgmma (tf32_split_frags); W1 arrives as tf32 big and
+// small planes, 32 KB a chunk of 32 channels (ops/dense.py::w1_tf32x3_planes),
+// by bulk copies. A step is 4 k-steps of three m64n128k8 products. a1 and b1
+// are read from device memory (the wrapper pads them to whole chunks with
+// zeros, so t is 0 past C, and W1's padding rows are zeros); x is zero-filled
+// past C (the wrapper pads x to C % 4 == 0, ld % 4 == 0 and 16-byte alignment
+// where it is not so already).
+
+constexpr int TF_KC = 32;                                   // channels of x per step
+constexpr uint32_t TF_ROW = 4 * TF_KC;                      // 128 bytes: a pixel's x of a step
+constexpr uint32_t TF_W1_PLANE = INTER * 16;                // [n][4 fp32]
+constexpr uint32_t TF_W1_HALF = (TF_KC / 4) * TF_W1_PLANE;  // 16 KB: a chunk's big (or small) planes
+constexpr uint32_t TF_W1_CHUNK = 2 * TF_W1_HALF;            // 32 KB
+
+// a[0..7], b[0..7] = a1, b1 at channels c .. c + 7 (in bounds: padded to whole chunks)
+__device__ __forceinline__ void affine8_f32(const float* __restrict__ a1, const float* __restrict__ b1, int c,
+                                            float (&a)[8], float (&b)[8]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const float4 av = __ldg(reinterpret_cast<const float4*>(a1 + c) + u);
+    const float4 bv = __ldg(reinterpret_cast<const float4*>(b1 + c) + u);
+    a[4 * u] = av.x, a[4 * u + 1] = av.y, a[4 * u + 2] = av.z, a[4 * u + 3] = av.w;
+    b[4 * u] = bv.x, b[4 * u + 1] = bv.y, b[4 * u + 2] = bv.z, b[4 * u + 3] = bv.w;
+  }
+}
+
+// t of the thread's rows gq (h = 0) and gq + 8 (h = 1) of a warp's staged rows
+// (xw: 16 rows of 128 bytes), channels 8tq .. of the step, into A fragments;
+// ok[h] false: t = 0
+__device__ __forceinline__ void tf32_t_frags(const unsigned char* xw, const float (&a)[8], const float (&b)[8],
+                                             const bool (&ok)[2], int gq, int tq, uint32_t (&big)[16],
+                                             uint32_t (&small)[16]) {
+  float v[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = gq + 8 * h;
+    tf32_load8(xw + r * TF_ROW, r, 0, tq, v[h]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[h][i] = ok[h] ? fmaxf(fmaf(v[h][i], a[i], b[i]), 0.f) : 0.f;
+  }
+  tf32_split_frags(v, big, small);
+}
+
+// --- K2 fp32 ---------------------------------------------------------------------
+//
+// Replaces pallas_dense.py::_h_stats_pallas in fp32. The structure of the bf16
+// K2 (tw1_stream): persistent blocks of two warpgroups over 128-pixel tiles, a
+// static walk (tile = blockIdx.x + k * gridDim.x), x copied three steps ahead,
+// the next step's t made while a step's products run, W1's first TF2_RES
+// chunks resident and the rest through a two-stage ring, one chunk ahead. Its
+// epilogue is HStatsSums: fp32 running sums in registers over at most 16
+// tiles, then one float64 total per column and block.
+
+constexpr int TF2_RES = 2;     // W1 chunks resident: all of W1 for C <= 64
+constexpr int TF2_STAGES = 4;  // x copied 3 steps ahead
+constexpr uint32_t TF2_X_STAGE = (TW1_THREADS / 32) * 16 * TF_ROW;  // [warp][16 rows][128 bytes]: 16 KB
+constexpr uint32_t TF2_RING = TF2_RES * TF_W1_CHUNK;
+constexpr uint32_t TF2_X = TF2_RING + 2 * TF_W1_CHUNK;
+constexpr uint32_t TF2_RED = TF2_X + TF2_STAGES * TF2_X_STAGE;
+constexpr uint32_t TF2_BARS = TF2_RED + K2_RED_BYTES;       // [3]: resident W1, ring stages 0 and 1
+constexpr size_t TF2_SMEM = TF2_BARS + 3 * sizeof(uint64_t);
+static_assert(TF2_SMEM <= 232448, "a block's shared memory");
+static_assert(TW1_ROWS * TF_KC == TW1_THREADS * 4 * 4, "each thread copies 4 vectors of x per step");
+
+__global__ void __launch_bounds__(TW1_THREADS, 1)
+h_stats_tf32x3_kernel(const float* __restrict__ x, int ldx, const float* __restrict__ a1, const float* __restrict__ b1,
+                      const float* __restrict__ w1p, double* __restrict__ psum, double* __restrict__ psq, int npix,
+                      int C) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  unsigned char* res = smem_wg;
+  unsigned char* ring = smem_wg + TF2_RING;
+  float* red = reinterpret_cast<float*>(smem_wg + TF2_RED);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_wg + TF2_BARS);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
+  const int ntiles = (npix + TW1_ROWS - 1) / TW1_ROWS;
+  const int nchunks = (C + TF_KC - 1) / TF_KC;
+  const int my_tiles = (int)blockIdx.x < ntiles ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int nsteps = my_tiles * nchunks;
+  HStatsSums sums;
+  if (nsteps > 0) {
+    if (tid == 0)
+      for (int i = 0; i < 3; ++i) mbarrier_init(bars + i, 1);
+
+    // chunk ci of W1 into a ring stage, by one thread
+    auto ring_copy = [&](int ci, int stage) {
+      mbarrier_arrive_expect_tx(bars + 1 + stage, TF_W1_CHUNK);
+      bulk_copy_g2s(ring + stage * TF_W1_CHUNK, w1p + (size_t)ci * (TF_W1_CHUNK / 4), TF_W1_CHUNK, bars + 1 + stage);
+    };
+
+    // x of a step into stage k % STAGES: the warp's 16 rows, lane l copying channels 4 (l % 8) ..
+    // of rows l / 8 + 4j; zeros past npix and past C; one cp.async group per step
+    unsigned char* xw = smem_wg + TF2_X + warp * 16 * TF_ROW;
+    TW1Step fe{(int)blockIdx.x, 0};
+    int fe_k = 0;
+    auto fetch = [&]() {
+      unsigned char* dst = xw + (fe_k % TF2_STAGES) * TF2_X_STAGE;
+      const int part = lane % 8;
+      const int c = fe.ci * TF_KC + 4 * part;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 4 * j + lane / 8;
+        const int p = fe.tile * TW1_ROWS + 16 * warp + r;
+        const bool ok = c < C && p < npix;
+        cp_async16_zfill(dst + r * TF_ROW + 16 * tf32_swz(r, part), ok ? x + (size_t)p * ldx + c : x, ok);
+      }
+      cp_async_commit();
+      fe.advance(nchunks, gridDim.x);
+      ++fe_k;
+    };
+    // t of the next step into A fragments; rows past npix: t = 0, not relu(b1)
+    TW1Step st{(int)blockIdx.x, 0};
+    int st_k = 0;
+    auto make_t = [&](uint32_t (&big)[16], uint32_t (&small)[16]) {
+      cp_async_wait<TF2_STAGES - 2>();  // this thread's copies of the step have landed
+      __syncwarp();                     // ... and the warp's
+      float a[8], b[8];
+      affine8_f32(a1, b1, st.ci * TF_KC + 8 * tq, a, b);
+      const bool ok[2] = {st.tile * TW1_ROWS + 16 * warp + gq < npix, st.tile * TW1_ROWS + 16 * warp + gq + 8 < npix};
+      tf32_t_frags(xw + (st_k % TF2_STAGES) * TF2_X_STAGE, a, b, ok, gq, tq, big, small);
+      __syncwarp();  // every lane has read the stage before a lane refills it
+      st.advance(nchunks, gridDim.x);
+      ++st_k;
+    };
+
+    for (int i = 0; i < TF2_STAGES - 1; ++i) fetch();
+    __syncthreads();  // the barriers are set up
+    if (tid == 0) {
+      const int nres = min(nchunks, TF2_RES);
+      mbarrier_arrive_expect_tx(bars, nres * TF_W1_CHUNK);
+      bulk_copy_g2s(res, w1p, nres * TF_W1_CHUNK, bars);
+      if (nchunks > TF2_RES) ring_copy(TF2_RES, 0);
+    }
+    mbarrier_wait(bars, 0);
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    uint32_t big0[16], small0[16], big1[16], small1[16];
+    TW1Step pc{(int)blockIdx.x, 0};  // the step whose products run
+    int ring_k = 0;                  // ring chunks used so far: the next one is in stage ring_k & 1
+    auto step = [&](const uint32_t (&a_big)[16], const uint32_t (&a_small)[16], uint32_t (&n_big)[16],
+                    uint32_t (&n_small)[16]) {
+      const bool in_ring = pc.ci >= TF2_RES;
+      if (in_ring) {
+        mbarrier_wait(bars + 1 + (ring_k & 1), (ring_k >> 1) & 1);  // this chunk of W1 has landed
+        __syncthreads();  // both warpgroups are past the products that read the other stage
+        if (tid == 0 && !(pc.ci + 1 == nchunks && pc.tile + (int)gridDim.x >= ntiles))
+          ring_copy(pc.ci + 1 < nchunks ? pc.ci + 1 : TF2_RES, (ring_k + 1) & 1);
+      }
+      const uint32_t w = smem_u32(in_ring ? ring + (ring_k & 1) * TF_W1_CHUNK : res + pc.ci * TF_W1_CHUNK);
+      wgmma_fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < TF_KC / 8; ++s)
+        tf32x3_kstep<INTER>(acc, a_big, a_small, w, w + TF_W1_HALF, TF_W1_PLANE, s, pc.ci == 0 && s == 0);
+      wgmma_commit();
+      ring_k += in_ring;
+      make_t(n_big, n_small);  // under the products: the next step's t, then x for a later step sets out
+      fetch();
+      wgmma_wait<0>();
+      wgmma_fence_acc(acc);
+      if (pc.ci == nchunks - 1) sums.add(acc, red);
+      pc.advance(nchunks, gridDim.x);
+    };
+
+    make_t(big0, small0);
+    fetch();
+    for (int s = 0; s < nsteps; s += 2) {
+      step(big0, small0, big1, small1);
+      if (s + 1 < nsteps) step(big1, small1, big0, small0);
+    }
+    cp_async_wait<0>();  // the copies past the last step (zeros) land before the block ends
+  }
+  sums.finish(red, psum, psq);
+}
+
+// --- K1 fp32 ---------------------------------------------------------------------
+//
+// Replaces pallas_dense.py::_fused_layer_pallas in fp32. One persistent block
+// of three warpgroups (384 threads) per SM walks the 8 x 16 output tiles
+// (tile = blockIdx.x + k * gridDim.x). Per tile:
+//   1. h = t.W1 for the 180 halo pixels (192 rows, warpgroup w owning rows
+//      64w ..) in steps of 32 channels: x copied two steps ahead into a
+//      two-stage ring (the next tile's first two steps land under this
+//      tile's conv), t made and split in registers, then the step's 12
+//      products m64n128k8 on W1's chunk.
+//   2. g = relu(a2*h + b2) in fp32, exactly 0 outside the image (conv2's zero
+//      padding: a zero x there would leak relu(b1), relu(b2) through the
+//      affines), into shared memory once: 192 rows of 512 bytes.
+//   3. the 3x3 conv 128 -> 32 as the bf16 K1 takes it (wgmma_bf16.cuh,
+//      FlatTile): the M rows run over g's flat halo index, a tap's row shift
+//      dy is an address, and the three taps dx of a kernel row lie side by
+//      side in N = 96; A is loaded from g's rows into registers and split
+//      there (12 m64n96k8 products per 32 channels and kernel row), the next
+//      chunk's A loaded and split while a chunk's products run. The shares
+//      of the three taps dx are brought together by conv2_flat_share /
+//      conv2_flat_combine and the 32 channels stored from registers.
+// Weights. W2 split into big and small planes is 288 KB, more than a block
+// may hold beside g (96 KB), so nothing is resident: W1's chunks (32 KB) and
+// then W2's twelve (24 KB: a kernel row dy, 32 channels of g, N = 96) pass
+// through one two-stage ring of bulk copies, a chunk ahead; the block's
+// barrier at each chunk orders a stage's refill after every warpgroup's
+// products that read it. The split of g is made in registers: g in big and
+// small copies would take 192 KB.
+// Registers: a launch of 384 threads has at most 168 a thread. t.W1 holds 64
+// accumulators, so its steps make t before their products (one fragment
+// set); the conv holds 48 and double-buffers its fragments.
+// Shared memory: g 96 KB, the x ring 48 KB, the weight ring 64 KB, a2 and
+// b2 1 KB, the conv's hand-over rows 5 KB: 214 KB of the 227 a block may have.
+
+typedef FlatTile<16> TF1T;
+constexpr int TF1_WGS = TF1T::M1;                              // 3
+constexpr int TF1_THREADS = WG_THREADS * TF1_WGS;              // 384
+constexpr int TF1_ROWS = 64 * TF1_WGS;                         // 192 rows of t, h and g
+constexpr int TF1_STAGES = 2;                                  // x copied two steps ahead
+constexpr uint32_t TF1_X_STAGE = TF1_ROWS * TF_ROW;            // 24 KB
+constexpr uint32_t TF1_G_ROW = INTER * 4;                      // 512 bytes
+constexpr uint32_t TF1_W2_PLANE = 3 * GROWTH * 16;             // [dx * 32 + n][4 fp32]
+constexpr uint32_t TF1_W2_HALF = (TF_KC / 4) * TF1_W2_PLANE;   // 12 KB
+constexpr uint32_t TF1_W2_CHUNK = 2 * TF1_W2_HALF;             // 24 KB
+constexpr int TF1_W2_CHUNKS = 3 * (INTER / TF_KC);             // 12: kernel row dy, 32 channels kc (chunk 4 dy + kc)
+constexpr uint32_t TF1_WSTAGE = TF_W1_CHUNK;                   // a stage holds a chunk of either
+constexpr uint32_t TF1_X = TF1_ROWS * TF1_G_ROW;
+constexpr uint32_t TF1_W = TF1_X + TF1_STAGES * TF1_X_STAGE;
+constexpr uint32_t TF1_AB2 = TF1_W + 2 * TF1_WSTAGE;
+constexpr uint32_t TF1_XCH = TF1_AB2 + 2 * INTER * 4;
+constexpr uint32_t TF1_BARS = TF1_XCH + (TF1_THREADS / 32 + 1) * XCH_WARP * 4;
+constexpr size_t TF1_SMEM = TF1_BARS + 2 * sizeof(uint64_t);
+static_assert(TF1T::M2 == TF1_WGS, "a warpgroup per 64-row tile of the conv");
+static_assert(TF1_W2_CHUNK <= TF1_WSTAGE, "a W2 chunk fits a ring stage");
+static_assert(TF1_SMEM <= 232448, "a block's shared memory");
+
+__global__ void __launch_bounds__(TF1_THREADS, 1)
+dense_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ a1, const float* __restrict__ b1,
+                          const float* __restrict__ w1p, const float* __restrict__ a2, const float* __restrict__ b2,
+                          const float* __restrict__ w2p, float* __restrict__ out, int B, int H, int W, int C, int ldx,
+                          int ldo, int vec_out) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  unsigned char* gs = smem_wg;                   // g of the halo tile: [flat index][128 fp32], vectors swizzled
+  unsigned char* wring = smem_wg + TF1_W;        // [2] stages of W1's or W2's chunks
+  float* ab2 = reinterpret_cast<float*>(smem_wg + TF1_AB2);  // a2 | b2
+  float* xch = reinterpret_cast<float*>(smem_wg + TF1_XCH);  // rows handed from warp to warp (conv2_flat_share)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_wg + TF1_BARS);  // [2]: a ring stage has landed
+
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, warp = tid % WG_THREADS / 32, lane = tid % 32;
+  const int wb = tid / 32;  // the warp of the block: its rows 16 wb .. of the halo tile
+  const int gq = lane / 4, tq = lane % 4;
+  const int tiles_x = (W + TF1T::TW - 1) / TF1T::TW, tiles_y = (H + TF1T::TH - 1) / TF1T::TH;
+  const int ntiles = B * tiles_y * tiles_x;
+  const int nchunks = (C + TF_KC - 1) / TF_KC;
+  const int per_tile = nchunks + TF1_W2_CHUNKS;  // weight chunks a tile takes
+  const int my_tiles = (int)blockIdx.x < ntiles ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  if (my_tiles == 0) return;
+  const int nsteps = my_tiles * nchunks, nw = my_tiles * per_tile;
+
+  if (tid < INTER) {
+    ab2[tid] = a2[tid];
+    ab2[INTER + tid] = b2[tid];
+  }
+  if (tid == 0) {
+    mbarrier_init(bars, 1);
+    mbarrier_init(bars + 1, 1);
+  }
+
+  // weight chunk q of the block's sequence (per tile W1's chunks, then W2's) into stage q & 1, by one thread
+  auto w_copy = [&](int q) {
+    const int k = q % per_tile;
+    const bool is_w1 = k < nchunks;
+    const uint32_t bytes = is_w1 ? TF_W1_CHUNK : TF1_W2_CHUNK;
+    const float* src = is_w1 ? w1p + (size_t)k * (TF_W1_CHUNK / 4) : w2p + (size_t)(k - nchunks) * (TF1_W2_CHUNK / 4);
+    mbarrier_arrive_expect_tx(bars + (q & 1), bytes);
+    bulk_copy_g2s(wring + (q & 1) * TF1_WSTAGE, src, bytes, bars + (q & 1));
+  };
+  // the next weight chunk, once it has landed; the block's barrier orders the refill of the
+  // other stage after every warpgroup's products that read it (each waited for them before)
+  int wq = 0;
+  auto w_take = [&]() -> uint32_t {
+    mbarrier_wait(bars + (wq & 1), (wq >> 1) & 1);
+    __syncthreads();
+    if (tid == 0 && wq + 1 < nw) w_copy(wq + 1);
+    const uint32_t addr = smem_u32(wring + (wq & 1) * TF1_WSTAGE);
+    ++wq;
+    return addr;
+  };
+
+  // x: the warp's 16 rows of a stage, lane l copying channels 4 (l % 8) .. of rows l / 8 + 4j,
+  // zeros outside the image, past the halo's 180 pixels and past C
+  unsigned char* xw = smem_wg + TF1_X + wb * 16 * TF_ROW;
+  int fe_tile = blockIdx.x, fe_ci = 0, fe_k = 0, fgp[4];
+  auto fetch_pixels = [&]() {  // pixel of each row the lane copies for fe_tile, -1 for none
+    const int tx = fe_tile % tiles_x, ty = fe_tile / tiles_x % tiles_y, b = fe_tile / (tiles_x * tiles_y);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = 16 * wb + 4 * j + lane / 8;
+      const int iy = ty * TF1T::TH - 1 + row / TF1T::HW, ix = tx * TF1T::TW - 1 + row % TF1T::HW;
+      fgp[j] = (row < TF1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W) ? (b * H + iy) * W + ix : -1;
     }
   };
-  tw1_stream<K2_RES>(StridedX{x, ldx}, a1, b1, w1p, npix, C, smem_wg, accumulate);
-  if (since_flush > 0) flush();
-  (tid < INTER ? psum : psq)[(size_t)blockIdx.x * INTER + tid % INTER] = total;
+  auto fetch = [&]() {  // the step fe_k into stage fe_k % 2; a cp.async group every call
+    unsigned char* dst = xw + (fe_k % TF1_STAGES) * TF1_X_STAGE;
+    const int part = lane % 8;
+    const int c = fe_ci * TF_KC + 4 * part;
+    const bool live = fe_k < nsteps;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 4 * j + lane / 8;
+      const bool ok = live && c < C && fgp[j] >= 0;
+      cp_async16_zfill(dst + r * TF_ROW + 16 * tf32_swz(r, part), ok ? x + (size_t)fgp[j] * ldx + c : x, ok);
+    }
+    cp_async_commit();
+    ++fe_k;
+    if (++fe_ci == nchunks) {
+      fe_ci = 0;
+      fe_tile += gridDim.x;
+      if (fe_tile < ntiles) fetch_pixels();
+    }
+  };
+  int st_ci = 0, st_k = 0;  // the step whose t is made next
+  auto make_t = [&](uint32_t (&big)[16], uint32_t (&small)[16]) {
+    cp_async_wait<TF1_STAGES - 1>();  // this thread's copies of the step have landed
+    __syncwarp();                     // ... and the warp's
+    float a[8], b[8];
+    affine8_f32(a1, b1, st_ci * TF_KC + 8 * tq, a, b);
+    const bool ok[2] = {true, true};  // rows outside the image give h that g drops
+    tf32_t_frags(xw + (st_k % TF1_STAGES) * TF1_X_STAGE, a, b, ok, gq, tq, big, small);
+    __syncwarp();  // every lane has read the stage before a lane refills it
+    ++st_k;
+    if (++st_ci == nchunks) st_ci = 0;
+  };
+
+  // A of conv chunk k (kernel row dy = k / 4, channels 32 (k % 4) ..) from g: rows p + 18 dy of
+  // the thread's rows p; rows past 191 feed only outputs that are dropped, and read row 191
+  const int crow = 64 * wg + 16 * warp + gq;  // the thread's conv rows: crow, crow + 8
+  auto load_g = [&](uint32_t (&big)[16], uint32_t (&small)[16], int k) {
+    float v[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = min(crow + 8 * h + TF1T::HW * (k / 4), TF1_ROWS - 1);
+      tf32_load8(gs + r * TF1_G_ROW, r, k % 4, tq, v[h]);
+    }
+    tf32_split_frags(v, big, small);
+  };
+
+  fetch_pixels();
+  fetch();
+  fetch();
+  __syncthreads();  // a2, b2 are staged, the barriers are set up
+  if (tid == 0) w_copy(0);
+
+  uint32_t big0[16], small0[16], big1[16], small1[16];
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int tx = tile % tiles_x, ty = tile / tiles_x % tiles_y, b = tile / (tiles_x * tiles_y);
+    const int x0 = tx * TF1T::TW, y0 = ty * TF1T::TH;
+
+    // 1. h = t.W1 (the first product overwrites acc; zeroed so that no register is read unset)
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int ci = 0; ci < nchunks; ++ci) {
+      make_t(big0, small0);
+      fetch();
+      const uint32_t w = w_take();
+      wgmma_fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < TF_KC / 8; ++s)
+        tf32x3_kstep<INTER>(acc, big0, small0, w, w + TF_W1_HALF, TF_W1_PLANE, s, ci == 0 && s == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_acc(acc);
+    }
+
+    // 2. g = relu(a2*h + b2), exactly 0 outside the image; float2 stores of the fragment
+    {
+      bool in[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = crow + 8 * h;
+        const int iy = y0 - 1 + row / TF1T::HW, ix = x0 - 1 + row % TF1T::HW;
+        in[h] = row < TF1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W;
+      }
+#pragma unroll
+      for (int j = 0; j < INTER / 8; ++j) {
+        const int col = 8 * j + 2 * tq, v = col / 4;
+        const float2 a = *reinterpret_cast<const float2*>(ab2 + col);
+        const float2 bb = *reinterpret_cast<const float2*>(ab2 + INTER + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = crow + 8 * h;
+          const float2 g = in[h] ? make_float2(fmaxf(fmaf(acc[4 * j + 2 * h], a.x, bb.x), 0.f),
+                                               fmaxf(fmaf(acc[4 * j + 2 * h + 1], a.y, bb.y), 0.f))
+                                 : make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(gs + row * TF1_G_ROW + 128 * (v / 8) + 16 * tf32_swz(row, v % 8) + 4 * (col % 4)) = g;
+        }
+      }
+    }
+    __syncthreads();  // g is whole
+
+    // 3. the 3x3 conv: twelve chunks, each 4 k-steps of three m64n96k8 products
+    float acc3[48];
+#pragma unroll
+    for (int i = 0; i < 48; ++i) acc3[i] = 0.f;
+    load_g(big0, small0, 0);
+    auto conv_chunk = [&](const uint32_t (&a_big)[16], const uint32_t (&a_small)[16], uint32_t (&n_big)[16],
+                          uint32_t (&n_small)[16], int k) {
+      const uint32_t w = w_take();
+      wgmma_fence_acc(acc3);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < TF_KC / 8; ++s)
+        tf32x3_kstep<3 * GROWTH>(acc3, a_big, a_small, w, w + TF1_W2_HALF, TF1_W2_PLANE, s, k == 0 && s == 0);
+      wgmma_commit();
+      if (k + 1 < TF1_W2_CHUNKS) load_g(n_big, n_small, k + 1);  // under the products
+      wgmma_wait<0>();
+      wgmma_fence_acc(acc3);
+    };
+#pragma unroll
+    for (int k = 0; k < TF1_W2_CHUNKS; k += 2) {
+      conv_chunk(big0, small0, big1, small1, k);
+      conv_chunk(big1, small1, big0, small0, k + 1);
+    }
+
+    // 4. the three taps' shares of each output, and the 32 channels out
+    float o[16];
+    conv2_flat_share(xch, acc3, wb, lane);
+    __syncthreads();
+    conv2_flat_combine(o, acc3, xch, wb, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = crow + 8 * h, ty_ = p / TF1T::HW, tx_ = p % TF1T::HW;
+      const int oy = y0 + ty_, ox = x0 + tx_;
+      if (ty_ < TF1T::TH && tx_ < TF1T::TW && oy < H && ox < W) {
+        float* dst = out + ((size_t)(b * H + oy) * W + ox) * ldo;
+#pragma unroll
+        for (int j = 0; j < GROWTH / 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          if (vec_out) {
+            *reinterpret_cast<float2*>(dst + col) = make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+          } else {
+            dst[col] = o[4 * j + 2 * h];
+            dst[col + 1] = o[4 * j + 2 * h + 1];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the copies past the last step (zeros) land before the block ends
+}
+
+// --- the 3xTF32 self-check ----------------------------------------------------------
+//
+// d (64, N) fp32 = reps * a (64, K) . b (K, N) through the fp32 kernels'
+// helpers: a loaded into registers and split there (tf32_split_frags, the
+// channel order of wgmma_tf32.cuh), b as w1_tf32x3_planes lays W1 out
+// ((K/32, 2, 8, N, 4), in shared memory), tf32x3_kstep, by one warpgroup per
+// block. A wrong fragment layout or plane order gives wrong numbers, not an
+// error, so it is held against a float64 product on its own. With reps > 1 and
+// many blocks it is a rate measurement: every block repeats the product, so
+// its time over the k-steps started is what one 3xTF32 k-step costs an SM at
+// that N and number of warpgroups, the ceiling of the fp32 kernels' products.
+// Not a kernel of any path.
+
+template <int N, int K>
+__global__ void __launch_bounds__(WG_THREADS)
+tf32x3_selfcheck_kernel(const float* __restrict__ a, const float* __restrict__ bp, float* __restrict__ d, int reps) {
+  constexpr uint32_t PLANE = N * 16, HALF = (TF_KC / 4) * PLANE, CHUNK = 2 * HALF;
+  constexpr int NK = K / TF_KC;
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
+  for (int v = tid; v < NK * (int)CHUNK / 16; v += WG_THREADS) cp_async16(smem_wg + 16 * v, bp + 4 * (size_t)v);
+  cp_async_commit();
+  uint32_t big[NK][16], small[NK][16];
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc) {
+    float v[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[h][i] = a[(16 * warp + gq + 8 * h) * K + TF_KC * kc + 8 * tq + i];
+    tf32_split_frags(v, big[kc], small[kc]);
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  wgmma_fence_acc(acc);
+  const uint32_t b0 = smem_u32(smem_wg);
+  for (int rep = 0; rep < reps; ++rep) {
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < NK; ++kc)
+#pragma unroll
+      for (int s = 0; s < TF_KC / 8; ++s)
+        tf32x3_kstep<N>(acc, big[kc], small[kc], b0 + kc * CHUNK, b0 + kc * CHUNK + HALF, PLANE, s,
+                        rep == 0 && kc == 0 && s == 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // one group stays in flight behind the one being started
+  }
+  wgmma_wait<0>();
+  wgmma_fence_acc(acc);
+  if (blockIdx.x != 0) return;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[(16 * warp + gq + 8 * (e / 2)) * N + 8 * j + 2 * tq + e % 2] = acc[4 * j + e];
+}
+
+template <int N, int K>
+int launch_tf32x3_selfcheck(const void* a, const void* bp, void* d, int reps, int blocks, cudaStream_t stream) {
+  constexpr size_t smem = (size_t)(K / TF_KC) * 2 * (TF_KC / 4) * N * 16;
+  if (int err = set_smem(tf32x3_selfcheck_kernel<N, K>, smem)) return err;
+  tf32x3_selfcheck_kernel<N, K><<<blocks, WG_THREADS, smem, stream>>>((const float*)a, (const float*)bp, (float*)d, reps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -744,23 +1109,32 @@ extern "C" {
 // Every entry point returns a CUDA error code (0 = success): that of its
 // set-up calls, or cudaGetLastError() after its launch. x (B,H,W,C) holds
 // pixel p at x + p * ldx (ldx >= C), out (B,H,W,32) at out + p * ldo, both in
-// the kernel's dtype; a1, b1 (C) and a2, b2 (128) are fp32. The f32 kernels
-// take w1 (C,128) and w2 (9*128,32); the bf16 kernels take w2r (9,32,128)
-// and W1 as w1p (C/8,128,8), planes of eight input channels: w1p[p][n][k] =
-// W1[8p + k][n] (K1), the same with the rows zero-padded to a multiple of
-// 64 and permuted within each 64 into the TW1 order of wgmma_bf16.cuh
-// (fdgan_h_stats_bf16), or W1 transposed, w1t (128,C)
-// (fdgan_h_stats_bf16_mma). The bf16 kernels need C, ldx and ldo multiples of 8 and 16-byte
-// aligned x, out, W1, w2r, a1 and b1.
+// the kernel's dtype; a2, b2 (128) are fp32.
+// - bf16: a1, b1 (C) fp32; w2r (9,32,128); W1 as w1p (C/8,128,8), planes of
+//   eight input channels: w1p[p][n][k] = W1[8p + k][n] (K1), the same with the
+//   rows zero-padded to a multiple of 64 and permuted within each 64 into the
+//   TW1 order of wgmma_bf16.cuh (fdgan_h_stats_bf16), or W1 transposed, w1t
+//   (128,C) (fdgan_h_stats_bf16_mma). C, ldx and ldo multiples of 8, and
+//   16-byte aligned x, out, W1, w2r, a1 and b1.
+// - fp32: a1, b1 zero-padded to C32 = C rounded up to 32; W1 as
+//   w1_tf32x3_planes (C32/32, 2, 8, 128, 4) and W2 as w2_tf32x3_planes (12, 2,
+//   8, 96, 4) of ops/dense.py (tf32 big and small planes per chunk, in the
+//   order of wgmma_tf32.cuh); C and ldx multiples of 4 and x 16-byte aligned
+//   (the wrapper pads x where they are not); any ldo.
 
 int fdgan_dense_layer_f32(const void* x, const void* a1, const void* b1, const void* w1,
                           const void* a2, const void* b2, const void* w2, void* out, int B,
                           int H, int W, int C, int ldx, int ldo, void* stream) {
-  if (int err = set_smem(dense_layer_f32_kernel, F32_K1_SMEM)) return err;
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
-  dense_layer_f32_kernel<<<grid, THREADS, F32_K1_SMEM, (cudaStream_t)stream>>>(
+  if (int err = set_smem(dense_layer_tf32x3_kernel, TF1_SMEM)) return err;
+  const long long ntiles = (long long)B * ((H + TF1T::TH - 1) / TF1T::TH) * ((W + TF1T::TW - 1) / TF1T::TW);
+  static int resident[MAX_DEVICES] = {};
+  int grid = 0;
+  if (int err = persistent_grid(dense_layer_tf32x3_kernel, TF1_THREADS, TF1_SMEM, ntiles, 1, &grid, resident))
+    return err;
+  const int vec_out = ldo % 2 == 0 && (uintptr_t)out % 8 == 0;  // float2 stores
+  dense_layer_tf32x3_kernel<<<grid, TF1_THREADS, TF1_SMEM, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)a1, (const float*)b1, (const float*)w1, (const float*)a2,
-      (const float*)b2, (const float*)w2, (float*)out, H, W, C, ldx, ldo);
+      (const float*)b2, (const float*)w2, (float*)out, B, H, W, C, ldx, ldo, vec_out);
   return (int)cudaGetLastError();
 }
 
@@ -778,13 +1152,30 @@ int fdgan_dense_layer_bf16(const void* x, const void* a1, const void* b1, const 
   return (int)cudaGetLastError();
 }
 
-// psum, psq: fp32 (ceil(npix/192), 128); npix = B*H*W
+static int tf2_resident[MAX_DEVICES] = {};
+
+static int tf2_grid(int npix, int* grid) {
+  if (int err = set_smem(h_stats_tf32x3_kernel, TF2_SMEM)) return err;
+  return persistent_grid(h_stats_tf32x3_kernel, TW1_THREADS, TF2_SMEM, (npix + TW1_ROWS - 1) / TW1_ROWS, 1, grid,
+                         tf2_resident);
+}
+
+// the rows of partials fdgan_h_stats_f32 writes for npix pixels on the current
+// device (its grid), or minus a CUDA error code
+int fdgan_h_stats_f32_blocks(int npix) {
+  int grid = 0;
+  if (int err = tf2_grid(npix, &grid)) return -err;
+  return grid;
+}
+
+// psum, psq: float64 (fdgan_h_stats_f32_blocks(npix), 128); npix = B*H*W
 int fdgan_h_stats_f32(const void* x, const void* a1, const void* b1, const void* w1, void* psum,
                       void* psq, int npix, int C, int ldx, void* stream) {
-  if (int err = set_smem(h_stats_f32_kernel, F32_K2_SMEM)) return err;
-  h_stats_f32_kernel<<<(npix + NPIX - 1) / NPIX, THREADS, F32_K2_SMEM, (cudaStream_t)stream>>>(
-      (const float*)x, ldx, (const float*)a1, (const float*)b1, (const float*)w1, (float*)psum,
-      (float*)psq, npix, C);
+  int grid = 0;
+  if (int err = tf2_grid(npix, &grid)) return err;
+  h_stats_tf32x3_kernel<<<grid, TW1_THREADS, TF2_SMEM, (cudaStream_t)stream>>>(
+      (const float*)x, ldx, (const float*)a1, (const float*)b1, (const float*)w1, (double*)psum, (double*)psq, npix,
+      C);
   return (int)cudaGetLastError();
 }
 
@@ -841,6 +1232,19 @@ int fdgan_tw1_stamps(void* out, int reset) {
   (void)out, (void)reset;
   return (int)cudaErrorNotSupported;
 #endif
+}
+
+// d (64, n) fp32 = reps * a . b for fp32 a (64, k) and b as w1_tf32x3_planes lays
+// it out, (k/32, 2, 8, n, 4); n 96 or 128, k 32 or 64; every one of ``blocks``
+// blocks computes it, block 0 writes it
+int fdgan_tf32x3_selfcheck(const void* a, const void* bp, void* d, int n, int k, int reps, int blocks, void* stream) {
+  if (reps < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n == 96 && k == 32) return launch_tf32x3_selfcheck<96, 32>(a, bp, d, reps, blocks, st);
+  if (n == 96 && k == 64) return launch_tf32x3_selfcheck<96, 64>(a, bp, d, reps, blocks, st);
+  if (n == 128 && k == 32) return launch_tf32x3_selfcheck<128, 32>(a, bp, d, reps, blocks, st);
+  if (n == 128 && k == 64) return launch_tf32x3_selfcheck<128, 64>(a, bp, d, reps, blocks, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* fdgan_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

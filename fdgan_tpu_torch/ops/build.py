@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dense_layer.cu", "freq_filters.cu", "probes.cu", "channel_stats.cu")
-HEADERS = ("mma_bf16.cuh", "wgmma_bf16.cuh")  # included by the sources: part of the build's hash
+HEADERS = ("mma_bf16.cuh", "wgmma_bf16.cuh", "wgmma_tf32.cuh")  # included by the sources: part of the build's hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,11 +33,13 @@ _SIGNATURES = {
     "fdgan_dense_layer_f32": [_P] * 8 + [_I] * 6 + [_P],
     "fdgan_dense_layer_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "fdgan_h_stats_f32": [_P] * 6 + [_I] * 3 + [_P],
+    "fdgan_h_stats_f32_blocks": [_I],
     "fdgan_h_stats_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "fdgan_h_stats_bf16_mma": [_P] * 6 + [_I] * 3 + [_P],
     "fdgan_h_stats_bf16_blocks": [_I],
     "fdgan_h_stats_rows": [],
     "fdgan_tw1_stamps": [_P, _I],
+    "fdgan_tf32x3_selfcheck": [_P] * 3 + [_I] * 4 + [_P],
     "fdgan_channel_stats_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "fdgan_channel_stats_blocks": [_I, _I],
     "fdgan_freq_filters_f32": [_P] * 3 + [_I] * 3 + [_P],

@@ -156,6 +156,68 @@ def w1_tw1_planes(w1: torch.Tensor) -> torch.Tensor:
     return padded.reshape(c64 // 64, 4, 4, 2, 2, n).permute(0, 2, 3, 5, 1, 4).reshape(c64 // 8, n, 8)
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """Each fp32 element rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: to
+    10 mantissa bits, to nearest with ties away from zero, the 13 low bits
+    of the result zero (subnormals alike; a value past tf32's largest
+    rounds to inf; NaN stays NaN). torch has no tf32 dtype: the rounding is
+    integer arithmetic on the bits, whose sign bit stands apart, so adding
+    half of the dropped bits' range rounds the magnitude."""
+    v = v.float()
+    bits = v.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(v), v, rounded)
+
+
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) = (tf32(v), tf32(v − big)), as the fp32 kernels split
+    their operands for 3×TF32 products (``csrc/wgmma_tf32.cuh``): big + small
+    holds v to ~2⁻²² of |v|."""
+    big = tf32_round(v)
+    return big, tf32_round(v.float() - big)
+
+
+def w1_tf32x3_planes(w1: torch.Tensor) -> torch.Tensor:
+    """W1 (C, 128) for the fp32 kernels: rows zero-padded to a multiple of
+    32, each chunk of 32 channels as its tf32 big planes, then its small
+    planes, (C32/32, 2, 8, 128, 4) with ``planes[c, part, p, n, e]`` the
+    part of ``w1[32c + 8e + p, n]``. It is the shared-memory layout of the
+    kernels' ``wgmma`` descriptors (K-major planes of four k) in the channel
+    order that gives a thread eight consecutive channels
+    (``csrc/wgmma_tf32.cuh``): a chunk is 32 contiguous KB, one bulk copy."""
+    c, n = w1.shape
+    c32 = -(-c // 32) * 32
+    parts = torch.stack(tf32_split(F.pad(w1.float(), (0, 0, 0, c32 - c))))  # (2, C32, n)
+    return parts.reshape(2, c32 // 32, 4, 8, n).permute(1, 0, 3, 4, 2).contiguous()
+
+
+def w2_tf32x3_planes(w2: torch.Tensor) -> torch.Tensor:
+    """W2 (3, 3, 128, 32), HWIO, for the fp32 K1: twelve chunks, one per
+    kernel row dy and 32 channels kc of g (chunk 4·dy + kc), each as its tf32
+    big planes then its small planes, (12, 2, 8, 96, 4) with
+    ``planes[4dy + kc, part, p, 32dx + n, e]`` the part of
+    ``w2[dy, dx, 32kc + 8e + p, n]``: the three taps dx of a kernel row side by
+    side in N = 96, as the conv's products take them."""
+    parts = torch.stack(tf32_split(w2)).reshape(2, 3, 3, 4, 4, 8, GROWTH)  # part, dy, dx, kc, e, p, n
+    return parts.permute(1, 3, 0, 5, 2, 6, 4).reshape(12, 2, 8, 3 * GROWTH, 4).contiguous()
+
+
+def _f32_operands(x, a1, b1):
+    """x, a1, b1 as the fp32 kernels take them: a1 and b1 zero-padded to a
+    multiple of 32 channels, and x as it is where C and its pixel stride are
+    multiples of 4 and it is 16-byte aligned (its 16-byte loads), else a
+    contiguous copy with C zero-padded to a multiple of 4. Returns (x, a1,
+    b1, C, ld) for the launch."""
+    c, ld = x.shape[-1], pixel_stride(x)
+    c32 = -(-c // 32) * 32
+    a1k, b1k = (F.pad(_on_device(t, x, torch.float32).reshape(-1), (0, c32 - c)) for t in (a1, b1))
+    if c % 4 or ld % 4 or x.data_ptr() % 16:
+        c4 = -(-c // 4) * 4
+        x = F.pad(x, (0, c4 - c)).contiguous()
+        c, ld = c4, c4
+    return x, a1k, b1k, c, ld
+
+
 def _on_device(t: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
     """A contiguous copy of ``t`` on x's device in ``dtype`` (a no-op when it
     already is one); the kernels take raw pointers."""
@@ -187,16 +249,20 @@ def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None) ->
 
     lib = build.load()
     bsz, h, w, _ = x.shape
-    a1k, b1k, a2k, b2k = (_on_device(t, x, torch.float32) for t in (a1, b1, a2, b2))
-    # W2 as (9·128, 32) for fp32; for bf16 as (9, 32, 128), per tap the
-    # inputs of each output channel
-    w2k = _on_device(w2 if x.dtype == torch.float32 else w2.permute(0, 1, 3, 2), x, x.dtype)
+    a2k, b2k = (_on_device(t, x, torch.float32) for t in (a2, b2))
     entry = f"fdgan_dense_layer_{_KERNEL_DTYPES[x.dtype]}"
     with torch.cuda.device(x.device):
-        w1k = _on_device(w1, x, x.dtype)
-        w1k = w1k if x.dtype == torch.float32 else w1_planes(w1k)
+        if x.dtype == torch.float32:
+            xk, a1k, b1k, c, ldx = _f32_operands(x, a1, b1)
+            w1k = w1_tf32x3_planes(_on_device(w1, x, torch.float32))
+            w2k = w2_tf32x3_planes(_on_device(w2, x, torch.float32))
+        else:  # W2 as (9, 32, 128): per tap the inputs of each output channel
+            xk = x
+            a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
+            w1k = w1_planes(_on_device(w1, x, x.dtype))
+            w2k = _on_device(w2.permute(0, 1, 3, 2), x, x.dtype)
         err = getattr(lib, entry)(
-            x.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
+            xk.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
             a2k.data_ptr(), b2k.data_ptr(), w2k.data_ptr(), out.data_ptr(),
             bsz, h, w, c, ldx, ldo, _stream(x),
         )
@@ -206,9 +272,9 @@ def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None) ->
 
 
 def _run_k2(x, a1, b1, w1, mma: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2 (bf16: its ``wgmma`` kernel, or with ``mma`` its
-    ``mma.sync`` body) and reduce its per-block partials; raises on a CUDA
-    error."""
+    """Launch K2 (its ``wgmma`` kernel: 3×TF32 products in fp32, bf16 ones in
+    bf16; with ``mma`` the bf16 ``mma.sync`` body) and reduce its per-block
+    partials; raises on a CUDA error."""
     if x.device.type != "cuda":
         raise ValueError(f"h_batch_stats runs its kernel on cuda, got {x.device}")
     c, ldx = _check_inputs(x, a1, b1, w1)
@@ -216,19 +282,25 @@ def _run_k2(x, a1, b1, w1, mma: bool = False) -> Tuple[torch.Tensor, torch.Tenso
 
     lib = build.load()
     npix = x.numel() // c
-    a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
+    xk = x
     with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16 and not mma:
-            entry, w1k, partial = "fdgan_h_stats_bf16", w1_tw1_planes(_on_device(w1, x, x.dtype)), torch.float64
-            rows = lib.fdgan_h_stats_bf16_blocks(npix)  # one row per persistent block
-            build.check(lib, -min(rows, 0), "fdgan_h_stats_bf16_blocks")
-        else:
-            entry, partial = f"fdgan_h_stats_{_KERNEL_DTYPES[x.dtype]}{'_mma' if mma else ''}", torch.float32
-            w1k = _on_device(w1, x, x.dtype)
-            w1k = w1k.t().contiguous() if mma else w1k  # the mma.sync body stages W1 as (128, C)
+        if mma:
+            entry, partial = "fdgan_h_stats_bf16_mma", torch.float32
+            a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
+            w1k = _on_device(w1, x, x.dtype).t().contiguous()  # the mma.sync body stages W1 as (128, C)
             rows = -(-npix // lib.fdgan_h_stats_rows())  # one row per block of 192 pixels
+        else:
+            entry, partial = f"fdgan_h_stats_{_KERNEL_DTYPES[x.dtype]}", torch.float64
+            if x.dtype == torch.float32:
+                xk, a1k, b1k, c, ldx = _f32_operands(x, a1, b1)
+                w1k = w1_tf32x3_planes(_on_device(w1, x, torch.float32))
+            else:
+                a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
+                w1k = w1_tw1_planes(_on_device(w1, x, x.dtype))
+            rows = getattr(lib, f"{entry}_blocks")(npix)  # one row per persistent block
+            build.check(lib, -min(rows, 0), f"{entry}_blocks")
         part = torch.empty((2, rows, INTER), device=x.device, dtype=partial)  # sums of h, of h·h
-        err = getattr(lib, entry)(x.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
+        err = getattr(lib, entry)(xk.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
                                   part[0].data_ptr(), part[1].data_ptr(), npix, c, ldx, _stream(x))
     build.check(lib, err, entry)
     # the partials are reduced in float64: at 8×512² the count is 2.1 M, and
@@ -254,6 +326,37 @@ def _launch_k2_mma(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the mma.sync body is bfloat16 only, got {x.dtype}")
     return _run_k2(x, a1, b1, w1, mma=True)
+
+
+def tf32x3_selfcheck(a: torch.Tensor, b: torch.Tensor, reps: int = 1, blocks: int = 1) -> torch.Tensor:
+    """(64, N) fp32 = reps · a · b for fp32 a (64, K) and b (K, N), N 96 or 128,
+    K 32 or 64: one tile through the fp32 kernels' 3×TF32 helpers
+    (``csrc/wgmma_tf32.cuh``: a split in registers into the A fragments of
+    ``wgmma``, b as ``w1_tf32x3_planes`` lays it out). ``reps`` and ``blocks``
+    repeat the product, per block and over blocks: a launch to time. No path
+    runs it and it moves no launch count. The plain version (a float64
+    product) on the CPU."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"a and b must be float32, got {a.dtype} and {b.dtype}")
+    k, n = b.shape
+    if tuple(a.shape) != (64, k) or n not in (96, 128) or k not in (32, 64):
+        raise ValueError(f"a (64, K) and b (K, N), N 96 or 128, K 32 or 64; got {tuple(a.shape)} and {tuple(b.shape)}")
+    if reps < 1 or blocks < 1:
+        raise ValueError(f"reps and blocks must be positive, got {reps} and {blocks}")
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device}, b on {b.device}")
+    if a.device.type == "cpu":
+        return (reps * (a.double() @ b.double())).float()
+    from fdgan_tpu_torch.ops import build
+
+    lib = build.load()
+    d = torch.empty((64, n), device=a.device, dtype=torch.float32)
+    with torch.cuda.device(a.device):
+        a = a.contiguous()
+        planes = w1_tf32x3_planes(b)
+        err = lib.fdgan_tf32x3_selfcheck(a.data_ptr(), planes.data_ptr(), d.data_ptr(), n, k, reps, blocks, _stream(a))
+    build.check(lib, err, "fdgan_tf32x3_selfcheck")
+    return d
 
 
 class _FusedLayer(torch.autograd.Function):

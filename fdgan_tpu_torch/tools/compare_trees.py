@@ -1,4 +1,4 @@
-"""Time K3 and the generator's forward of one checkout of the port, on one CUDA GPU.
+"""Time K1, K2, K3 and the generator's forward of one checkout of the port, on one CUDA GPU.
 
     python fdgan_tpu_torch/tools/compare_trees.py [--root DIR] [--label NAME]
 
@@ -18,11 +18,21 @@ label:
   ``device_ms``, the ms per launch of 40 launches queued behind ~20 ms of
   products (the device alone, no wait for the host), ``bound_ms`` (24 bytes a
   pixel in bf16 at 3.35 TB/s) and ``share`` = bound / device;
+- ``k1`` / ``k2``: the fp32 dense-layer kernels (``fused_dense_layer``,
+  ``h_batch_stats``) at the demo's batch-1 layer shapes at 1024²
+  (``DENSE_SHAPES``), inputs from seed 0, TF32 off: ``device_ms`` as for K3
+  (20 launches), ``max_abs_err`` against the tree's plain twin in full fp32
+  (K2: the larger of the mean's and the variance's), and the 3×TF32 bound
+  (``bound_ms``, three tf32 products per fp32 product at 495 TFLOP/s, or the
+  bytes at 3.35 TB/s, whichever is larger) with ``share`` = bound / device;
 - ``generator``: the full-width generator (seed-0 weights, bf16, 8×512²,
   batch BN, ``inference_mode``): ms per forward (CUDA events over 5 forwards
   after 2) and ``peak_gib`` (``max_memory_allocated`` over one forward, less
   what was allocated before it), through ``FDGAN.forward`` and, where the
-  tree has it, ``models.fdgan_fast.apply``.
+  tree has it, ``models.fdgan_fast.apply``;
+- ``demo_fp32``: the demo's forward, fp32 (TF32 off), batch BN, batch 1 at
+  1024² (seed-0 weights; ``fdgan_fast.apply`` where the tree has it): ms per
+  forward as above.
 
 Needs a CUDA device; raises without one.
 """
@@ -40,6 +50,41 @@ import numpy as np
 import torch
 
 K3_SHAPES = [(4, 256, 256, 3), (8, 512, 512, 3)]
+# the demo's dense layers at 1024², batch 1: block 1's first, block 2's first, block 3's first and last
+DENSE_SHAPES = [(1, 1024, 1024, 64), (1, 512, 512, 128), (1, 256, 256, 256), (1, 256, 256, 992)]
+
+
+def _dense_inputs(shape):
+    """A dense layer's fp32 inputs from seed 0: x, a1, b1, w1, a2, b2, w2 on the card."""
+    rng = np.random.default_rng(0)
+    c = shape[-1]
+    arrays = [rng.uniform(size=shape), rng.uniform(0.5, 1.5, c), rng.normal(0, 0.3, c),
+              rng.standard_normal((c, 128)) / np.sqrt(c), rng.uniform(0.5, 1.5, 128), rng.normal(0, 0.3, 128),
+              rng.standard_normal((3, 3, 128, 32)) / np.sqrt(9 * 128)]
+    return [torch.tensor(a, dtype=torch.float32, device="cuda") for a in arrays]
+
+
+def _dense_rows(label, dense, timing):
+    """One JSON line per fp32 kernel and shape: device ms, error against the twin, 3×TF32 bound."""
+    for shape in DENSE_SHAPES:
+        args = _dense_inputs(shape)
+        npix, c = shape[0] * shape[1] * shape[2], shape[-1]
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), torch.inference_mode():
+            f_k, f_p = dense.fused_dense_layer(*args), dense.layer_reference(*args)
+            s_k, s_p = dense.h_batch_stats(*args[:4]), dense.h_stats_reference(*args[:4])
+            cases = {
+                "k1": (lambda: dense.fused_dense_layer(*args), (f_k - f_p).abs().max().item(),
+                       2 * npix * (c * 128 + 9 * 128 * 32), 4 * npix * (c + 32)),
+                "k2": (lambda: dense.h_batch_stats(*args[:4]),
+                       max((a - b).abs().max().item() for a, b in zip(s_k, s_p)), 2 * npix * c * 128, 4 * npix * c),
+            }
+            for name, (fn, err, flop, moved) in cases.items():
+                ms = timing.device_ms(fn)
+                bound = 1e3 * max(3 * flop / 495e12, moved / 3.35e12)
+                print(json.dumps({"label": label, name: list(shape), "dtype": "float32", "device_ms": ms,
+                                  "max_abs_err": err, "bound_ms": bound, "share": bound / ms}), flush=True)
+        del args, f_k, f_p
+        torch.cuda.empty_cache()
 
 
 def _timing():
@@ -62,7 +107,7 @@ def main(argv=None) -> int:
     timing = _timing()
     sys.path.insert(0, str(Path(args.root).resolve()))
     from fdgan_tpu_torch.models.fdgan import FDGAN
-    from fdgan_tpu_torch.ops import freq
+    from fdgan_tpu_torch.ops import dense, freq
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
@@ -74,6 +119,7 @@ def main(argv=None) -> int:
         print(json.dumps({"label": args.label, "root": str(src), "k3": list(shape), "dtype": "bfloat16",
                           "device_ms": ms, "bound_ms": bound, "share": bound / ms}), flush=True)
         del x
+    _dense_rows(args.label, dense, timing)
     try:
         from fdgan_tpu_torch.models import fdgan_fast
     except ImportError:  # a tree from before the fast forward
@@ -89,6 +135,15 @@ def main(argv=None) -> int:
             print(json.dumps({"label": args.label, "generator": name, "shape": [8, 512, 512, 3], "bn_mode": "batch",
                               "dtype": "bfloat16", "ms": ms, "img_s": 8000.0 / ms, "peak_gib": timing.peak_gib(fn)}),
                   flush=True)
+    del model, x, forwards
+    torch.cuda.empty_cache()
+    model = FDGAN(device="cuda", generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=(1, 1024, 1024, 3)).astype(np.float32)).cuda()
+    forward = (lambda: fdgan_fast.apply(model, x, bn_mode="batch")) if fdgan_fast else (lambda: model(x, bn_mode="batch"))
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ms = timing.events_ms(forward)
+    print(json.dumps({"label": args.label, "demo_fp32": [1, 1024, 1024, 3], "bn_mode": "batch", "dtype": "float32",
+                      "ms": ms}), flush=True)
     return 0
 
 

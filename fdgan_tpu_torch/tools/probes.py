@@ -57,6 +57,7 @@ from fdgan_tpu_torch.ops import probes
 # data-sheet peaks of one H100 SXM at its full power limit
 PEAK_BYTES_S = 3.35e12
 PEAK_TENSOR_FLOPS = 989e12   # bf16, dense
+PEAK_TF32_FLOPS = 495e12     # tf32 in the tensor cores, dense
 PEAK_CUDA_CORE_FLOPS = 67e12
 
 SEGMENT_WIDTHS = (64, 32, 32, 32)  # dense block 1 before its fourth layer
@@ -208,10 +209,14 @@ PROBES: Dict[str, Probe] = {
 }
 
 
-def bound_ms(operations: float, moved: float, tensor_cores: bool = True) -> Tuple[float, str]:
-    """The least time in ms the card could take, and which side binds."""
+def bound_ms(operations: float, moved: float, tensor_cores: bool = True, tf32: bool = False) -> Tuple[float, str]:
+    """The least time in ms the card could take, and which side binds:
+    ``operations`` at the tensor cores' bf16 rate, their tf32 rate
+    (``tf32``: a 3×TF32 product counts three), or the CUDA cores' fp32 rate
+    (``tensor_cores=False``)."""
     by_bytes = moved / PEAK_BYTES_S
-    by_ops = operations / (PEAK_TENSOR_FLOPS if tensor_cores else PEAK_CUDA_CORE_FLOPS)
+    rate = PEAK_TF32_FLOPS if tf32 else PEAK_TENSOR_FLOPS if tensor_cores else PEAK_CUDA_CORE_FLOPS
+    by_ops = operations / rate
     return 1000 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -409,6 +414,30 @@ def wgmma_rates(seed: int = 0) -> List[dict]:
             count = WGMMA_RATE_REPS * (k // 16) * per_sm
             rows.append({"wgmma": f"m64n{n}k16", "warpgroups_per_sm": per_sm, "ns": 1e6 * ms / count,
                          "tflops": 2 * 64 * n * 16 * count * sms / ms / 1e9})
+    return rows
+
+
+def tf32x3_rates(seed: int = 0) -> List[dict]:
+    """What one 3×TF32 k-step of the fp32 dense-layer kernels costs an SM:
+    ``ops.dense.tf32x3_selfcheck`` (K = 64, A split in registers, the three
+    m64nNk8 tf32 products a k-step takes) repeated by 1, 2 and 3 warpgroups
+    per SM on every SM, CUDA events around 3 launches. ``ns`` is per k-step per
+    SM; ``tflops`` counts the fp32 products (a third of the tf32 work), the
+    rate K1's and K2's products cannot pass. CUDA only."""
+    from fdgan_tpu_torch.ops import dense
+
+    rng = np.random.default_rng(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    a = torch.tensor(rng.standard_normal((64, 64)), dtype=torch.float32, device="cuda")
+    rows = []
+    for n in (3 * probes.GROWTH, probes.INTER):
+        b = torch.tensor(rng.standard_normal((64, n)), dtype=torch.float32, device="cuda")
+        for per_sm in (1, 2, 3):
+            ms = cuda_ms(lambda: dense.tf32x3_selfcheck(a, b, reps=WGMMA_RATE_REPS, blocks=sms * per_sm),
+                         launches=3, warmup=1)
+            count = WGMMA_RATE_REPS * (64 // 8) * per_sm
+            rows.append({"tf32x3": f"m64n{n}k8 x3", "warpgroups_per_sm": per_sm, "ns": 1e6 * ms / count,
+                         "tflops": 2 * 64 * n * 8 * count * sms / ms / 1e9})
     return rows
 
 

@@ -140,6 +140,63 @@ def test_k2_wgmma_matches_twin_and_mma_body(cuda, shape):
         assert torch.equal(got[0], m) and torch.equal(got[1], v)
 
 
+@pytest.mark.parametrize("shape", [
+    (2, 16, 24, 64), (1, 10, 17, 40), (2, 24, 40, 992),   # test_kernels_match_twins' shapes
+    (1, 5, 7, 64),      # smaller than one 8x16 tile
+    (1, 37, 53, 96),    # neither H nor W a multiple of the tile, C three chunks of 32
+    (2, 64, 64, 128),   # more tiles than one round of the persistent blocks' first tiles
+])
+def test_f32_kernels_match_twins_and_repeat_their_bits(cuda, exact, shape):
+    """fp32 K1 and K2 (3xTF32 products on wgmma) against their twins in
+    full fp32, at the JAX suite's fp32 tolerances; a second launch and a
+    launch from a buffer view give the same bits (static tile walks; the
+    addresses change, not the arithmetic)."""
+    args = _layer_args(shape, 6, cuda, torch.float32)
+    dense.reset_launch_counts()
+    f = dense.fused_dense_layer(*args)
+    m, v = dense.h_batch_stats(*args[:4])
+    torch.cuda.synchronize()
+    assert (dense.k1_launches, dense.k2_launches) == (1, 1)
+    torch.testing.assert_close(f, dense.layer_reference(*args), **K1_TOL)
+    mr, vr = dense.h_stats_reference(*args[:4])
+    torch.testing.assert_close(m, mr, atol=1e-4, rtol=1e-4)  # test_pallas_dense.py:67-68
+    torch.testing.assert_close(v, vr, atol=1e-4, rtol=1e-3)
+    assert torch.equal(dense.fused_dense_layer(*args), f)
+    again = dense.h_batch_stats(*args[:4])
+    assert torch.equal(again[0], m) and torch.equal(again[1], v)
+    _, xv, out = _buffer_view(args[0], shape[-1] + 64)
+    with torch.inference_mode():
+        dense.fused_dense_layer(xv, *args[1:], out=out)
+    view = dense.h_batch_stats(xv, *args[1:4])
+    assert torch.equal(out, f) and torch.equal(view[0], m) and torch.equal(view[1], v)
+
+
+@pytest.mark.parametrize("c,ld", [(20, 52), (20, 53), (21, 53), (36, 70)])
+def test_f32_kernels_take_any_c_and_pixel_stride(cuda, exact, c, ld):
+    """fp32 inputs that the kernels' 16-byte loads cannot take as they are:
+    C = 20 in a buffer of ld 52 goes to the kernels directly; an odd ld, or
+    C % 4 != 0, makes the wrapper pad x to C % 4 == 0. Against the twins, and
+    from and into the buffer (ld 53: an odd ldo, stored element by element)
+    the bits of the contiguous launch, nothing else of the buffer written."""
+    args = _layer_args((2, 19, 37, c), 15, cuda, torch.float32)
+    f = dense.fused_dense_layer(*args)
+    m, v = dense.h_batch_stats(*args[:4])
+    torch.testing.assert_close(f, dense.layer_reference(*args), **K1_TOL)
+    mr, vr = dense.h_stats_reference(*args[:4])
+    torch.testing.assert_close(m, mr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(v, vr, atol=1e-4, rtol=1e-3)
+    buf, xv, out = _buffer_view(args[0], ld)
+    before = buf.clone()
+    dense.reset_launch_counts()
+    with torch.inference_mode():
+        dense.fused_dense_layer(xv, *args[1:], out=out)
+    view = dense.h_batch_stats(xv, *args[1:4])
+    torch.cuda.synchronize()
+    assert (dense.k1_launches, dense.k2_launches) == (1, 1)
+    assert torch.equal(out, f) and torch.equal(view[0], m) and torch.equal(view[1], v)
+    assert torch.equal(buf[..., :c], before[..., :c]) and torch.equal(buf[..., c + 32:], before[..., c + 32:])
+
+
 def test_k2_mma_body_is_bf16_only(cuda):
     args = _layer_args((1, 8, 8, 32), 7, cuda, torch.float32)
     with pytest.raises(TypeError, match="bfloat16 only"):
@@ -172,6 +229,30 @@ def test_wgmma_selfcheck_on_the_card(cuda):
     rows = probe_tool.wgmma_rates()
     assert [(r["wgmma"], r["warpgroups_per_sm"]) for r in rows] == [(f"m64n{n}k16", w) for n in (32, 96, 128) for w in (1, 2, 3)]
     assert all(r["ns"] > 0 and 0 < r["tflops"] < 1200 for r in rows)
+
+
+@pytest.mark.parametrize("n", [96, 128])
+@pytest.mark.parametrize("k", [32, 64])
+def test_tf32x3_selfcheck_on_the_card(cuda, n, k):
+    """One tile through the fp32 kernels' 3xTF32 helpers against a float64
+    product: within 3xTF32's error (~2^-21 of each product; one tf32
+    product would be ~2^-11), so the fragment layout, the channel order and
+    the weight planes agree; and the rate launch, which repeats it."""
+    rng = np.random.default_rng(n + k)
+    a = torch.tensor(rng.standard_normal((64, k)), dtype=torch.float32, device=cuda)
+    b = torch.tensor(rng.standard_normal((k, n)), dtype=torch.float32, device=cuda)
+    want = a.double() @ b.double()
+    got = dense.tf32x3_selfcheck(a, b)
+    assert (got.double() - want).abs().max().item() <= 2.0**-18 * (a.double().abs() @ b.double().abs()).max().item()
+    again = dense.tf32x3_selfcheck(a, b, reps=5, blocks=3)
+    torch.testing.assert_close(again.double(), 5 * want, rtol=1e-5, atol=1e-4)
+
+
+def test_tf32x3_rates_on_the_card(cuda):
+    rows = probe_tool.tf32x3_rates()
+    assert [(r["tf32x3"], r["warpgroups_per_sm"]) for r in rows] == [
+        (f"m64n{n}k8 x3", w) for n in (96, 128) for w in (1, 2, 3)]
+    assert all(r["ns"] > 0 and 0 < r["tflops"] < 200 for r in rows)
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -418,9 +499,10 @@ def test_k3_rejects_bad_inputs(cuda):
 
 
 def test_gradients_through_the_kernels_match_plain(cuda, exact):
-    """K1 and K2 inside a 2-layer block, K3 on its own: the backward is the
-    plain version's VJP on both sides; the forwards differ by K1's fp32
-    error (≤ 6e-6), which the later layer carries."""
+    """K1 and K2 inside a 2-layer fp32 block (their 3xTF32 kernels), K3 on
+    its own: the backward is the plain version's VJP on both sides; the
+    forwards differ by K1's fp32 error (≤ 6e-6), which the later layer
+    carries."""
     torch.manual_seed(0)
     block = DenseBlock(64, 2, device=cuda)
     x = torch.tensor(np.random.default_rng(10).uniform(size=(2, 16, 16, 64)), dtype=torch.float32, device=cuda)

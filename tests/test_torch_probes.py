@@ -285,6 +285,19 @@ def test_bound_is_the_larger_of_bytes_and_operations(work, want_ms, want_by):
     assert by == want_by and ms == pytest.approx(want_ms, rel=2e-3)
 
 
+@pytest.mark.parametrize("work, kw, want_ms, want_by", [
+    # fp32 K1 and K2 at the demo's block-1 layer (1x1024^2, C = 64): 3xTF32 (three tf32 products
+    # per fp32 product) at the tensor cores' tf32 rate, and the same work on the CUDA cores
+    ((3 * 2 * 2**20 * (64 * 128 + 9 * 128 * 32), 4 * 2**20 * (64 + 32)), dict(tf32=True), 0.5727, "operations"),
+    ((2 * 2**20 * (64 * 128 + 9 * 128 * 32), 4 * 2**20 * (64 + 32)), dict(tensor_cores=False), 1.4103, "operations"),
+    ((3 * 2 * 2**20 * 64 * 128, 4 * 2**20 * 64), dict(tf32=True), 0.1041, "operations"),
+    ((2 * 2**20 * 64 * 128, 4 * 2**20 * 64), dict(tensor_cores=False), 0.2564, "operations"),
+])
+def test_bound_at_the_tf32_and_cuda_core_rates(work, kw, want_ms, want_by):
+    ms, by = probe_tool.bound_ms(*work, **kw)
+    assert by == want_by and ms == pytest.approx(want_ms, rel=2e-3)
+
+
 def test_select_maps_pallas_probes_to_kernels():
     assert probe_tool.select("") is None
     assert probe_tool.select("p1,p5") == ["probe_mm", "probe_conv1", "probe_conv1_wgmma", "probe_conv2_taps9",
