@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, kernel-probe, demo,
-training-CLI and model-zoo paths once on one CUDA GPU, and check them.
+training-CLI, model-zoo and data-parallel paths once on one CUDA GPU, and
+check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp-ranks   # only phase 10's ranks: one per card over NCCL, and their step timed
 
 Run from the root of a checkout. Phases, each of which raises on failure:
 
@@ -132,11 +134,32 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    2 batches. Then,
    outside the path's count, K1 and K2 at C = 400 and 456 (densenet_dehaze's
    blocks 3 and 4; 16 and 8 modulo 32) against their twins, from contiguous
-   x and from the concat buffer's slice (the same bits), with their times.
+   x and from the concat buffer's slice (the same bits), with their times;
+10. data parallelism, ``FDGAN_TPU_DIST`` (build/dp), the kernels' counters
+   read around every run of the path ("dp"): (a) a process group of one rank
+   over NCCL, joined through ``dist.mesh.maybe_init_distributed`` with
+   explicit coordinates: 10 data-parallel train steps at 4×256² bf16 (no
+   perceptual term) in turns with phase 5's bare step, their launches per
+   step (K1 42, K2 42, K3 3, channel_stats 54) and their collectives (none),
+   and one fp32 2×64² step equal bit for bit to the step without a group
+   (under torch's deterministic implementations, which make two steps
+   without a group equal too); (c) ``cli.train.train`` in that group for one
+   epoch of 2 batches at 8×256² bf16: process 0's log and checkpoint, then
+   the state written as a JAX ``TrainState`` (``save_jax_checkpoint``), from
+   which the CLI resumes with its loaded state bit for bit the file's; (b)
+   two ranks on this one card over gloo (NCCL refuses two ranks on one
+   device), processes of ``python -m fdgan_tpu_torch.tools.dp_step`` killed
+   after 300 s, each on one row of a 2×64² batch through the kernels, with
+   the batch statistics global across the ranks: fp32 and fp32 with remat
+   against one process's kernel step on the whole batch at phase 5's
+   criteria (and the step's generator output within GEN_TOL), bf16 by the
+   PSNR criterion (the step's generator output against the fp32 step's, no
+   more than 1 dB below the one-process bf16 step's); each rank's launches
+   and collectives exact.
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
-launches per path, the training CLI's and the zoo's included; K1's and K2's
+launches per path, the training CLI's, the zoo's and "dp" included; K1's and K2's
 times at C = 400 and 456; the fp32 K1 and K2 as entries of their own, timed
 at 1×1024²×64 with their launches from the fp32 demo run); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -153,6 +176,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -1870,6 +1894,377 @@ def phase_zoo():
     return out, launches
 
 
+DP_TURN_STEPS = 5  # (a): steps per turn of the bare and the data-parallel step, 4×256² bf16, two turns each
+DP_FP32 = (2, 64)  # (a)'s bit-for-bit step and (b)'s global batch: phase 5's fp32 step, one row per rank in (b)
+DP_RUNS = {"fp32": "float32", "fp32_remat": "float32", "bf16": "bfloat16",  # (b): tools.dp_step's RUNS
+           "bf16_local_stats": "bfloat16"}  # the negative control: per-rank statistics, which must fail bf16's gate
+# (b)'s bf16 gate on the gradients handed to Adam (G's and D's, each relative L2 against one fp32 process's on
+# the whole batch): the data-parallel step's error no more than DP_BF16_GRAD_FACTOR times one bf16 process's
+DP_BF16_GRAD_FACTOR = 1.1  # on the H100, two ranks read 0.997× (G) and 0.980× (D), per-rank statistics 1.32×, 1.24×
+DP_CLI = dict(batch=8, size=256, batches=2)  # (c): the CLI's defaults, one epoch of 2 batches
+DP_TIMEOUT = 300  # seconds for (b)'s two ranks; a rank that hangs fails the phase
+DP_TIMED_STEPS = 10  # --dp-ranks: bf16 steps a side, data-parallel and bare, at TRAIN_SHAPE a rank
+# statistics combined over the ranks in one step's forwards: G's 3 block inputs, 42 new slices, 42 K2
+# outputs; D's 3 BNs in each of its 3 forwards; each with its all-reduce in the backward. Remat recomputes
+# the 42 K2 outputs, and combines them again, in the backward
+DP_COLLECTIVES = {"fp32": {"forward": 96, "backward": 96, "grads": 2, "metrics": 2},
+                  "fp32_remat": {"forward": 138, "backward": 96, "grads": 2, "metrics": 2},
+                  "bf16": {"forward": 96, "backward": 96, "grads": 2, "metrics": 2},
+                  "bf16_local_stats": {"forward": 0, "backward": 0, "grads": 2, "metrics": 2}}
+
+
+def dist_counts():
+    from fdgan_tpu_torch.dist import mesh
+    from fdgan_tpu_torch.dist import stats as dist_stats
+
+    return dict(dist_stats.collectives) | dict(mesh.counts)
+
+
+def reset_dist_counts():
+    from fdgan_tpu_torch.dist import mesh
+    from fdgan_tpu_torch.dist import stats as dist_stats
+
+    dist_stats.reset_counts()
+    mesh.reset_counts()
+
+
+def same_train_state(a, b) -> bool:
+    """G, D, both Adams and the counts, bit for bit."""
+    import torch
+
+    same = (a.step, a.d_updates) == (b.step, b.d_updates)
+    for net in ("g", "d"):
+        sa, sb = getattr(a, net).state_dict(), getattr(b, net).state_dict()
+        same &= all(torch.equal(v, sb[k]) for k, v in sa.items())
+        oa, ob = getattr(a, f"{net}_opt").state_dict()["state"], getattr(b, f"{net}_opt").state_dict()["state"]
+        same &= oa.keys() == ob.keys() and all(torch.equal(v, ob[i][k]) for i, e in oa.items() for k, v in e.items())
+    return bool(same)
+
+
+def run_ranks(blob_path, out_dir, nprocs, backend, timed_steps=0):
+    """``python -m fdgan_tpu_torch.tools.dp_step`` as each of ``nprocs``
+    ranks over ``backend``, under DP_TIMEOUT; returns each rank's output."""
+    import os
+
+    import torch
+
+    from fdgan_tpu_torch.dist import mesh
+
+    try:
+        mesh.run_local_ranks(lambda pid: [
+            sys.executable, "-m", "fdgan_tpu_torch.tools.dp_step", "--input", blob_path,
+            "--out", os.path.join(out_dir, f"rank{pid}.pt"), "--device", "cuda", "--backend", backend,
+            "--time", str(timed_steps)], nprocs, DP_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        raise AssertionError(f"dp: {e}")
+    return [torch.load(os.path.join(out_dir, f"rank{pid}.pt"), weights_only=True) for pid in range(nprocs)]
+
+
+def phase_dp():
+    """Phase 10: the data-parallel train step (``FDGAN_TPU_DIST``) on the
+    card. (a) World size 1 over NCCL, joined through
+    ``dist.mesh.maybe_init_distributed`` with explicit coordinates: the
+    data-parallel step at 4×256² bf16 in turns with phase 5's bare step
+    (bare, dp, dp, bare), its launches per step (phase 5's) and its
+    collectives (none); one fp32 2×64² step equal bit for bit to the step
+    without a group. (c) ``cli.train.train`` in that group, one epoch of 2
+    batches at the CLI's defaults: process 0's log and checkpoint; then the
+    state written as a JAX ``TrainState`` (``save_jax_checkpoint``), from
+    which the CLI resumes, its loaded state bit for bit the file's. (b) Two
+    ranks on this one card over gloo (NCCL takes one rank per device), each
+    a process of ``tools.dp_step`` on one row of a 2×64² batch through the
+    kernels: fp32, fp32 with remat, bf16, and bf16 with per-rank statistics
+    (the control). fp32 against the single-process kernel step on the whole
+    batch at phase 5's criteria, and the step's generator output within
+    GEN_TOL; bf16 against the fp32 step, measured by the single-process bf16
+    step: the PSNR of the step's generator output no more than 1 dB below,
+    the gradients handed to Adam within DP_BF16_GRAD_FACTOR of its error;
+    the control must fail that bf16 gate; every rank's launches and
+    collectives exact. Returns the phase's numbers and the path's launches
+    by dtype (bf16, fp32)."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from fdgan_tpu_torch.cli import train as cli
+    from fdgan_tpu_torch.data.h5 import DataLoader
+    from fdgan_tpu_torch.dist import mesh
+    from fdgan_tpu_torch.io.checkpoint import jax_train_state_leaves, save_jax_checkpoint
+    from fdgan_tpu_torch.io.msgpack import unpack_leaves
+    from fdgan_tpu_torch.losses.composite import LossWeights
+    from fdgan_tpu_torch.train.loop import Transform, create_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    root = os.path.join("build", "dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    weights = LossWeights(perceptual=0.0)
+    launches = {"bf16": collections.Counter(), "fp32": collections.Counter()}
+    out = {}
+
+    def counted(dtype, fn):
+        before = all_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches[dtype].update({k: v - before[k] for k, v in all_counts().items()})
+        return res
+
+    env = {"FDGAN_TPU_DIST": "1", "FDGAN_TPU_DIST_COORD": f"localhost:{mesh.free_port()}",
+           "FDGAN_TPU_DIST_NPROCS": "1", "FDGAN_TPU_DIST_PID": "0"}
+    os.environ.update(env)
+    try:
+        mesh.maybe_init_distributed("cuda")
+        if not (dist.is_initialized() and dist.get_backend() == "nccl" and mesh.world_size() == 1):
+            raise AssertionError("dp: maybe_init_distributed did not join a one-rank NCCL group")
+        group = mesh.process_group()
+
+        # (a) the data-parallel step at world size 1 against the bare step, bf16 4×256², in turns
+        b, size, _ = TRAIN_SHAPE
+        batches = [train_batch(b, size, 100 + i) for i in range(2 * DP_TURN_STEPS)]
+        runs = {}
+        for name, grp in (("bare", None), ("dp", group)):
+            state, tx_g, tx_d = create_train_state(0, device="cuda")
+            step = make_train_step(tx_g, tx_d, weights, compute_dtype=torch.bfloat16, group=grp)
+            step(state, *batches[0])  # warm-up
+            runs[name] = {"state": state, "step": step, "seconds": 0.0, "steps": 0}
+        torch.cuda.synchronize()
+        dp_launches = collections.Counter()
+        reset_dist_counts()
+        for name in ("bare", "dp", "dp", "bare"):
+            r = runs[name]
+            before = all_counts()
+            t = time.perf_counter()
+            for i in range(DP_TURN_STEPS):
+                r["step"](r["state"], *batches[r["steps"] + i])
+            torch.cuda.synchronize()
+            r["seconds"] += time.perf_counter() - t
+            r["steps"] += DP_TURN_STEPS
+            if name == "dp":
+                dp_launches.update({k: v - before[k] for k, v in all_counts().items()})
+        launches["bf16"].update(dp_launches)
+        collectives_world1 = dist_counts()
+        per_step = {k: v / runs["dp"]["steps"] for k, v in dp_launches.items()}
+        ms = {name: 1000 * r["seconds"] / r["steps"] for name, r in runs.items()}
+        out["world1_bf16_4x256"] = {"ms_per_step": ms["dp"], "bare_ms_per_step": ms["bare"],
+                                    "dp_over_bare": ms["dp"] / ms["bare"], "launches_per_step": per_step,
+                                    "collectives": collectives_world1}
+        log(f"dp world 1 (nccl) bf16 {b}x{size}^2: {json.dumps(out['world1_bf16_4x256'])}")
+        if per_step != REMAT_LAUNCHES["none"] or any(collectives_world1.values()):
+            raise AssertionError(f"dp world 1: launches per step {per_step} (expected {REMAT_LAUNCHES['none']}), "
+                                 f"collectives {collectives_world1} (expected none)")
+        del runs, batches
+        torch.cuda.empty_cache()
+
+        # (a) one fp32 step in the group of one against the step without a group: the same bits. Two steps
+        # without a group differ in G's gradients run to run unless torch takes its deterministic
+        # implementations (PERF.md §6): the comparison runs under them, and holds the step without a
+        # group against itself too
+        haze, gt = train_batch(*DP_FP32, 6)
+        states = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with exact_fp32(), torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for name, grp in (("single", None), ("dp", group), ("single_again", None)):
+                    state, tx_g, tx_d = create_train_state(0, device="cuda")
+                    step = make_train_step(tx_g, tx_d, weights, group=grp)
+                    _, m = counted("fp32", lambda: step(state, haze, gt)) if name == "dp" else step(state, haze, gt)
+                    states[name] = (state, m)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        single, single_metrics = states["single"]
+        bits = {name: same_train_state(st, single) and all(torch.equal(v, single_metrics[k]) for k, v in m.items())
+                for name, (st, m) in states.items() if name != "single"}
+        out["world1_fp32_bit_for_bit"] = bits
+        out["world1_fp32_nondeterministic_ops"] = sorted({str(w.message)[:200] for w in caught})
+        log(f"dp world 1 fp32 {DP_FP32[0]}x{DP_FP32[1]}^2 bit for bit against the step without a group: {bits}; "
+            f"warnings {out['world1_fp32_nondeterministic_ops']}")
+        if not all(bits.values()):
+            raise AssertionError(f"dp world 1: the fp32 step differs from the step without a group ({bits})")
+        del states, single
+
+        # (c) cli.train.train in the group of one: 2 steps, then a resume from the state as a JAX TrainState
+        c = DP_CLI
+        cli_pairs = pairs(c["batch"] * c["batches"], c["size"], 3)
+        exp, exp_jax = os.path.join(root, "cli"), os.path.join(root, "cli_jax")
+        args = ["--precision", "bf16", "--lambdaPerceptual", "0", "--logEvery", "1", "--batchSize", str(c["batch"]),
+                "--imageSize", str(c["size"]), "--epochs", "1"]
+        resumed = []
+
+        def check_load(orig):
+            def wrapped(path, state, tx_g, tx_d):
+                res = orig(path, state, tx_g, tx_d)
+                with open(path, "rb") as f:
+                    file = unpack_leaves(f.read())
+                live = jax_train_state_leaves(state, tx_g, tx_d)
+                resumed.append(len(file) == len(live) and all(
+                    torch.equal(t.detach().cpu().contiguous(), leaf) for (_, t), leaf in zip(live, file)))
+                return res
+            return wrapped
+
+        state, _, records = counted("bf16", lambda: run_cli(
+            ["--exp", exp] + args, DataLoader(cli_pairs, batch_size=c["batch"], shuffle=True, seed=0)))
+        written = sorted(os.listdir(exp))
+        jax_file = save_jax_checkpoint(exp_jax, state, Transform(lambda count: 2e-4), Transform(lambda count: 2e-4),
+                                       step=state.step)
+        with patched(cli, "load_jax_checkpoint", check_load):
+            state2, stdout2, records2 = counted("bf16", lambda: run_cli(
+                ["--exp", exp_jax] + args, DataLoader(cli_pairs, batch_size=c["batch"], shuffle=True, seed=0)))
+        steps = [r["step"] for r in records if "g_total" in r] + [r["step"] for r in records2 if "g_total" in r]
+        out["cli"] = {"steps": steps, "written": written, "jax_file_mb": os.path.getsize(jax_file) / 1e6,
+                      "resumed_equals_file": resumed, "imgs_per_sec": [r["imgs_per_sec"] for r in records + records2
+                                                                        if "imgs_per_sec" in r]}
+        log(f"dp world 1 cli.train 8x256^2 bf16: {json.dumps(out['cli'])}")
+        want_resume = f"resumed from {jax_file} at step {c['batches']}"
+        if not (written == ["ckpt_2.pt", "train_log.jsonl"] and steps == [1, 2, 3, 4] and resumed == [True]
+                and want_resume in stdout2 and state2.step == 2 * c["batches"]):
+            raise AssertionError(f"dp world 1 cli.train: {out['cli']}; expected {want_resume!r}")
+        del state, state2
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on this card over gloo, one row each, against the single-process kernel step
+    out["two_ranks"], rank_launches, _ = phase_dp_ranks(2, "gloo", root)
+    for dtype, counts in rank_launches.items():
+        launches[dtype].update(counts)
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: dict(v) for k, v in launches.items()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 10: {out['seconds']:.1f} s")
+    return out, launches
+
+
+def phase_dp_ranks(nprocs: int, backend: str, root: str, timed_steps: int = 0):
+    """``nprocs`` ranks of ``tools.dp_step`` over ``backend`` (on one card
+    each where there are as many, else all on this one), each on one row of
+    an nprocs×64² batch, against one process's kernel step on the whole
+    batch (``tools.dp_step.run_step`` without a group): fp32 and fp32 with
+    remat at phase 5's criteria and the step's generator output within
+    GEN_TOL; bf16 by the PSNR criterion on the step's generator output and
+    by the gradients handed to Adam (DP_BF16_GRAD_FACTOR), both against the
+    fp32 process's and measured by one bf16 process's; the control with
+    per-rank statistics must fail that bf16 gate; every rank's launches and
+    collectives exact. With ``timed_steps``, each rank then times that many
+    bf16 steps at 4×256² a rank, data-parallel against the bare step, in
+    turns, and profiles one of each. Returns (the checks per run, the
+    launches by dtype, each rank's times)."""
+    import os
+
+    import torch
+
+    from fdgan_tpu_torch.tools import dp_step
+
+    launches = {"bf16": collections.Counter(), "fp32": collections.Counter()}
+    haze, gt = train_batch(nprocs, DP_FP32[1], 6, device="cpu")
+    blob = {"haze": haze, "gt": gt}
+    if timed_steps:
+        b, size, _ = TRAIN_SHAPE
+        blob["timed_haze"], blob["timed_gt"] = train_batch(nprocs * b, size, 100, device="cpu")
+    path = os.path.join(root, "batch.pt")
+    torch.save(blob, path)
+    ranks = run_ranks(path, root, nprocs, backend, timed_steps)
+    if timed_steps:  # before the checks, which may fail
+        log(f"dp {nprocs} ranks ({backend}) bf16 {TRAIN_SHAPE[0]}x{TRAIN_SHAPE[1]}^2 a rank, timed: "
+            f"{json.dumps([rk['timed'] for rk in ranks])}")
+    # one process on the whole batch: the step's state, metrics, generator output and gradients
+    refs = {dtype: dp_step.run_step(blob, "cuda", compute_dtype=getattr(torch, dtype))
+            for dtype in ("float32", "bfloat16")}
+    ref = refs["float32"]
+
+    def grad_err(grads, net):  # relative L2 over all of a net's gradients, against the fp32 process's
+        want = torch.cat([v.double().flatten() for _, v in sorted(ref["grads"][net].items())])
+        got = torch.cat([grads[net][k].double().flatten() for k, _ in sorted(ref["grads"][net].items())])
+        return ((got - want).norm() / want.norm()).item()
+
+    bf16_single = {"psnr": psnr(refs["bfloat16"]["x_hat"], ref["x_hat"]),
+                   "grad_err": {net: grad_err(refs["bfloat16"]["grads"], net) for net in ("g", "d")}}
+    checks = {}
+    for run, dtype in DP_RUNS.items():
+        rs = [rk["runs"][run] for rk in ranks]
+        r0 = rs[0]
+        out_dp = torch.cat([r["x_hat"] for r in rs])  # the step's generator output, rank by rank
+        res = {"grad_rel_l2_err": {net: grad_err(r0["grads"], net) for net in ("g", "d")}}
+        if dtype == "float32":
+            loss_err = max(abs(r0["metrics"][k] - v) / max(abs(v), 1e-6) for k, v in ref["metrics"].items())
+            off = n = 0
+            worst_p = worst_s = 0.0
+            for net in ("g", "d"):
+                for k, v in r0[net].items():
+                    diff = (v - ref[net][k]).abs()
+                    if "running" in k:
+                        worst_s = max(worst_s, diff.max().item())
+                    else:
+                        worst_p = max(worst_p, diff.max().item())
+                        n, off = n + diff.numel(), off + int((diff > 1e-6).sum().item())
+            res |= {"loss_max_rel_err": loss_err, "param_share_over_1e-6": off / n, "param_max_abs_err": worst_p,
+                    "running_stat_max_abs_err": worst_s,
+                    "output_max_abs_err": (out_dp - ref["x_hat"]).abs().max().item()}
+            ok = (loss_err <= 1e-4 and off / n < 5e-3 and worst_p <= 2 * LR + 1e-6 and worst_s <= 1e-5
+                  and torch.allclose(out_dp, ref["x_hat"], **GEN_TOL))
+        else:
+            # against the fp32 process: the PSNR of the step's generator output no more than 1 dB below one bf16
+            # process's, and the gradients' error no more than DP_BF16_GRAD_FACTOR times one bf16 process's
+            res |= {"psnr_dp": psnr(out_dp, ref["x_hat"]), "psnr_single": bf16_single["psnr"],
+                    "grad_rel_l2_err_single": bf16_single["grad_err"]}
+            gate = bool(res["psnr_dp"] >= bf16_single["psnr"] - 1.0
+                        and all(res["grad_rel_l2_err"][net] <= DP_BF16_GRAD_FACTOR * bf16_single["grad_err"][net]
+                                for net in ("g", "d")))
+            res["bf16_gate"] = gate
+            finite = bool(np.isfinite(list(r0["metrics"].values())).all())
+            ok = finite and (not gate if run == "bf16_local_stats" else gate)  # the control must fail it
+        want = dict(REMAT_LAUNCHES["remat" if run.endswith("remat") else "none"])
+        if dtype == "float32":
+            want["channel_stats"] = 0  # channel_stats is bf16 only
+        res |= {"launches": [r["launches"] for r in rs], "collectives": r0["collectives"],
+                "ranks_same_state": all(torch.equal(r0[net][k], r[net][k]) for r in rs[1:] for net in ("g", "d")
+                                        for k in r0[net]),
+                "rows": [r["rows"] for r in rs]}
+        # the control's ranks each fold their own statistics into the running ones: their states differ there
+        ok &= ((res["ranks_same_state"] or run == "bf16_local_stats") and res["rows"] == [1] * nprocs
+               and all(r["launches"] == want and r["collectives"] == DP_COLLECTIVES[run] for r in rs))
+        for r in rs:
+            launches["fp32" if dtype == "float32" else "bf16"].update(r["launches"])
+        checks[run] = res
+        log(f"dp {nprocs} ranks ({backend}, {torch.cuda.device_count()} card(s)) {run} {nprocs}x{DP_FP32[1]}^2 "
+            f"against one process: {json.dumps(res)} ok={ok}")
+        if not ok:
+            raise AssertionError(f"dp {nprocs} ranks {run}: {res}; launches expected {want}, collectives "
+                                 f"{DP_COLLECTIVES[run]}")
+    return checks, launches, [rk.get("timed") for rk in ranks]
+
+
+def dp_ranks_main() -> int:
+    """``python3 chip_smoke.py --dp-ranks``: only phase 10's ranks, one per
+    card of this machine over NCCL, and their bf16 step timed against the
+    bare step (DP_TIMED_STEPS a side). Prints one JSON line, then the last
+    line as the full run does."""
+    import os
+    import shutil
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise AssertionError(f"--dp-ranks needs two cards or more, found {n}")
+    phase_device()
+    root = os.path.join("build", "dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    checks, launches, timed = phase_dp_ranks(n, "nccl", root, DP_TIMED_STEPS)
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"dp_ranks": {"ranks": n, "checks": checks, "timed": timed,
+                                   "launches": {k: dict(v) for k, v in launches.items()}}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1879,6 +2274,8 @@ def main() -> int:
     import fdgan_tpu_torch  # noqa: F401  (fails here, before any output, outside a checkout)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references run in full fp32
+    if sys.argv[1:] == ["--dp-ranks"]:
+        return dp_ranks_main()
     t_start = time.perf_counter()
     phase_device()
     rows, worst, tf32x3_ceiling = phase_kernels()
@@ -1905,6 +2302,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo, zoo_launches = phase_zoo()
     log(json.dumps({"zoo": zoo}))
+    torch.cuda.empty_cache()
+    dp, dp_launches = phase_dp()
+    log(json.dumps({"dp": dp}))
     ragged_c = {f"c{r['shape'][-1]}": {k: r[k] for k in r if k.startswith(("k1_", "k2_"))} | {"shape": r["shape"]}
                 for r in zoo["kernels_ragged_c"] if r["dtype"] == "bfloat16"}
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
@@ -1914,7 +2314,8 @@ def main() -> int:
 
     def by_path(k):
         return {"serving": launches.get(k, 0), "training": train_launches[k], "probes": 0,
-                "demo": demo_launches[k], "train_cli": cli_launches[k], "zoo": zoo_launches[k]}
+                "demo": demo_launches[k], "train_cli": cli_launches[k], "zoo": zoo_launches[k],
+                "dp": dp_launches["bf16"][k] + (dp_launches["fp32"][k] if k == "k3" else 0)}
 
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
@@ -1930,7 +2331,7 @@ def main() -> int:
         {"name": "fused_dense_layer fp32 (K1, 3xTF32)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": demo32["k1"],
-         "launches_by_path": {"demo_fp32": demo32["k1"]},
+         "launches_by_path": {"demo_fp32": demo32["k1"], "dp": dp_launches["fp32"]["k1"]},
          "max_abs_err": worst["float32"]["k1"], "ms": timed32["k1_ms"], "plain_ms": timed32["k1_plain_ms"],
          "bound_ms": timed32["k1_bound_ms"], "bound_by": timed32["k1_bound_by"],
          "cuda_core_bound_ms": timed32["k1_cuda_core_bound_ms"], "library_ms": None,
@@ -1951,7 +2352,7 @@ def main() -> int:
         {"name": "h_batch_stats fp32 (K2, 3xTF32)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": demo32["k2"],
-         "launches_by_path": {"demo_fp32": demo32["k2"]},
+         "launches_by_path": {"demo_fp32": demo32["k2"], "dp": dp_launches["fp32"]["k2"]},
          "max_abs_err": worst["float32"]["k2"], "ms": timed32["k2_ms"], "plain_ms": timed32["k2_plain_ms"],
          "bound_ms": timed32["k2_bound_ms"], "bound_by": timed32["k2_bound_by"],
          "cuda_core_bound_ms": timed32["k2_cuda_core_bound_ms"], "library_ms": None,
@@ -1981,7 +2382,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "fdgan_tpu_torch/csrc/probes.cu", "replaces": row["replaces"],
             "launches": probe_launches[name],
             "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name],
-                                 "demo": demo_probe_launches[name], "train_cli": 0, "zoo": 0},
+                                 "demo": demo_probe_launches[name], "train_cli": 0, "zoo": 0, "dp": 0},
             "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call

@@ -22,7 +22,23 @@ loadable by ``cli/demo --netG`` and ``cli/serve``) with a
 port's step always runs ``fdgan_fast``. ``--device`` (default ``cuda``) says
 where the loop runs; with no card and no ``--device cpu`` it stops. Flags of
 the TPU's workarounds and of what is not ported yet are accepted and refused
-with the ROADMAP item that holds them.
+with the ROADMAP item that holds them. A run also resumes from the JAX CLI's
+``ckpt_{step}.msgpack`` (a whole ``TrainState``), the newest of both kinds
+by step.
+
+Multi-process data parallelism is the JAX CLI's (``:162-215``, ``:616-660``):
+``FDGAN_TPU_DIST=1`` with ``FDGAN_TPU_DIST_COORD`` / ``_NPROCS`` / ``_PID``,
+or under ``torchrun`` (``dist/mesh.py``), one process per card (NCCL), or
+per CPU process with ``--device cpu`` (gloo). ``--batchSize`` is global:
+each process loads ``batchSize // nprocs`` rows of its own shard of the
+data, with the same seed, and the step takes the batch statistics over the
+global batch and averages the gradients (``train/loop.py``). Rank 0's state
+is broadcast after init and resume; only rank 0 evaluates and writes the
+log, the checkpoints and ``netG_best.pth``:
+
+    FDGAN_TPU_DIST=1 FDGAN_TPU_DIST_COORD=host0:29500 FDGAN_TPU_DIST_NPROCS=2 FDGAN_TPU_DIST_PID=0 \
+        python -m fdgan_tpu_torch.cli.train --dataroot ds/ --exp exp/ --batchSize 16
+    torchrun --nproc-per-node 4 -m fdgan_tpu_torch.cli.train ...   # with FDGAN_TPU_DIST=1 set
 """
 
 from __future__ import annotations
@@ -38,7 +54,8 @@ import numpy as np
 import torch
 
 from fdgan_tpu_torch.cli._common import fp32_exact, load_discriminator, load_generator
-from fdgan_tpu_torch.io.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from fdgan_tpu_torch.dist import mesh
+from fdgan_tpu_torch.io.checkpoint import latest_checkpoint, load_checkpoint, load_jax_checkpoint, save_checkpoint
 
 ROADMAP_NOT_PORTED = "ROADMAP.md, Queue 1 item 4: not ported unless the card shows a need"
 
@@ -112,11 +129,12 @@ def refuse(opt: argparse.Namespace) -> None:
     if opt.noAsyncCkpt:
         raise SystemExit("--noAsyncCkpt: the port's checkpoint saves are always blocking; AsyncCheckpointer is "
                          f"not ported ({ROADMAP_NOT_PORTED}); drop the flag")
+    if opt.spatialShards > 1 and os.environ.get("FDGAN_TPU_DIST"):
+        # the JAX CLI's reason (:181-190): each process loads whole images, not bands of one
+        raise SystemExit("--spatialShards > 1 is single-process only: the h5 loader shards IMAGES per process, "
+                         "not image bands")
     if opt.spatialShards > 1:
         raise SystemExit("--spatialShards > 1: spatial sharding is not ported yet (ROADMAP.md, Queue 1 item 11)")
-    if os.environ.get("FDGAN_TPU_DIST") == "1":
-        raise SystemExit("FDGAN_TPU_DIST=1: multi-process training is not ported yet (ROADMAP.md, Queue 1 "
-                         "item 10)")
     if opt.poolSize > 0 and opt.accumSteps > 1:
         raise SystemExit("--accumSteps > 1 requires --poolSize 0 (the ImagePool G/D split does not "
                          "accumulate; it would silently ignore the flag)")
@@ -143,12 +161,26 @@ def evaluate(g, val_loader: Iterable, device, impl: str = "kernels"):
     return float(np.mean(psnrs)), float(np.mean(ssims))
 
 
+class _NullLogger:
+    """The log of a process other than rank 0: it writes nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
 def train(opt: argparse.Namespace, loader: Iterable, val_loader: Optional[Iterable] = None, device="cuda"):
     """The loop: ``opt`` is :func:`build_parser`'s namespace; ``loader``
     yields ``(haze, gt)`` batches every epoch, ``val_loader`` (or None) the
     val pairs. ``--precision fp32`` runs it without TF32 on the card, as the
     JAX CLI sets ``"highest"`` (``:148-150``). Returns the final
-    ``TrainState``."""
+    ``TrainState``.
+
+    In a process group (``dist.mesh.maybe_init_distributed``) the loop is
+    this process's share of a data-parallel run: ``loader`` yields this
+    process's ``batchSize // nprocs`` rows a batch."""
     with fp32_exact(opt.precision, device):
         return _train(opt, loader, val_loader, torch.device(device))
 
@@ -162,6 +194,13 @@ def _train(opt, loader, val_loader, device):
 
     print(opt)
     refuse(opt)
+    nprocs, pid = mesh.world_size(), mesh.rank()
+    is_main = pid == 0
+    local_batch = opt.batchSize // nprocs  # == batchSize single-process
+    if nprocs > 1:
+        if opt.batchSize % nprocs:
+            raise SystemExit(f"--batchSize {opt.batchSize} (global) must divide by the {nprocs} processes")
+        print(f"multi-process: {nprocs} processes x 1 local devices = {nprocs} global; this is process {pid}")
     if opt.keepBest and (val_loader is None or not opt.evalIter):
         raise SystemExit("--keepBest needs --valDataroot and a nonzero --evalIter (best-model selection is by "
                          "val PSNR)")
@@ -181,10 +220,15 @@ def _train(opt, loader, val_loader, device):
         state.g.load_state_dict(load_generator(opt.netG, device="cpu").state_dict())
     if opt.netD:
         state.d.load_state_dict(load_discriminator(opt.netD, device="cpu").state_dict())
-    ckpt = latest_checkpoint(opt.exp)
+    ckpt = latest_checkpoint(opt.exp) if is_main else None
     if ckpt:
-        load_checkpoint(ckpt, state)
+        if ckpt.endswith(".msgpack"):
+            load_jax_checkpoint(ckpt, state, tx_g, tx_d)
+        else:
+            load_checkpoint(ckpt, state)
         print(f"resumed from {ckpt} at step {state.step}")
+    mesh.broadcast_state(state)  # rank 0's init or resume on every rank
+    group = mesh.process_group()
 
     vgg = None
     if opt.vggWeights:
@@ -202,17 +246,19 @@ def _train(opt, loader, val_loader, device):
     use_pool = opt.poolSize > 0
     if use_pool:
         g_step, d_step = make_gd_steps(tx_g, tx_d, weights, vgg, compute_dtype, impl=opt.impl,
-                                       real_label=opt.labelSmooth, remat=remat)
-        pool = ImagePool(opt.poolSize, seed=opt.seed)
+                                       real_label=opt.labelSmooth, remat=remat, group=group)
+        pool = ImagePool(opt.poolSize, seed=opt.seed)  # each process pools its own fakes
     else:
         train_step = make_train_step(tx_g, tx_d, weights, vgg, compute_dtype, impl=opt.impl,
-                                     real_label=opt.labelSmooth, remat=remat, accum_steps=opt.accumSteps)
+                                     real_label=opt.labelSmooth, remat=remat, accum_steps=opt.accumSteps,
+                                     group=group)
 
-    logger = MetricLogger(os.path.join(opt.exp, "train_log.jsonl"), opt.logEvery)
+    # the other processes run the same steps and write nothing
+    logger = MetricLogger(os.path.join(opt.exp, "train_log.jsonl"), opt.logEvery) if is_main else _NullLogger()
     meter = AverageMeter()
     best = {"psnr": float("-inf"), "state": None, "step": 0}
     best_path = os.path.join(opt.exp, "netG_best.pth")
-    if opt.keepBest and os.path.exists(best_path + ".json"):
+    if is_main and opt.keepBest and os.path.exists(best_path + ".json"):
         # resuming into an exp dir that already holds a best: its PSNR is the bar
         with open(best_path + ".json") as f:
             prev = json.load(f)
@@ -246,15 +292,18 @@ def _train(opt, loader, val_loader, device):
 
     if opt.keepBest:
         atexit.register(save_best_at_exit)
-    if val_loader is not None and opt.evalIter:
+    evaluating = is_main and val_loader is not None and opt.evalIter  # no collective: rank 0 alone
+    if evaluating:
         run_eval()  # step-0 baseline, so that the logged val trend stands alone
 
     t_log = time.time()
     for epoch in range(opt.epochs):
         t_epoch = time.time()
         for haze, gt in loader:
-            if haze.shape[0] % opt.accumSteps:
-                continue  # a ragged final batch the microbatches do not divide
+            if haze.shape[0] % opt.accumSteps or (nprocs > 1 and haze.shape[0] != local_batch):
+                # a ragged final batch the microbatches do not divide, or a ragged local batch (the same
+                # skip on every process: the shards are equal and share the shuffle's seed)
+                continue
             haze_t = torch.from_numpy(np.asarray(haze, np.float32)).to(device)
             gt_t = torch.from_numpy(np.asarray(gt, np.float32)).to(device)
             if use_pool:
@@ -267,15 +316,17 @@ def _train(opt, loader, val_loader, device):
                 # the metrics are 0-d device tensors: read them only here, since
                 # a read waits for the step
                 m = {k: float(v) for k, v in metrics.items()}
-                m["imgs_per_sec"] = haze.shape[0] * opt.logEvery / max(time.time() - t_log, 1e-9)
+                # the global batch's rows: the local rows times the processes
+                m["imgs_per_sec"] = haze.shape[0] * nprocs * opt.logEvery / max(time.time() - t_log, 1e-9)
                 t_log = time.time()
                 logger.log(state.step, m)
                 meter.update(m.get("g_total", 0.0))
-            if val_loader is not None and opt.evalIter and state.step % opt.evalIter == 0:
+            if evaluating and state.step % opt.evalIter == 0:
                 run_eval()
-        if (epoch + 1) % max(opt.ckptEvery, 1) == 0 or epoch == opt.epochs - 1:
+        if is_main and ((epoch + 1) % max(opt.ckptEvery, 1) == 0 or epoch == opt.epochs - 1):
             save_checkpoint(opt.exp, state, step=state.step)
-        print(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s; avg g_loss {meter.avg:.4f}")
+        if is_main:
+            print(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s; avg g_loss {meter.avg:.4f}")
     save_best()
     if opt.keepBest:
         atexit.unregister(save_best_at_exit)
@@ -288,10 +339,18 @@ def main(argv=None):
     device = torch.device(opt.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train: no CUDA device; pass --device cpu to run on the CPU")
+    refuse(opt)  # before a process group is joined
+    mesh.maybe_init_distributed(device)
+    nprocs = mesh.world_size()
+    if nprocs > 1 and device.type == "cuda":
+        device = mesh.local_device()
+        torch.cuda.set_device(device)
     from fdgan_tpu_torch.data import get_loader
 
-    loader = get_loader(opt.dataset, opt.dataroot, opt.originalSize, opt.imageSize, batch_size=opt.batchSize,
-                        workers=opt.workers, split="train", shuffle=True, seed=opt.seed)
+    # each process its own shard, with the same seed: the shards stay step-aligned
+    loader = get_loader(opt.dataset, opt.dataroot, opt.originalSize, opt.imageSize,
+                        batch_size=opt.batchSize // nprocs, workers=opt.workers, split="train", shuffle=True,
+                        seed=opt.seed, shard=(mesh.rank(), nprocs) if nprocs > 1 else None)
     val_loader = None
     if opt.valDataroot:
         val_loader = get_loader(opt.dataset, opt.valDataroot, opt.imageSize, opt.imageSize, batch_size=1,

@@ -46,9 +46,8 @@ def _transition_fast(trans, x: torch.Tensor, seg_stats, bn_mode: str, stats_out:
     average pool → 1×1 conv, over NHWC x; returns NCHW (channels_last)."""
     norm = trans.norm
     if bn_mode == "batch":
-        mean, var = seg_stats
+        mean, var, n = seg_stats  # the block's, global in a data-parallel step: combined once, there
         if stats_out is not None:
-            n = x.shape[0] * x.shape[1] * x.shape[2]
             stats_out[f"{prefix}norm"] = (mean.detach(), unbiased(var.detach(), n))
     else:
         mean, var = norm.running_mean, norm.running_var

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdgan_tpu_torch.dist.stats import combine as global_stats
 from fdgan_tpu_torch.ops.stats import channel_stats
 from fdgan_tpu_torch.ops.stats import reference as plain_channel_stats
 
@@ -176,8 +177,12 @@ def batch_stats(x: torch.Tensor, impl: str = "kernels") -> Tuple[torch.Tensor, t
     raise ValueError(f"unknown impl {impl!r}")
 
 
-def unbiased(var: torch.Tensor, n: int) -> torch.Tensor:
-    """The n/(n−1) correction of a recorded batch variance."""
+def unbiased(var: torch.Tensor, n) -> torch.Tensor:
+    """The n/(n−1) correction of a recorded batch variance. n is an int, or
+    a 0-d tensor: the global count of a data-parallel step
+    (``dist.stats.combine``)."""
+    if isinstance(n, torch.Tensor):
+        return var * (n / (n - 1).clamp_min(1)).to(var.dtype)
     return var * (n / max(n - 1, 1))
 
 
@@ -210,14 +215,15 @@ def batch_norm(
 ) -> torch.Tensor:
     """BatchNorm over NCHW, normalising over N, H and W. The statistics and
     the folded affine are fp32; the final multiply-add runs in x's dtype.
-    Batch mode takes its statistics from :func:`batch_stats` with ``impl``.
+    Batch mode takes its statistics from :func:`batch_stats` with ``impl``,
+    over the global batch inside a data-parallel step
+    (``dist.stats.global_batch_stats``).
 
     In batch mode with ``stats_out`` and ``stats_key`` given, the batch's
     (mean, unbiased var) is recorded, detached, under ``stats_key``."""
     if mode == "batch":
-        mean, var = batch_stats(x, impl)
+        mean, var, n = global_stats(*batch_stats(x, impl), x.shape[0] * x.shape[2] * x.shape[3])
         if stats_out is not None and stats_key is not None:
-            n = x.shape[0] * x.shape[2] * x.shape[3]
             stats_out[stats_key] = (mean.detach(), unbiased(var.detach(), n))
     elif mode == "running":
         mean, var = bn.running_mean.float(), bn.running_var.float()

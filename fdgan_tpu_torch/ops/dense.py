@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from fdgan_tpu_torch.dist.stats import combine as global_stats
 from fdgan_tpu_torch.nn.layers import unbiased
 from fdgan_tpu_torch.ops.common import pixel_stride, twin_vjp
 from fdgan_tpu_torch.ops.stats import channel_stats
@@ -432,7 +433,7 @@ def _layer_core(layer, mode: str, layer_fn, stats_fn, x, a1, b1):
     that a checkpoint's recompute records nothing twice."""
     w1 = layer.conv1.weight.reshape(INTER, -1).t()
     if mode == "batch":
-        m2, v2 = stats_fn(x, a1, b1, w1)
+        m2, v2, _ = global_stats(*stats_fn(x, a1, b1, w1), x.shape[0] * x.shape[1] * x.shape[2])
     else:
         m2, v2 = layer.norm2.running_mean, layer.norm2.running_var
     a2, b2 = fold_bn(layer.norm2.weight, layer.norm2.bias, m2, v2)
@@ -447,13 +448,13 @@ def dense_block_fused(
     stats_out: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
     prefix: str = "",
     remat: bool = False,
-) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+) -> Tuple[torch.Tensor, Optional[tuple]]:
     """A DenseNet block over NHWC x: ``layers`` are the block's DenseLayer
     modules (norm1, conv1, norm2, conv2). Returns ``(concat, stats)``: the
     concat of x and every layer's 32 new channels, and in batch mode its
-    per-channel batch statistics ``(mean, var)`` (None in running mode),
-    which the transition after the block reuses (``models/fdgan_fast.py``,
-    as ``fdgan_fast._SegStats``).
+    per-channel batch statistics ``(mean, var, n)`` with their count of
+    pixels (None in running mode), which the transition after the block
+    reuses (``models/fdgan_fast.py``, as ``fdgan_fast._SegStats``).
 
     Where autograd records nothing (``torch.is_grad_enabled()`` is false, as
     under ``torch.inference_mode``, the serving path), the concat is one
@@ -468,7 +469,10 @@ def dense_block_fused(
     In batch mode, norm1's statistics are the per-channel statistics of the
     concat, kept per segment as it grows (channels partition, so each
     segment is reduced once: ``ops.stats.channel_stats``), and norm2's come
-    from K2. With ``stats_out``,
+    from K2. Inside a data-parallel step each segment's statistics and K2's
+    are combined over the ranks where they are made
+    (``dist.stats.combine``; the concatenations combine nothing), and n is
+    the global count. With ``stats_out``,
     batch mode records every BN's (mean, unbiased var), detached, under
     ``{prefix}denselayerN.norm1`` / ``.norm2``, as ``pallas_dense.py:411-413``.
     ``impl='plain'`` runs the twins on any device. ``remat`` (with grad
@@ -483,7 +487,8 @@ def dense_block_fused(
         layer_fn, stats_fn, seg_fn = layer_reference, h_stats_reference, stats_reference
     else:
         raise ValueError(f"unknown impl {impl!r}")
-    n = x.shape[0] * x.shape[1] * x.shape[2]
+    npix = x.shape[0] * x.shape[1] * x.shape[2]  # every segment's pixels on this rank
+    n = npix  # and over the ranks of a data-parallel step (dist/stats.py)
     buf = None
     if not torch.is_grad_enabled():
         c0 = x.shape[-1]
@@ -491,7 +496,7 @@ def dense_block_fused(
         buf[..., :c0] = x
         x = buf[..., :c0]
     if mode == "batch":
-        mean_cat, var_cat = seg_fn(x)
+        mean_cat, var_cat, n = global_stats(*seg_fn(x), npix)
     for i, layer in enumerate(layers):
         if mode == "batch":
             m1, v1 = mean_cat, var_cat
@@ -511,8 +516,8 @@ def dense_block_fused(
             stats_out[f"{key}.norm1"] = (m1.detach(), unbiased(v1.detach(), n))
             stats_out[f"{key}.norm2"] = (m2.detach(), unbiased(v2.detach(), n))
         if mode == "batch":
-            mf, vf = seg_fn(f)
+            mf, vf, _ = global_stats(*seg_fn(f), npix)
             mean_cat = torch.cat([mean_cat, mf])
             var_cat = torch.cat([var_cat, vf])
         x = torch.cat([x, f], dim=-1) if buf is None else buf[..., :c + GROWTH]
-    return x, ((mean_cat, var_cat) if mode == "batch" else None)
+    return x, ((mean_cat, var_cat, n) if mode == "batch" else None)

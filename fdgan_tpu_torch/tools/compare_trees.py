@@ -32,7 +32,15 @@ label:
   tree has it, ``models.fdgan_fast.apply``;
 - ``demo_fp32``: the demo's forward, fp32 (TF32 off), batch BN, batch 1 at
   1024² (seed-0 weights; ``fdgan_fast.apply`` where the tree has it): ms per
-  forward as above.
+  forward as above;
+- ``train_bf16``: the train step at 4×256² bf16 without the perceptual term
+  (seed-0 state), bare (``make_train_step`` on batches already on the card)
+  and through the training CLI's loop (``cli.train.train`` over an in-memory
+  loader of numpy pairs, ``--poolSize 0``, 10 steps logged every 5; its
+  second window), in turns, bare, loop, loop, bare: ms per step of each turn
+  (host clock, the card synchronised) and the loop's over the bare step's.
+  The CLI writes under ``build/compare_trees`` of this checkout, and the
+  directory is removed.
 
 Needs a CUDA device; raises without one.
 """
@@ -85,6 +93,59 @@ def _dense_rows(label, dense, timing):
                                   "max_abs_err": err, "bound_ms": bound, "share": bound / ms}), flush=True)
         del args, f_k, f_p
         torch.cuda.empty_cache()
+
+
+TRAIN_LOOP = (4, 256, 10)  # batch, size, steps a turn
+
+
+def _train_row(label) -> dict:
+    """The ``train_bf16`` line (the module's docstring)."""
+    import contextlib
+    import io
+    import shutil
+    import time
+
+    from fdgan_tpu_torch.cli import train as cli
+    from fdgan_tpu_torch.data.h5 import DataLoader
+    from fdgan_tpu_torch.losses.composite import LossWeights
+    from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
+
+    b, size, steps = TRAIN_LOOP
+    rng = np.random.default_rng(2)
+    gts = [rng.uniform(size=(size, size, 3)).astype(np.float32) for _ in range(b * steps)]
+    pairs = [(np.clip(0.6 * g + 0.3, 0, 1).astype(np.float32), g) for g in gts]
+    batches = [[torch.from_numpy(np.stack(side)).cuda() for side in zip(*pairs[i * b:(i + 1) * b])]
+               for i in range(steps)]
+    state, tx_g, tx_d = create_train_state(0, device="cuda")
+    step = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), compute_dtype=torch.bfloat16)
+    step(state, *batches[0])  # warm-up
+    root = Path(__file__).resolve().parents[2] / "build" / "compare_trees"
+
+    def bare() -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for haze, gt in batches:
+            step(state, haze, gt)
+        torch.cuda.synchronize()
+        return 1000 * (time.perf_counter() - t) / steps
+
+    def loop() -> float:
+        shutil.rmtree(root, ignore_errors=True)
+        opt = cli.build_parser().parse_args([
+            "--exp", str(root), "--precision", "bf16", "--lambdaPerceptual", "0", "--poolSize", "0", "--epochs",
+            "1", "--logEvery", str(steps // 2), "--batchSize", str(b), "--imageSize", str(size)])
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.train(opt, DataLoader(pairs, batch_size=b, shuffle=True, seed=0), None, "cuda")
+        with open(root / "train_log.jsonl") as f:
+            img_s = [r["imgs_per_sec"] for r in map(json.loads, f) if "imgs_per_sec" in r]
+        shutil.rmtree(root, ignore_errors=True)
+        return 1000 * b / img_s[-1]
+
+    turns = {"bare": [], "loop": []}
+    for name in ("bare", "loop", "loop", "bare"):
+        turns[name].append(bare() if name == "bare" else loop())
+    return {"label": label, "train_bf16": [b, size, size, 3], "bare_ms": turns["bare"], "loop_ms": turns["loop"],
+            "loop_over_bare": sum(turns["loop"]) / sum(turns["bare"])}
 
 
 def _timing():
@@ -144,6 +205,9 @@ def main(argv=None) -> int:
         ms = timing.events_ms(forward)
     print(json.dumps({"label": args.label, "demo_fp32": [1, 1024, 1024, 3], "bn_mode": "batch", "dtype": "float32",
                       "ms": ms}), flush=True)
+    del model, x
+    torch.cuda.empty_cache()
+    print(json.dumps(_train_row(args.label)), flush=True)
     return 0
 
 

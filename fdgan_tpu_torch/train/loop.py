@@ -25,7 +25,21 @@ bf16 batch statistics through ``channel_stats`` and D's input through K3
 ``impl='plain'`` runs the plain versions on any device.
 
 Gradient accumulation (``accum_steps``) and rematerialisation (``remat``)
-are the JAX step's memory levers. The state is updated in place: a step
+are the JAX step's memory levers.
+
+Data parallelism (``group``, a ``torch.distributed`` process group): each
+rank runs the step on its own slice of the global batch, as JAX's step runs
+on a batch sharded over a mesh. Every batch statistic is taken over the
+global batch (``dist.stats.global_batch_stats``, entered around the
+forwards and the backwards both, so that a remat recompute combines again),
+G's and D's gradients are averaged over the ranks by one flattened
+all-reduce per model per update, after ``accum_steps``' scaling and before
+the clip and Adam (the clip then sees the global gradient, as optax's does
+under GSPMD), and the returned metrics are averaged over the ranks, so
+that they are the global batch's. With equal local batches the step is then
+JAX's step on the global batch; each rank applies the same update to the
+same state. ``group=None``, or a group of one rank, issues no collective:
+bit for bit the single-process step. The state is updated in place: a step
 returns the same ``TrainState``. Not ported (ROADMAP.md): the
 device-resident ``lax.scan`` loops and ``make_device_eval``, workarounds for
 the TPU's host link.
@@ -40,6 +54,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
+from fdgan_tpu_torch.dist.mesh import average_gradients, average_metrics
+from fdgan_tpu_torch.dist.stats import global_batch_stats
 from fdgan_tpu_torch.losses.composite import LossWeights, discriminator_loss, generator_loss
 from fdgan_tpu_torch.models import fdgan_fast
 from fdgan_tpu_torch.models.discriminators import NLayerDiscriminator
@@ -80,10 +96,13 @@ def clip_grad(params: Iterable[nn.Parameter], max_norm: float) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Transform:
     """What an optax chain holds besides Adam's moments: the learning-rate
-    schedule, evaluated at the update count, and the clip (0 = off)."""
+    schedule, evaluated at the update count, and the clip (0 = off).
+    ``scheduled``: the schedule decays (optax then keeps a second count,
+    which a JAX ``TrainState`` file holds; ``io/checkpoint.py``)."""
 
     lr: Callable[[int], float]
     clip_grad: float = 0.0
+    scheduled: bool = False
 
     def apply(self, opt: torch.optim.Optimizer, count: int) -> None:
         """One update of ``opt`` from the grads its parameters hold."""
@@ -114,7 +133,7 @@ def create_train_state(
 
     def transform(lr):
         sched = linear_decay_schedule(lr, decay_every, decay_start) if decay_every else (lambda count: lr)
-        return Transform(sched, clip_grad)
+        return Transform(sched, clip_grad, scheduled=bool(decay_every))
 
     def adam(module, lr):
         return torch.optim.Adam(module.parameters(), lr=lr, betas=(beta1, 0.999), eps=1e-8)
@@ -136,7 +155,7 @@ def _frozen(*modules: Optional[nn.Module]):
             p.requires_grad_(True)
 
 
-def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=False, accum_steps=1):
+def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=False, accum_steps=1, group=None):
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
@@ -145,7 +164,7 @@ def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=Fals
             raise ValueError(f"batch {haze.shape[0]} not divisible by accum_steps {accum_steps}")
         micro = haze.shape[0] // accum_steps
         parts = []  # (terms, stats, x_hat) of each microbatch
-        with _frozen(state.d, vgg):
+        with _frozen(state.d, vgg), global_batch_stats(group):
             state.g_opt.zero_grad(set_to_none=True)
             for h, g in zip(haze.split(micro), gt.split(micro)):
                 stats: dict = {}
@@ -166,18 +185,21 @@ def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=Fals
             stats = {k: tuple(torch.stack([s[k][j] for _, s, _ in parts]).mean(0) for j in (0, 1))
                      for k in parts[0][1]}
             x_hat = torch.cat([x for _, _, x in parts])
+        average_gradients(state.g, group)
         tx_g.apply(state.g_opt, state.step)
         fold_stats(state.g, stats)
         state.step += 1
-        return {f"g_{k}": v for k, v in terms.items()}, x_hat
+        return average_metrics({f"g_{k}": v for k, v in terms.items()}, group), x_hat
 
     def d_update(state: TrainState, fake, gt) -> Metrics:
-        loss, terms = discriminator_loss(state.d, fake, gt.to(compute_dtype), real_label, impl)
-        state.d_opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with global_batch_stats(group):
+            loss, terms = discriminator_loss(state.d, fake, gt.to(compute_dtype), real_label, impl)
+            state.d_opt.zero_grad(set_to_none=True)
+            loss.backward()
+        average_gradients(state.d, group)
         tx_d.apply(state.d_opt, state.d_updates)
         state.d_updates += 1
-        return {k: v.detach() for k, v in terms.items()}
+        return average_metrics({k: v.detach() for k, v in terms.items()}, group)
 
     return g_update, d_update
 
@@ -192,6 +214,7 @@ def make_train_step(
     real_label: float = 1.0,
     remat=False,
     accum_steps: int = 1,
+    group=None,
 ):
     """``train_step(state, haze, gt) -> (state, metrics)``: a G update, the
     BN fold, then a D update on the pre-update G output. NHWC ``haze`` and
@@ -205,8 +228,13 @@ def make_train_step(
     forward, batch statistics and backward; G's gradients, the loss terms
     and the BN moments folded into the running statistics are averaged over
     them, as JAX ``make_train_step(accum_steps=)``; D trains on the whole
-    batch's G output."""
-    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat, accum_steps)
+    batch's G output.
+
+    ``group``: the data-parallel step over the ranks of that process group
+    (the module's docstring); ``haze`` and ``gt`` are this rank's slice of
+    the global batch."""
+    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat, accum_steps,
+                                group)
 
     def train_step(state: TrainState, haze: torch.Tensor, gt: torch.Tensor) -> Tuple[TrainState, Metrics]:
         metrics, x_hat = g_update(state, haze, gt)
@@ -225,12 +253,15 @@ def make_gd_steps(
     impl: str = "kernels",
     real_label: float = 1.0,
     remat=False,
+    group=None,
 ):
     """Split steps for ImagePool training (misc.py:140-161):
     ``g_step(state, haze, gt) -> (state, metrics, x_hat)`` returns the
     generated batch, which the caller pools; ``d_step(state, fake, gt) ->
-    (state, metrics)`` trains D on the (possibly older) fake batch."""
-    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat)
+    (state, metrics)`` trains D on the (possibly older) fake batch.
+    ``group`` as :func:`make_train_step`'s: under data parallelism each
+    rank pools its own slice of the fakes."""
+    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat, group=group)
 
     def g_step(state: TrainState, haze: torch.Tensor, gt: torch.Tensor):
         metrics, x_hat = g_update(state, haze, gt)

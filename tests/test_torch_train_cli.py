@@ -13,6 +13,8 @@ through a jitted ``fdgan_fast.apply``, each computed once.
 
 import json
 import os
+import shutil
+import sys
 
 import h5py
 import jax
@@ -34,6 +36,7 @@ from fdgan_tpu.ops.ssim import ssim as jssim
 from fdgan_tpu_torch.cli import train as cli
 from fdgan_tpu_torch.cli._common import load_discriminator, load_generator
 from fdgan_tpu_torch.data import get_loader
+from fdgan_tpu_torch.dist import mesh
 from fdgan_tpu_torch.io.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from fdgan_tpu_torch.io.torch_import import _TORCHVISION_VGG16_CONVS, load_vgg16, state_dict_from_jax
 from fdgan_tpu_torch.losses.composite import LossWeights
@@ -45,6 +48,7 @@ from fdgan_tpu_torch.nn.init import DENSENET_PRETRAINED_KEYS, dcgan_init
 from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
 
 SIZE, BATCH = 32, 2
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 METRICS = ["g_adv", "g_pixel", "g_ssim", "g_total", "d_total", "d_real", "d_fake"]
 
 
@@ -185,16 +189,18 @@ def test_best_snapshot_is_a_copy(tmp_path):
     assert not torch.equal(best["conv_refin1.weight"], state.g.state_dict()["conv_refin1.weight"])
 
 
-@pytest.mark.parametrize("flags, message", [
-    (["--deviceSteps", "4"], "Queue 1 item 4"),
-    (["--noAsyncCkpt"], "Queue 1 item 4"),
-    (["--spatialShards", "2"], "Queue 1 item 11"),
-    (["--accumSteps", "2"], "requires --poolSize 0"),
-    ([], "Queue 1 item 10"),  # FDGAN_TPU_DIST=1
+@pytest.mark.parametrize("flags, dist, message", [
+    (["--deviceSteps", "4"], False, "Queue 1 item 4"),
+    (["--noAsyncCkpt"], False, "Queue 1 item 4"),
+    (["--spatialShards", "2"], False, "Queue 1 item 11"),
+    (["--accumSteps", "2"], False, "requires --poolSize 0"),
+    # the JAX CLI's refusal under FDGAN_TPU_DIST (fdgan_tpu/cli/train.py:181-190), before any rendezvous
+    (["--spatialShards", "2"], True, "single-process only: the h5 loader shards IMAGES per process"),
 ])
-def test_refused_flags_exit_with_their_messages(monkeypatch, flags, message):
-    if not flags:
+def test_refused_flags_exit_with_their_messages(monkeypatch, flags, dist, message):
+    if dist:
         monkeypatch.setenv("FDGAN_TPU_DIST", "1")
+        monkeypatch.setattr(torch.distributed, "init_process_group", None)  # a rendezvous attempt would raise
     with pytest.raises(SystemExit, match=message):
         cli.main(flags + ["--device", "cpu"])
 
@@ -321,6 +327,39 @@ def test_latest_checkpoint_picks_the_highest_step(tmp_path):
         (tmp_path / f"ckpt_{step}.pt").write_bytes(b"")
     (tmp_path / "ckpt_99.pt.tmp").write_bytes(b"")
     assert latest_checkpoint(str(tmp_path)) == str(tmp_path / "ckpt_10.pt")
+
+
+def test_latest_checkpoint_takes_both_kinds_by_step(tmp_path):
+    """The port's ckpt_{step}.pt and the JAX CLI's ckpt_{step}.msgpack (a
+    whole TrainState) compete by step; params files and .tmp files do not."""
+    for name in ("ckpt_2.pt", "ckpt_10.msgpack", "ckpt_9.pt", "netG_best.msgpack", "ckpt_99.msgpack.tmp"):
+        (tmp_path / name).write_bytes(b"")
+    assert latest_checkpoint(str(tmp_path)) == str(tmp_path / "ckpt_10.msgpack")
+    (tmp_path / "ckpt_11.pt").write_bytes(b"")
+    assert latest_checkpoint(str(tmp_path)) == str(tmp_path / "ckpt_11.pt")
+
+
+def test_train_cli_multiprocess_smoke(tmp_path):
+    """cli/train under FDGAN_TPU_DIST on the CPU (gloo), as
+    tests/test_multiprocess.py:127-176 runs the JAX CLI: 2 processes, each
+    on its own shard of 16 pairs of 32², 8 global (4 a process), one epoch;
+    process 0 writes the log and the checkpoint, process 1 nothing."""
+    data = _write_h5(str(tmp_path / "ds"), 16, 0)
+    exps = [tmp_path / "exp0", tmp_path / "exp1"]
+    logs = mesh.run_local_ranks(lambda pid: [
+        sys.executable, "-m", "fdgan_tpu_torch.cli.train", "--dataroot", data, "--imageSize", str(SIZE),
+        "--batchSize", "8", "--epochs", "1", "--poolSize", "0", "--exp", str(exps[pid]), "--logEvery", "1",
+        "--ckptEvery", "1", "--lrD", "5e-5", "--lambdaAdv", "0.5", "--lambdaPerceptual", "0",
+        "--workers", "0", "--device", "cpu"], 2, 300,
+        env={"PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"})
+    for i, log in enumerate(logs):
+        assert f"multi-process: 2 processes x 1 local devices = 2 global; this is process {i}" in log
+    entries = [json.loads(line) for line in open(exps[0] / "train_log.jsonl")]
+    steps = [e for e in entries if "g_total" in e]
+    assert [e["step"] for e in steps] == [1, 2] and all(np.isfinite(e["g_total"]) for e in steps)
+    assert sorted(os.listdir(exps[0])) == ["ckpt_2.pt", "train_log.jsonl"]
+    assert not (exps[1] / "train_log.jsonl").exists() and not list(exps[1].glob("ckpt_*"))
+    shutil.rmtree(exps[0])  # a train state of ~180 MB
 
 
 # --- dcgan_init against JAX ---------------------------------------------------
