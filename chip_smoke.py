@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, kernel-probe, demo,
-training-CLI, model-zoo and data-parallel paths once on one CUDA GPU, and
-check them.
+training-CLI, model-zoo, data-parallel and serving-mesh paths once on one
+CUDA GPU, and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dp-ranks   # only phase 10's ranks: one per card over NCCL, and their step timed
+    python3 chip_smoke.py --mesh-ranks # only phase 11's mesh: one rank per card over NCCL, timed against one card
 
 Run from the root of a checkout. Phases, each of which raises on failure:
 
@@ -155,11 +156,21 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    criteria (and the step's generator output within GEN_TOL), bf16 by the
    PSNR criterion (the step's generator output against the fp32 step's, no
    more than 1 dB below the one-process bf16 step's); each rank's launches
-   and collectives exact.
+   and collectives exact;
+11. the serving mesh (``InferenceEngine(mesh=..., spatial=...)``): K1 with
+   halo rows on shards of whole 8-row tiles, the same bits as K1 on the
+   whole image and within the twin tolerance; ranks of
+   ``python -m fdgan_tpu_torch.tools.mesh_serve`` over gloo on this one
+   card, 2 then 4, on 2×256² through 1×2, 2×1 and 2×2 meshes against the
+   engine in one process (fp32 running BN at atol 1e-5, fp32 batch BN at
+   atol 2e-4 / rtol 1e-3 with the seam gate, bf16 by the PSNR criterion), every halo'd
+   K1 launch of a forward against its twin on its own input, each rank's
+   launches, halo exchanges and statistics' all-reduces per forward exact;
+   ``cli.serve --spatialShards 2`` on 2 ranks against one process.
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
-launches per path, the training CLI's, the zoo's and "dp" included; K1's and K2's
+launches per path, the training CLI's, the zoo's, "dp" and "mesh" included; K1's and K2's
 times at C = 400 and 456; the fp32 K1 and K2 as entries of their own, timed
 at 1×1024²×64 with their launches from the fp32 demo run); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -169,6 +180,7 @@ when there is no CUDA device or any check fails.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import json
 import statistics
@@ -2265,6 +2277,320 @@ def dp_ranks_main() -> int:
     return 0
 
 
+MESH_TIMEOUT = 300  # seconds for one launch of phase 11's ranks; a rank that hangs fails the phase
+MESH_IMAGES = (2, 256, 256)  # phase 11: 2 images of 256² a batch (bucket 64; H 128 a rank on a spatial pair)
+# phase 11's runs: (name, [n_data, n_spatial], precision, BN mode); 2 gloo ranks of this card, then 4
+MESH_RUNS = {2: [("1x2_fp32_running", [1, 2], "fp32", "running"), ("2x1_fp32_running", [2, 1], "fp32", "running"),
+                 ("1x2_fp32_batch", [1, 2], "fp32", "batch"), ("1x2_bf16_batch", [1, 2], "bf16", "batch"),
+                 ("1x2_bf16_running", [1, 2], "bf16", "running")],
+             4: [("2x2_fp32_running", [2, 2], "fp32", "running"), ("2x2_bf16_batch", [2, 2], "bf16", "batch")]}
+MESH_RUNNING_TOL = dict(atol=1e-5, rtol=0)  # fp32 running BN against one process: JAX's tests/test_serve.py:265
+MESH_BATCH_TOL = dict(atol=2e-4, rtol=1e-3)  # fp32 batch BN against one process: JAX's tests/test_dist.py:205
+MESH_EXCHANGES = 42 + 7  # a forward's halo exchanges on a spatial rank: each dense layer's, 7 convs with a 3×3 kernel
+MESH_STATS_ALLREDUCES = 3 + 42 + 42  # batch BN: the blocks' inputs, each layer's new channels, each layer's K2
+MESH_TIMED = 10  # --mesh-ranks: forwards a turn, mesh and one card
+
+
+def mesh_ranks_cells(n):
+    """--mesh-ranks on n cards: (name, mesh, images (B, H, W)), bf16 running BN."""
+    return [(f"1x{n}_bf16_running_2048", [1, n], (1, 2048, 2048)),  # the latency lever: one large image, n cards
+            (f"{n}x1_bf16_running_512", [n, 1], (8 * n, 512, 512))]  # the throughput lever: 8 of 512² a card
+
+
+def mesh_weights():
+    """The generator's seed-0 weights with random running statistics, on the CPU."""
+    import torch
+
+    from fdgan_tpu_torch.models.fdgan import FDGAN
+
+    model = FDGAN(generator=torch.Generator().manual_seed(0))
+    randomise_running_stats(model)
+    return model.state_dict()
+
+
+def mesh_per_forward(precision, bn_mode, n_spatial, backend):
+    """What a rank's forward of the mesh must launch and exchange."""
+    batch = bn_mode == "batch"
+    exchanges = MESH_EXCHANGES if n_spatial > 1 else 0
+    return {"k1": 42, "k2": 42 if batch else 0, "channel_stats": 45 if batch and precision == "bf16" else 0,
+            "exchanges": exchanges, "host_staged": exchanges if backend == "gloo" else 0,
+            "stats_allreduces": MESH_STATS_ALLREDUCES if batch else 0}
+
+
+def run_mesh_ranks(weights, runs, nprocs, backend, root):
+    """``python -m fdgan_tpu_torch.tools.mesh_serve`` as each of ``nprocs``
+    ranks over ``backend`` on ``runs``, under MESH_TIMEOUT; returns each
+    run's per-rank results by name."""
+    import os
+
+    import torch
+
+    from fdgan_tpu_torch.dist import mesh
+
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"mesh{nprocs}.pt")
+    torch.save({"weights": weights, "runs": runs}, path)
+    try:
+        mesh.run_local_ranks([sys.executable, "-m", "fdgan_tpu_torch.tools.mesh_serve", "--input", path, "--out",
+                              root, "--device", "cuda", "--backend", backend], nprocs, MESH_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        raise AssertionError(f"mesh: {e}")
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True) for r in range(nprocs)]
+    return {run["name"]: [rk[i] for rk in ranks] for i, run in enumerate(runs)}
+
+
+def check_mesh_ranks(name, rks, precision, bn_mode, n_spatial, backend, launches):
+    """Every rank ran each forward with exactly the launches, exchanges and
+    statistics' all-reduces of its place, and (with H sharded) held each of
+    its 42 halo'd K1 launches of the first forward against the twin. Adds
+    the launches to ``launches`` (by dtype)."""
+    want = mesh_per_forward(precision, bn_mode, n_spatial, backend)
+    for rk in rks:
+        for fwd in rk["forwards"]:
+            got = {k: fwd[k] for k in want}
+            if got != want:
+                raise AssertionError(f"mesh {name} rank at {rk['coordinate']}: a forward ran {got}, expected {want}")
+            launches[precision].update({k: fwd[k] for k in ("k1", "k2", "channel_stats")})
+        if n_spatial > 1 and rk["k1_check"].get("calls") != 42:
+            raise AssertionError(f"mesh {name} rank at {rk['coordinate']}: {rk['k1_check'].get('calls')} halo'd K1 "
+                                 "launches checked, expected 42")
+    return {"forwards_per_rank": [len(rk["forwards"]) for rk in rks], "per_forward": want,
+            "exchange_bytes_per_forward": [rk["forwards"][0]["exchange_bytes"] for rk in rks],
+            "k1_halo_max_abs_err": max((rk["k1_check"].get("max_abs_err", 0.0) for rk in rks), default=0.0),
+            "k1_halo_shapes": rks[0]["k1_check"].get("shapes", [])}
+
+
+def seam_gate(got, ref, n_spatial):
+    """tests/test_dist.py:208-249's seam gate: the rows beside each seam no
+    worse than 5× the interior's. Returns (seam max, interior max, ok)."""
+    h = got.shape[1]
+    seams = sorted({r for b in range(1, n_spatial) for r in (b * h // n_spatial - 1, b * h // n_spatial)})
+    interior = [r for r in range(h) if r not in seams]
+    err = (got - ref).abs()
+    seam_max, interior_max = err[:, seams].max().item(), err[:, interior].max().item()
+    return seam_max, interior_max, seam_max <= max(5.0 * interior_max, 1e-5)
+
+
+MESH_CLI_SCRIPT = r"""
+import sys
+import numpy as np
+from fdgan_tpu_torch.cli import _common, serve
+from fdgan_tpu_torch.utils import images
+# the card's machine has no PIL: the folder holds .npy arrays under .png names
+images.load_rgb_image = lambda path, *a, **k: np.load(path).astype(np.float32)
+_common.save_image_normalized = lambda arr, path: np.save(path + ".npy", arr)
+serve.main(sys.argv[1:])
+"""
+
+
+# K1 with halo rows, on the card alone: (shape, dtype, shard rows); the image split into shards of whole 8-row
+# tiles, each run with its neighbours' rows (ops.dense.halo_buffer), against K1 on the whole image (the same
+# bits: the tiles fall alike and each pixel sums its products in the same order) and the twin (the tolerances)
+MESH_K1_CASES = [((8, 512, 512, 64), "bfloat16", [256, 256]), ((8, 128, 128, 992), "bfloat16", [64, 40, 24]),
+                 ((2, 120, 200, 96), "bfloat16", [56, 64]), ((1, 1024, 1024, 64), "float32", [512, 512]),
+                 ((1, 256, 256, 992), "float32", [128, 64, 64])]
+
+
+def mesh_k1_halo():
+    """MESH_K1_CASES: returns the checks, with the first shard's K1 on the
+    device alone with its halo row and without (``halo_device_ms``,
+    ``shard_device_ms``); raises on a disagreement."""
+    import torch
+
+    from fdgan_tpu_torch.ops import dense
+    from fdgan_tpu_torch.tools.timing import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for shape, dtype, shards in MESH_K1_CASES:
+        args = layer_inputs(shape, getattr(torch, dtype), gen)
+        x, rest = args[0], args[1:]
+        b, h, w, c = shape
+        with torch.inference_mode(), exact_fp32():
+            whole = dense.fused_dense_layer(x, *rest)
+            twin = dense.layer_reference(x, *rest)
+            parts, start, timed = [], 0, {}
+            for n in shards:
+                xs, top, bottom = dense.halo_buffer(b, n, w, c, device="cuda", dtype=x.dtype)
+                xs.copy_(x[:, start:start + n])
+                if start > 0:
+                    top.copy_(x[:, start - 1:start])
+                if start + n < h:
+                    bottom.copy_(x[:, start + n:start + n + 1])
+                halo = (top if start > 0 else None, bottom if start + n < h else None)
+                parts.append(dense.fused_dense_layer(xs, *rest, halo=halo))
+                if not timed:  # the first shard, its bottom row from the next
+                    timed = {"halo_device_ms": device_ms(lambda: dense.fused_dense_layer(xs, *rest, halo=halo)),
+                             "shard_device_ms": device_ms(lambda: dense.fused_dense_layer(xs, *rest))}
+                start += n
+            got = torch.cat(parts, dim=1)
+        tol = K1_TOL_F32 if dtype == "float32" else K1_TOL_BF16
+        row = {"shape": list(shape), "dtype": dtype, "shards": shards, "same_bits_as_whole": bool(torch.equal(got, whole)),
+               "max_abs_err": (got.float() - twin.float()).abs().max().item()} | timed
+        rows.append(row)
+        log(f"mesh K1 with halo rows {json.dumps(row)}")
+        if not (row["same_bits_as_whole"] and torch.allclose(got.float(), twin.float(), **tol)):
+            raise AssertionError(f"K1 with halo rows: {row}")
+    return rows
+
+
+def phase_mesh():
+    """Phase 11: the serving mesh (``InferenceEngine(mesh=..., spatial=...)``,
+    ``dist.halo_exchange``) on this card: ranks of
+    ``tools.mesh_serve`` over gloo (NCCL takes one rank per device), 2 and
+    then 4, on MESH_IMAGES through the 1×2, 2×1 and 2×2 meshes of
+    MESH_RUNS, against the engine in this one process on the same weights
+    and images: fp32 running BN within MESH_RUNNING_TOL, fp32 batch BN
+    within MESH_BATCH_TOL with the seam gate, bf16 by the PSNR criterion (against
+    the fp32 engine, no more than 1 dB below the one-process bf16 engine's);
+    each rank's forward with exactly its launches, exchanges and statistics'
+    all-reduces; with H sharded, every halo'd K1 launch of the first forward
+    held against its twin on its own input. Then ``cli/serve
+    --spatialShards 2`` on 2 ranks against one process (fp32). Returns the
+    phase's numbers and the path's launches by dtype."""
+    import os
+    import shutil
+
+    import torch
+
+    from fdgan_tpu_torch.dist import mesh
+    from fdgan_tpu_torch.models.fdgan import FDGAN
+    from fdgan_tpu_torch.serve import InferenceEngine
+
+    t0 = time.perf_counter()
+    root = os.path.join("build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    weights = mesh_weights()
+    b, h, w = MESH_IMAGES
+    imgs = np.random.default_rng(7).uniform(size=(b, h, w, 3)).astype(np.float32)
+    in_dir, out_dir = os.path.join(root, "cli_in"), os.path.join(root, "cli_out")
+    os.makedirs(in_dir)
+    raw = np.random.default_rng(8).integers(0, 256, size=(3, 192, 256, 3)).astype(np.float32)
+    for i, img in enumerate(raw):
+        with open(os.path.join(in_dir, f"{i}.png"), "wb") as f:
+            np.save(f, img)
+    cli_args = ["--inDir", in_dir, "--outDir", out_dir, "--spatialShards", "2", "--precision", "fp32", "--maxBatch",
+                "2", "--device", "cuda", "--backend", "gloo"]
+
+    def ranks(nprocs):
+        t = time.perf_counter()
+        runs = [{"name": name, "mesh": dims, "precision": prec, "bn_mode": bn, "bucket": 64, "batch_sizes": [b],
+                 "images": torch.from_numpy(imgs), "check_k1": K1_TOL_F32 if prec == "fp32" else K1_TOL_BF16}
+                for name, dims, prec, bn in MESH_RUNS[nprocs]]
+        res = run_mesh_ranks(weights, runs, nprocs, "gloo", os.path.join(root, f"ranks{nprocs}"))
+        return res, time.perf_counter() - t
+
+    def cli():
+        t = time.perf_counter()
+        try:
+            logs = mesh.run_local_ranks([sys.executable, "-c", MESH_CLI_SCRIPT] + cli_args, 2, MESH_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            raise AssertionError(f"mesh cli: {e}")
+        return logs, time.perf_counter() - t
+
+    # K1 with halo rows first, alone on the card: its times would read the ranks' work beside them
+    out = {"k1_halo": mesh_k1_halo(), "checks": {}}
+    # the three launches of ranks (2, 4 and the CLI's 2) run at once, beside this process's own work: their
+    # processes' start-up (~10 s each, CUDA and the kernels' library) would otherwise take most of the phase
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        launched = {nprocs: pool.submit(ranks, nprocs) for nprocs in MESH_RUNS}
+        cli_run = pool.submit(cli)
+        singles = {}
+        for precision in ("fp32", "bf16"):
+            for bn in ("running", "batch"):
+                eng = InferenceEngine(weights, device="cuda", precision=precision, bn_mode=bn, bucket=64,
+                                      batch_sizes=(b,))
+                singles[precision, bn] = torch.from_numpy(np.stack(eng.predict_batch(list(imgs))))
+                del eng
+        # the CLI's weights without --netG: FDGAN's seed-0 init
+        eng = InferenceEngine(FDGAN(generator=torch.Generator().manual_seed(0)), device="cuda", precision="fp32",
+                              bucket=64, batch_sizes=(1, 2))
+        cli_ref = eng.predict_batch([img / 255.0 for img in raw])
+        del eng
+        results = {nprocs: f.result() for nprocs, f in launched.items()}
+        cli_logs, cli_seconds = cli_run.result()
+    launches = {"bf16": collections.Counter(), "fp32": collections.Counter()}
+    for nprocs, specs in MESH_RUNS.items():
+        res_n, seconds = results[nprocs]
+        out[f"launch_{nprocs}_ranks_s"] = seconds
+        for name, dims, prec, bn in specs:
+            rks = res_n[name]
+            res = check_mesh_ranks(name, rks, prec, bn, dims[1], "gloo", launches)
+            got, ref = rks[0]["outputs"], singles[prec, bn]
+            res["max_abs_err"] = (got - ref).abs().max().item()
+            if prec == "fp32" and bn == "running":
+                ok = torch.allclose(got, ref, **MESH_RUNNING_TOL)
+            elif prec == "fp32":
+                res["seam_max_abs_err"], res["interior_max_abs_err"], seams_ok = seam_gate(got, ref, dims[1])
+                ok = torch.allclose(got, ref, **MESH_BATCH_TOL) and seams_ok
+            else:
+                res["psnr_mesh_db"] = psnr(got, singles["fp32", bn])
+                res["psnr_single_db"] = psnr(ref, singles["fp32", bn])
+                ok = res["psnr_mesh_db"] >= res["psnr_single_db"] - 1.0
+            ok = ok and bool(torch.isfinite(got).all()) and tuple(got.shape) == (b, h, w, 3)
+            out["checks"][name] = res
+            log(f"mesh {name} ({nprocs} gloo ranks on this card) {b}x{h}x{w} against one process: "
+                f"{json.dumps(res)} ok={ok}")
+            if not ok:
+                raise AssertionError(f"mesh {name}: {res}")
+    # cli/serve --spatialShards 2 on 2 ranks against one process, fp32, running BN
+    cli_err = max(np.abs(np.load(os.path.join(out_dir, f"{i}.png.npy")) - r).max() for i, r in enumerate(cli_ref))
+    out["cli"] = {"max_abs_err": float(cli_err), "launch_s": cli_seconds,
+                  "rank0_tail": cli_logs[0].strip().splitlines()[-1][:200]}
+    log(f"mesh cli.serve --spatialShards 2 (2 gloo ranks) 3x192x256 fp32 against one process: {json.dumps(out['cli'])}")
+    if not cli_err <= MESH_RUNNING_TOL["atol"]:
+        raise AssertionError(f"mesh cli.serve: outputs differ from one process by {cli_err:.3e}")
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: dict(v) for k, v in launches.items()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {out['seconds']:.1f} s")
+    return out, launches
+
+
+def mesh_ranks_main() -> int:
+    """``python3 chip_smoke.py --mesh-ranks``: only the mesh, one rank per
+    card of this machine over NCCL, on ``mesh_ranks_cells`` (bf16 running BN):
+    each rank's launches and exchanges exact, the spatial rank's halo'd K1
+    launches against their twins, the mesh against one card in turns
+    (MESH_TIMED forwards a turn, single, mesh, mesh, single), one forward of
+    the 1×N mesh under torch.profiler on rank 0. Prints one JSON line, then
+    the last line as the full run does."""
+    import os
+    import shutil
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise AssertionError(f"--mesh-ranks needs two cards or more, found {n}")
+    phase_device()
+    root = os.path.join("build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(9)
+    runs = []
+    for name, dims, (b, h, w) in mesh_ranks_cells(n):
+        runs.append({"name": name, "mesh": dims, "precision": "bf16", "bn_mode": "running", "bucket": 64,
+                     "batch_sizes": [b], "images": torch.from_numpy(rng.uniform(size=(b, h, w, 3)).astype(np.float32)),
+                     "check_k1": K1_TOL_BF16, "time": MESH_TIMED, "profile": dims[1] > 1})
+    results = run_mesh_ranks(mesh_weights(), runs, n, "nccl", root)
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {"bf16": collections.Counter(), "fp32": collections.Counter()}
+    cells = {}
+    for run in runs:
+        rks = results[run["name"]]
+        cells[run["name"]] = check_mesh_ranks(run["name"], rks, "bf16", "running", run["mesh"][1], "nccl", launches)
+        cells[run["name"]] |= {"turns": rks[0]["turns"], "profile": rks[0].get("profile"),
+                               "finite": bool(torch.isfinite(rks[0]["outputs"]).all())}
+        log(f"mesh {run['name']} ({n} NCCL ranks, one a card): {json.dumps(cells[run['name']])}")
+        if not cells[run["name"]]["finite"]:
+            raise AssertionError(f"mesh {run['name']}: non-finite outputs")
+    print(json.dumps({"mesh_ranks": {"ranks": n, "cells": cells,
+                                     "launches": {k: dict(v) for k, v in launches.items()}}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2276,6 +2602,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references run in full fp32
     if sys.argv[1:] == ["--dp-ranks"]:
         return dp_ranks_main()
+    if sys.argv[1:] == ["--mesh-ranks"]:
+        return mesh_ranks_main()
     t_start = time.perf_counter()
     phase_device()
     rows, worst, tf32x3_ceiling = phase_kernels()
@@ -2305,17 +2633,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp, dp_launches = phase_dp()
     log(json.dumps({"dp": dp}))
+    torch.cuda.empty_cache()
+    mesh_out, mesh_launches = phase_mesh()
+    log(json.dumps({"mesh": mesh_out}))
     ragged_c = {f"c{r['shape'][-1]}": {k: r[k] for k in r if k.startswith(("k1_", "k2_"))} | {"shape": r["shape"]}
                 for r in zoo["kernels_ragged_c"] if r["dtype"] == "bfloat16"}
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
     timed32 = {tuple(r["shape"]): r for r in rows if r["dtype"] == "float32"}[DEMO_LAYER]
     demo32 = demo["launches_per_run"]["fp32"]  # the demo's default: 2 images of 1024², 1200x1600 and 1021x1533
     k3_timed = {tuple(r["shape"]): r for r in k3_rows if r["dtype"] == "bfloat16"}[K3_SHAPES[0]]
+    k1_halo = {}  # the first case of each dtype in MESH_K1_CASES
+    for r in mesh_out["k1_halo"]:
+        k1_halo.setdefault(r["dtype"], {k: r[k] for k in ("shape", "shards", "halo_device_ms", "shard_device_ms")})
 
     def by_path(k):
         return {"serving": launches.get(k, 0), "training": train_launches[k], "probes": 0,
                 "demo": demo_launches[k], "train_cli": cli_launches[k], "zoo": zoo_launches[k],
-                "dp": dp_launches["bf16"][k] + (dp_launches["fp32"][k] if k == "k3" else 0)}
+                "dp": dp_launches["bf16"][k] + (dp_launches["fp32"][k] if k == "k3" else 0),
+                "mesh": mesh_launches["bf16"][k]}
 
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
@@ -2326,16 +2661,19 @@ def main() -> int:
          "bound_ms": timed["k1_bound_ms"], "bound_by": timed["k1_bound_by"], "library_ms": None,
          "device_ms": timed["k1_device_ms"],
          "view_device_ms": timed["k1_view_device_ms"],  # x and out channel slices of a buffer of ld 256
+         "halo": k1_halo["bfloat16"],  # phase 11: a shard of 8x512^2x64 with its halo row, and without
          "at_ragged_c": {c: {k: v for k, v in r.items() if not k.startswith("k2_")} for c, r in ragged_c.items()},
          "timed_at": list(TIMED_SHAPE) + ["bfloat16"], "err_of": "bf16, all shapes"},
         {"name": "fused_dense_layer fp32 (K1, 3xTF32)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": demo32["k1"],
-         "launches_by_path": {"demo_fp32": demo32["k1"], "dp": dp_launches["fp32"]["k1"]},
+         "launches_by_path": {"demo_fp32": demo32["k1"], "dp": dp_launches["fp32"]["k1"],
+                              "mesh": mesh_launches["fp32"]["k1"]},
          "max_abs_err": worst["float32"]["k1"], "ms": timed32["k1_ms"], "plain_ms": timed32["k1_plain_ms"],
          "bound_ms": timed32["k1_bound_ms"], "bound_by": timed32["k1_bound_by"],
          "cuda_core_bound_ms": timed32["k1_cuda_core_bound_ms"], "library_ms": None,
          "device_ms": timed32["k1_device_ms"], "view_device_ms": timed32["k1_view_device_ms"],
+         "halo": k1_halo["float32"],  # phase 11: a shard of 1x1024^2x64 with its halo row, and without
          "tf32x3_ceiling_tflops": tf32x3_ceiling,  # what the 3xTF32 k-steps reach alone (fp32-product TFLOP/s)
          "timed_at": list(DEMO_LAYER) + ["float32"], "err_of": "fp32 against the twin in full fp32, all shapes"},
         {"name": "h_batch_stats (K2)", "route": "cuda",
@@ -2352,7 +2690,8 @@ def main() -> int:
         {"name": "h_batch_stats fp32 (K2, 3xTF32)", "route": "cuda",
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": demo32["k2"],
-         "launches_by_path": {"demo_fp32": demo32["k2"], "dp": dp_launches["fp32"]["k2"]},
+         "launches_by_path": {"demo_fp32": demo32["k2"], "dp": dp_launches["fp32"]["k2"],
+                              "mesh": mesh_launches["fp32"]["k2"]},
          "max_abs_err": worst["float32"]["k2"], "ms": timed32["k2_ms"], "plain_ms": timed32["k2_plain_ms"],
          "bound_ms": timed32["k2_bound_ms"], "bound_by": timed32["k2_bound_by"],
          "cuda_core_bound_ms": timed32["k2_cuda_core_bound_ms"], "library_ms": None,
@@ -2382,7 +2721,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "fdgan_tpu_torch/csrc/probes.cu", "replaces": row["replaces"],
             "launches": probe_launches[name],
             "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name],
-                                 "demo": demo_probe_launches[name], "train_cli": 0, "zoo": 0, "dp": 0},
+                                 "demo": demo_probe_launches[name], "train_cli": 0, "zoo": 0, "dp": 0, "mesh": 0},
             "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call

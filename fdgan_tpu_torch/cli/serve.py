@@ -10,6 +10,14 @@ normalize=True protocol (demo.py:151).
     python -m fdgan_tpu_torch.cli.serve --http 8731 --netG netG.pth
     python -m fdgan_tpu_torch.cli.serve --inDir ntire/ --outDir dehazed/ \
         --netG netG.pth --tile 512 --halo 128
+
+A data × spatial mesh runs one process a card, started as the training
+CLI's ranks are (``FDGAN_TPU_DIST`` with its coordinates, or torchrun),
+with world size dataShards × spatialShards; rank 0 reads, serves and
+writes, the other ranks run its batches:
+
+    FDGAN_TPU_DIST=1 torchrun --nproc-per-node 4 -m fdgan_tpu_torch.cli.serve \
+        --inDir big/ --outDir dehazed/ --dataShards 1 --spatialShards 4
 """
 
 from __future__ import annotations
@@ -54,7 +62,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inputDtype", choices=["float32", "uint8"], default="float32",
                    help="uint8 uploads raw bytes and normalises on the device "
                         "(bit-identical for 8-bit sources)")
-    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu); under a process "
+                   "group on cuda each rank takes its own card")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend under FDGAN_TPU_DIST (default: nccl on cuda, gloo on the "
+                        "CPU; gloo for ranks that share a card, which NCCL refuses)")
+    p.add_argument("--dataShards", type=int, default=0,
+                   help="shard batches over this many ranks (mesh 'data' "
+                        "axis; 0 = no mesh, single device)")
+    p.add_argument("--spatialShards", type=int, default=1,
+                   help="with --dataShards: also shard the image H axis over "
+                        "this many ranks (latency lever for large images)")
     return p
 
 
@@ -63,11 +81,28 @@ def main(argv=None):
 
     import torch
 
-    from fdgan_tpu_torch.cli._common import load_generator, save_image_normalized
+    from fdgan_tpu_torch.cli._common import load_generator
+    from fdgan_tpu_torch.dist import mesh as dmesh
     from fdgan_tpu_torch.serve import InferenceEngine
-    from fdgan_tpu_torch.utils.images import load_rgb_image
 
-    if not opt.http:
+    n_data = opt.dataShards or (1 if opt.spatialShards > 1 else 0)
+    mesh, rank = None, 0
+    if n_data:
+        n = n_data * opt.spatialShards
+        dmesh.maybe_init_distributed(opt.device, opt.backend)
+        if n > 1 and not torch.distributed.is_initialized():
+            raise SystemExit(f"mesh {n_data}x{opt.spatialShards} needs {n} ranks, one process each: start them with "
+                             f"FDGAN_TPU_DIST=1 and FDGAN_TPU_DIST_COORD/_NPROCS={n}/_PID, or "
+                             f"FDGAN_TPU_DIST=1 torchrun --nproc-per-node {n}")
+        if dmesh.world_size() != n:
+            raise SystemExit(f"mesh {n_data}x{opt.spatialShards} needs {n} ranks, have {dmesh.world_size()}")
+        if torch.device(opt.device).type == "cuda" and torch.device(opt.device).index is None:
+            opt.device = str(dmesh.local_device())
+        if torch.distributed.is_initialized():
+            mesh = dmesh.make_mesh(n_data, opt.spatialShards, torch.device(opt.device).type)
+            rank = dmesh.rank()
+
+    if not opt.http and rank == 0:
         if not opt.inDir:
             raise SystemExit("--inDir is required (or pass --http PORT)")
         names = sorted(f for f in os.listdir(opt.inDir) if f.lower().endswith(EXTS))
@@ -98,6 +133,8 @@ def main(argv=None):
     else:
         ladder = tuple(sorted({b for b in (1, 2, 4, 8, 16) if b < opt.maxBatch}
                               | {max(1, opt.maxBatch)}))
+        if n_data:
+            ladder = tuple(b * n_data for b in ladder)
     engine = InferenceEngine(
         model,
         device=opt.device,
@@ -109,8 +146,23 @@ def main(argv=None):
         halo=opt.halo,
         output=opt.outputDtype,
         input=opt.inputDtype,
+        mesh=mesh,
+        spatial=opt.spatialShards > 1,
     )
     del model
+    if rank != 0:  # rank 0 reads, serves and writes
+        engine.serve_worker()
+        return
+    try:
+        _serve(opt, engine, names if not opt.http else None, out_names if not opt.http else None)
+    finally:
+        engine.close()
+
+
+def _serve(opt, engine, names, out_names):
+    """Rank 0's part: the HTTP server, or the folder pass."""
+    from fdgan_tpu_torch.cli._common import load_generator, save_image_normalized
+    from fdgan_tpu_torch.utils.images import load_rgb_image
 
     if opt.http:
         from fdgan_tpu_torch.serve_http import make_server, serve_forever

@@ -116,7 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save a checkpoint every N epochs (a final one is always written)")
     p.add_argument("--noAsyncCkpt", action="store_true", help="refused: saves are always blocking here")
     p.add_argument("--deviceSteps", type=int, default=0, help="refused: the TPU's device-resident loop")
-    p.add_argument("--spatialShards", type=int, default=1, help="refused: spatial sharding is not ported yet")
+    p.add_argument("--spatialShards", type=int, default=1, help="refused: training with H sharded is not ported yet (ROADMAP item 11b)")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     return p
 
@@ -134,7 +134,8 @@ def refuse(opt: argparse.Namespace) -> None:
         raise SystemExit("--spatialShards > 1 is single-process only: the h5 loader shards IMAGES per process, "
                          "not image bands")
     if opt.spatialShards > 1:
-        raise SystemExit("--spatialShards > 1: spatial sharding is not ported yet (ROADMAP.md, Queue 1 item 11)")
+        raise SystemExit("--spatialShards > 1: training with H sharded is not ported yet (ROADMAP.md, Queue 1 "
+                         "item 11b; serving shards H: cli/serve --spatialShards)")
     if opt.poolSize > 0 and opt.accumSteps > 1:
         raise SystemExit("--accumSteps > 1 requires --poolSize 0 (the ImagePool G/D split does not "
                          "accumulate; it would silently ignore the flag)")

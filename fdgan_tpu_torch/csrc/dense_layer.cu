@@ -5,7 +5,8 @@
 //     body _layer_kernel). One DenseNet-121 layer, fused:
 //         t = relu(a1*x + b1)             rounded to x's dtype
 //         h = t . W1                      1x1 conv C -> 128, fp32 accumulation
-//         g = relu(a2*h + b2)             rounded to x's dtype; 0 outside the image
+//         g = relu(a2*h + b2)             rounded to x's dtype; 0 outside the image,
+//                                         or from a neighbour's row of x (halo_pixel)
 //         f = sum over 9 taps of shift(g) . W2[tap]   3x3 conv 128 -> 32, fp32 acc.
 //     h and g never leave the SM.
 //
@@ -222,6 +223,22 @@ h_stats_bf16_mma_kernel(const bf16* __restrict__ x, int ldx, const float* __rest
 // Shared memory: W2 72 KB, g 58 KB, the ring 80 KB, the affines 9 KB, the
 // conv's hand-over rows 5 KB: 224 KB of the 227 a block may have.
 
+// The halo ring of a tile and the image's top and bottom rows. Under spatial
+// sharding (dist/halo_exchange.py) an image's H rows are split over ranks, and
+// the row above a shard's first (below its last) is a neighbour's: there g is
+// computed like at any pixel of the image, from that row of x, not set to 0.
+// Those rows lie in x's own buffer, after its B*H*W pixels: ``top`` (``bot``)
+// is the pixel index, from x, of image 0's row above (below), image b's at
+// + b*W, with x's pixel stride; -1 where the image ends (g = 0, the conv's
+// zero padding). Returns the pixel index from x of (b, iy, ix) for iy in
+// -1 .. H, or -1 where g is 0.
+__device__ __forceinline__ int halo_pixel(int b, int iy, int ix, int H, int W, int top, int bot) {
+  if (ix < 0 || ix >= W) return -1;
+  if (iy >= 0 && iy < H) return (b * H + iy) * W + ix;
+  const int row = iy < 0 ? top : bot;  // iy is -1 or H: a tile's ring reaches one row out
+  return row >= 0 ? row + b * W + ix : -1;
+}
+
 constexpr int K1_TW = 16;
 typedef FlatTile<K1_TW> K1T;
 constexpr int K1_WGS = K1T::M1;                      // 3 warpgroups
@@ -241,12 +258,13 @@ static_assert(K1T::OS_BYTES <= K1_T_BYTES, "the staged outputs take the place of
 static_assert(K1_SMEM <= 232448, "a block's shared memory");
 static_assert(K1_ROWS * (K1_KC / 8) == 4 * K1_THREADS, "each thread stages 4 vectors of x per step");
 
+template <bool HALO>
 __global__ void __launch_bounds__(K1_THREADS, 1)
 dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1,
                         const float* __restrict__ b1, const bf16* __restrict__ w1p,
                         const float* __restrict__ a2, const float* __restrict__ b2,
                         const bf16* __restrict__ w2r, bf16* __restrict__ out, int B, int H, int W, int C,
-                        int ldx, int ldo) {
+                        int ldx, int ldo, int top, int bot) {
   extern __shared__ __align__(128) unsigned char smem_wg[];
   unsigned char* w2s = smem_wg;
   unsigned char* gs = w2s + W2_BYTES;            // g of the halo tile, [k / 8][flat index][8]
@@ -278,7 +296,10 @@ dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1
     for (int r = 0; r < 4; ++r) {
       const int row = srow + 16 * r;
       const int iy = y0 - 1 + row / K1T::HW, ix = x0 - 1 + row % K1T::HW;
-      gp[r] = (row < K1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W) ? (b * H + iy) * W + ix : -1;
+      if constexpr (HALO)
+        gp[r] = row < K1T::HPIX ? halo_pixel(b, iy, ix, H, W, top, bot) : -1;
+      else
+        gp[r] = (row < K1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W) ? (b * H + iy) * W + ix : -1;
     }
   };
   auto fetch = [&](uint4 (&xr)[4], int c0) {
@@ -409,7 +430,10 @@ dense_layer_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ a1
       for (int half = 0; half < 2; ++half) {
         const int row = 64 * wg + 16 * warp + gq + 8 * half;
         const int iy = y0 - 1 + row / K1T::HW, ix = x0 - 1 + row % K1T::HW;
-        in[half] = row < K1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W;
+        if constexpr (HALO)
+          in[half] = row < K1T::HPIX && halo_pixel(b, iy, ix, H, W, top, bot) >= 0;
+        else
+          in[half] = row < K1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W;
       }
       // four 8 x 8 blocks of the fragment per store: lane l names row l % 8 of block l / 8,
       // blocks (plane j, rows +0), (j, +8), (j + 1, +0), (j + 1, +8); a row is 16 bytes of a plane
@@ -816,11 +840,12 @@ static_assert(TF1T::M2 == TF1_WGS, "a warpgroup per 64-row tile of the conv");
 static_assert(TF1_W2_CHUNK <= TF1_WSTAGE, "a W2 chunk fits a ring stage");
 static_assert(TF1_SMEM <= 232448, "a block's shared memory");
 
+template <bool HALO>
 __global__ void __launch_bounds__(TF1_THREADS, 1)
 dense_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ a1, const float* __restrict__ b1,
                           const float* __restrict__ w1p, const float* __restrict__ a2, const float* __restrict__ b2,
                           const float* __restrict__ w2p, float* __restrict__ out, int B, int H, int W, int C, int ldx,
-                          int ldo, int vec_out) {
+                          int ldo, int top, int bot, int vec_out) {
   extern __shared__ __align__(128) unsigned char smem_wg[];
   unsigned char* gs = smem_wg;                   // g of the halo tile: [flat index][128 fp32], vectors swizzled
   unsigned char* wring = smem_wg + TF1_W;        // [2] stages of W1's or W2's chunks
@@ -879,7 +904,10 @@ dense_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__
     for (int j = 0; j < 4; ++j) {
       const int row = 16 * wb + 4 * j + lane / 8;
       const int iy = ty * TF1T::TH - 1 + row / TF1T::HW, ix = tx * TF1T::TW - 1 + row % TF1T::HW;
-      fgp[j] = (row < TF1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W) ? (b * H + iy) * W + ix : -1;
+      if constexpr (HALO)
+        fgp[j] = row < TF1T::HPIX ? halo_pixel(b, iy, ix, H, W, top, bot) : -1;
+      else
+        fgp[j] = (row < TF1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W) ? (b * H + iy) * W + ix : -1;
     }
   };
   auto fetch = [&]() {  // the step fe_k into stage fe_k % 2; a cp.async group every call
@@ -963,7 +991,10 @@ dense_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__
       for (int h = 0; h < 2; ++h) {
         const int row = crow + 8 * h;
         const int iy = y0 - 1 + row / TF1T::HW, ix = x0 - 1 + row % TF1T::HW;
-        in[h] = row < TF1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W;
+        if constexpr (HALO)
+          in[h] = row < TF1T::HPIX && halo_pixel(b, iy, ix, H, W, top, bot) >= 0;
+        else
+          in[h] = row < TF1T::HPIX && iy >= 0 && iy < H && ix >= 0 && ix < W;
       }
 #pragma unroll
       for (int j = 0; j < INTER / 8; ++j) {
@@ -1102,6 +1133,41 @@ int launch_tf32x3_selfcheck(const void* a, const void* bp, void* d, int reps, in
   return (int)cudaGetLastError();
 }
 
+// K1's launches: the body with halo rows (HALO) only where a launch has them, so
+// that the single-device path runs the code it ran before halo rows existed.
+template <bool HALO>
+int launch_dense_layer_f32(const void* x, const void* a1, const void* b1, const void* w1, const void* a2,
+                           const void* b2, const void* w2, void* out, int B, int H, int W, int C, int ldx, int ldo,
+                           int top, int bot, void* stream) {
+  if (int err = set_smem(dense_layer_tf32x3_kernel<HALO>, TF1_SMEM)) return err;
+  const long long ntiles = (long long)B * ((H + TF1T::TH - 1) / TF1T::TH) * ((W + TF1T::TW - 1) / TF1T::TW);
+  static int resident[MAX_DEVICES] = {};
+  int grid = 0;
+  if (int err = persistent_grid(dense_layer_tf32x3_kernel<HALO>, TF1_THREADS, TF1_SMEM, ntiles, 1, &grid, resident))
+    return err;
+  const int vec_out = ldo % 2 == 0 && (uintptr_t)out % 8 == 0;  // float2 stores
+  dense_layer_tf32x3_kernel<HALO><<<grid, TF1_THREADS, TF1_SMEM, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)a1, (const float*)b1, (const float*)w1, (const float*)a2,
+      (const float*)b2, (const float*)w2, (float*)out, B, H, W, C, ldx, ldo, top, bot, vec_out);
+  return (int)cudaGetLastError();
+}
+
+template <bool HALO>
+int launch_dense_layer_bf16(const void* x, const void* a1, const void* b1, const void* w1, const void* a2,
+                            const void* b2, const void* w2, void* out, int B, int H, int W, int C, int ldx, int ldo,
+                            int top, int bot, void* stream) {
+  if (int err = set_smem(dense_layer_bf16_kernel<HALO>, K1_SMEM)) return err;
+  const long long ntiles = (long long)B * ((H + K1T::TH - 1) / K1T::TH) * ((W + K1_TW - 1) / K1_TW);
+  static int resident[MAX_DEVICES] = {};
+  int grid = 0;
+  if (int err = persistent_grid(dense_layer_bf16_kernel<HALO>, K1_THREADS, K1_SMEM, ntiles, 1, &grid, resident))
+    return err;
+  dense_layer_bf16_kernel<HALO><<<grid, K1_THREADS, K1_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)a1, (const float*)b1, (const bf16*)w1, (const float*)a2,
+      (const float*)b2, (const bf16*)w2, (bf16*)out, B, H, W, C, ldx, ldo, top, bot);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1121,35 +1187,24 @@ extern "C" {
 //   8, 96, 4) of ops/dense.py (tf32 big and small planes per chunk, in the
 //   order of wgmma_tf32.cuh); C and ldx multiples of 4 and x 16-byte aligned
 //   (the wrapper pads x where they are not); any ldo.
+// - top, bot: -1, or the pixel index from x of image 0's halo row above
+//   (below) its first (last) row, image b's at + b * W (halo_pixel); the rows
+//   lie in x's buffer, with its pixel stride.
 
 int fdgan_dense_layer_f32(const void* x, const void* a1, const void* b1, const void* w1,
                           const void* a2, const void* b2, const void* w2, void* out, int B,
-                          int H, int W, int C, int ldx, int ldo, void* stream) {
-  if (int err = set_smem(dense_layer_tf32x3_kernel, TF1_SMEM)) return err;
-  const long long ntiles = (long long)B * ((H + TF1T::TH - 1) / TF1T::TH) * ((W + TF1T::TW - 1) / TF1T::TW);
-  static int resident[MAX_DEVICES] = {};
-  int grid = 0;
-  if (int err = persistent_grid(dense_layer_tf32x3_kernel, TF1_THREADS, TF1_SMEM, ntiles, 1, &grid, resident))
-    return err;
-  const int vec_out = ldo % 2 == 0 && (uintptr_t)out % 8 == 0;  // float2 stores
-  dense_layer_tf32x3_kernel<<<grid, TF1_THREADS, TF1_SMEM, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)a1, (const float*)b1, (const float*)w1, (const float*)a2,
-      (const float*)b2, (const float*)w2, (float*)out, B, H, W, C, ldx, ldo, vec_out);
-  return (int)cudaGetLastError();
+                          int H, int W, int C, int ldx, int ldo, int top, int bot, void* stream) {
+  return top < 0 && bot < 0
+             ? launch_dense_layer_f32<false>(x, a1, b1, w1, a2, b2, w2, out, B, H, W, C, ldx, ldo, top, bot, stream)
+             : launch_dense_layer_f32<true>(x, a1, b1, w1, a2, b2, w2, out, B, H, W, C, ldx, ldo, top, bot, stream);
 }
 
 int fdgan_dense_layer_bf16(const void* x, const void* a1, const void* b1, const void* w1,
                            const void* a2, const void* b2, const void* w2, void* out, int B,
-                           int H, int W, int C, int ldx, int ldo, void* stream) {
-  if (int err = set_smem(dense_layer_bf16_kernel, K1_SMEM)) return err;
-  const long long ntiles = (long long)B * ((H + K1T::TH - 1) / K1T::TH) * ((W + K1_TW - 1) / K1_TW);
-  static int resident[MAX_DEVICES] = {};
-  int grid = 0;
-  if (int err = persistent_grid(dense_layer_bf16_kernel, K1_THREADS, K1_SMEM, ntiles, 1, &grid, resident)) return err;
-  dense_layer_bf16_kernel<<<grid, K1_THREADS, K1_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)a1, (const float*)b1, (const bf16*)w1, (const float*)a2,
-      (const float*)b2, (const bf16*)w2, (bf16*)out, B, H, W, C, ldx, ldo);
-  return (int)cudaGetLastError();
+                           int H, int W, int C, int ldx, int ldo, int top, int bot, void* stream) {
+  return top < 0 && bot < 0
+             ? launch_dense_layer_bf16<false>(x, a1, b1, w1, a2, b2, w2, out, B, H, W, C, ldx, ldo, top, bot, stream)
+             : launch_dense_layer_bf16<true>(x, a1, b1, w1, a2, b2, w2, out, B, H, W, C, ldx, ldo, top, bot, stream);
 }
 
 static int tf2_resident[MAX_DEVICES] = {};

@@ -31,7 +31,7 @@ import subprocess
 import tempfile
 import time
 import warnings
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -95,9 +95,81 @@ def local_device() -> torch.device:
     return torch.device("cuda", int(local) if local is not None else rank() % torch.cuda.device_count())
 
 
-def shard_batch(batch: Sequence[torch.Tensor]) -> tuple:
-    """This process's rows of each tensor of a global batch: rank r of W
-    takes rows [r·B/W, (r+1)·B/W). B must divide by W."""
+def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1, device_type: str = "cuda"):
+    """A ``("data", "spatial")`` ``DeviceMesh`` over the ranks of the
+    process group (``FDGAN_TPU_DIST``; every rank calls this, as it creates
+    the mesh's groups): rank d·n_spatial + s at coordinate (d, s). The
+    default puts every rank on ``data``. Raises ``ValueError`` when
+    n_data·n_spatial is not the world size, as JAX's ``make_mesh`` does
+    (``fdgan_tpu/dist/mesh.py:80-86``), and ``RuntimeError`` without a
+    process group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = world_size()
+    if n_data is None:
+        n_data = world // n_spatial
+    if n_data < 1 or n_spatial < 1 or n_data * n_spatial != world:
+        raise ValueError(f"mesh {n_data}x{n_spatial} does not cover {world} processes")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: start the ranks under FDGAN_TPU_DIST (with "
+                           "FDGAN_TPU_DIST_COORD/_NPROCS/_PID) or torchrun")
+    return init_device_mesh(device_type, (n_data, n_spatial), mesh_dim_names=("data", "spatial"))
+
+
+def mesh_dims(mesh) -> Tuple[int, int]:
+    """(n_data, n_spatial) of a mesh from :func:`make_mesh`."""
+    dims = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return int(dims["data"]), int(dims["spatial"])
+
+
+def spatial_rows(h: int, n_spatial: int) -> list:
+    """The (start, stop) rows of H that each of ``n_spatial`` shards holds:
+    whole blocks of 8 rows (so FDGAN's three ÷2 pools stay on a rank), as
+    evenly as they go, the first shards one block more where H/8 does not
+    divide by n_spatial. Never padded: in batch BN a padded row would enter
+    the statistics. Raises ``ValueError`` where H is not a multiple of 8 or
+    H/8 < n_spatial."""
+    if h % 8:
+        raise ValueError(f"H={h} is not a multiple of 8")
+    blocks = h // 8
+    if blocks < n_spatial:
+        raise ValueError(f"H={h} has {blocks} blocks of 8 rows, fewer than the {n_spatial} spatial shards")
+    base, extra = divmod(blocks, n_spatial)
+    bounds, start = [], 0
+    for s in range(n_spatial):
+        stop = start + 8 * (base + (s < extra))
+        bounds.append((start, stop))
+        start = stop
+    return bounds
+
+
+def mesh_block(shape: Sequence[int], mesh, spatial: bool, coord: Optional[Sequence[int]] = None) -> Tuple[slice, slice]:
+    """The (batch rows, H rows) of a (B, H, ...) batch that the rank at
+    ``coord`` (default: this rank's) holds: B split evenly over ``data``
+    (B must divide by it), H by :func:`spatial_rows` over ``spatial`` when
+    ``spatial``, else whole."""
+    n_data, n_spatial = mesh_dims(mesh)
+    d, s = coord if coord is not None else mesh.get_coordinate()
+    b, h = shape[0], shape[1]
+    if b % n_data:
+        raise ValueError(f"batch {b} does not divide by the mesh's data axis of {n_data}")
+    local = b // n_data
+    rows = spatial_rows(h, n_spatial)[s] if spatial else (0, h)
+    return slice(d * local, (d + 1) * local), slice(*rows)
+
+
+def shard_batch(batch: Sequence[torch.Tensor], mesh=None, spatial: bool = False) -> tuple:
+    """This process's rows of each tensor of a global batch. Without a mesh,
+    rank r of W takes rows [r·B/W, (r+1)·B/W) (B must divide by W). With a
+    mesh, its block (:func:`mesh_block`): its rows of B on ``data`` and, with
+    ``spatial``, its rows of H on ``spatial`` (JAX's ``shard_batch(spatial=
+    True)``); :func:`gather_batch` puts the blocks together again."""
+    if mesh is not None:
+        out = []
+        for t in batch:
+            rows, hs = mesh_block(t.shape, mesh, spatial)
+            out.append(t[rows, hs])
+        return tuple(out)
     world, r = world_size(), rank()
     out = []
     for t in batch:
@@ -106,6 +178,46 @@ def shard_batch(batch: Sequence[torch.Tensor]) -> tuple:
         local = t.shape[0] // world
         out.append(t[r * local:(r + 1) * local])
     return tuple(out)
+
+
+def gather_batch(local: torch.Tensor, shape: Sequence[int], mesh, spatial: bool, dst: int = 0) -> Optional[torch.Tensor]:
+    """The blocks of a (B, H, ...) batch of full ``shape`` that the mesh's
+    ranks hold (:func:`shard_batch`), put together on rank ``dst``, which
+    gets the whole batch; the other ranks send theirs and get None. With
+    ``spatial`` off the ranks of a spatial group hold the same block, and
+    the first one's is taken. Point to point; a CUDA block goes through host
+    memory under gloo, whose point-to-point ops read host memory."""
+    n_data, n_spatial = mesh_dims(mesh)
+    me = rank()
+    staged = local.device.type != "cpu" and dist.get_backend() == "gloo"
+    home = torch.device("cpu") if staged else local.device
+    if me != dst:
+        coord = mesh.get_coordinate()
+        if not spatial and coord[1] != 0:
+            return None
+        # batched, as the receiving side: NCCL runs a batch on the group's communicator and a lone send on
+        # one of its own for the pair, and the two would never meet
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, local.to(home).contiguous(), dst)]):
+            req.wait()
+        return None
+    whole = torch.empty(tuple(shape), dtype=local.dtype, device=local.device)
+    ops, landed = [], []
+    for d in range(n_data):
+        for s in range(n_spatial if spatial else 1):
+            r = d * n_spatial + s
+            rows, hs = mesh_block(shape, mesh, spatial, (d, s))
+            if r == me:
+                whole[rows, hs] = local
+                continue
+            buf = torch.empty(whole[rows, hs].shape, dtype=local.dtype, device=home)
+            ops.append(dist.P2POp(dist.irecv, buf, r))
+            landed.append((rows, hs, buf))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for rows, hs, buf in landed:
+        whole[rows, hs] = buf
+    return whole
 
 
 def _flat_apply_(tensors: Sequence[torch.Tensor], collective) -> None:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdgan_tpu_torch.dist import halo_exchange
 from fdgan_tpu_torch.dist.stats import combine as global_stats
 from fdgan_tpu_torch.ops.stats import channel_stats
 from fdgan_tpu_torch.ops.stats import reference as plain_channel_stats
@@ -46,9 +47,17 @@ def conv2d(
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` whose weight and bias are cast to the input's dtype."""
+    """``nn.Conv2d`` whose weight and bias are cast to the input's dtype.
+    Inside ``dist.halo_exchange.spatial_sharding`` a conv with an extent on
+    H (a kernel, padding or stride other than 1, 0, 1 there) takes the rows
+    around this rank's block from its neighbours
+    (``conv2d_halo_sharded``); a 1×1 conv stays local."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = halo_exchange.current()
+        if shard is not None and (self.kernel_size[0], self.padding[0], self.stride[0]) != (1, 0, 1):
+            return halo_exchange.conv2d_halo_sharded(self.weight, self.bias, x, shard.group, padding=self.padding,
+                                                     stride=self.stride)
         return conv2d(x, self.weight, self.bias, padding=self.padding, stride=self.stride)
 
 
@@ -94,7 +103,11 @@ def finish(model: nn.Module, device, generator) -> nn.Module:
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
-    """Torch-style avg_pool2d: stride = window, floor on odd sizes, no padding."""
+    """Torch-style avg_pool2d: stride = window, floor on odd sizes, no padding.
+    With H sharded (``dist.halo_exchange.spatial_sharding``) a window must
+    not cross a seam: this rank's H must divide by it, else ``ValueError``."""
+    if halo_exchange.current() is not None and x.shape[2] % window:
+        raise ValueError(f"a {window}x{window} pool over a shard of {x.shape[2]} rows would cross a seam")
     return F.avg_pool2d(x, window)
 
 
@@ -105,7 +118,10 @@ def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None, padding
 
 
 def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
-    """Nearest-neighbour ×scale upsample (reference: F.upsample_nearest)."""
+    """Nearest-neighbour ×scale upsample (reference: F.upsample_nearest). An
+    integer scale repeats each row: with H sharded it stays on the rank."""
+    if halo_exchange.current() is not None and not isinstance(scale, int):
+        raise TypeError(f"with H sharded the scale must be an int, got {scale!r}")
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 

@@ -30,8 +30,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (all return an int: cudaGetLastError() after launch)
 _SIGNATURES = {
-    "fdgan_dense_layer_f32": [_P] * 8 + [_I] * 6 + [_P],
-    "fdgan_dense_layer_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "fdgan_dense_layer_f32": [_P] * 8 + [_I] * 8 + [_P],
+    "fdgan_dense_layer_bf16": [_P] * 8 + [_I] * 8 + [_P],
     "fdgan_h_stats_f32": [_P] * 6 + [_I] * 3 + [_P],
     "fdgan_h_stats_f32_blocks": [_I],
     "fdgan_h_stats_bf16": [_P] * 6 + [_I] * 3 + [_P],

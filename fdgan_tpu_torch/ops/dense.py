@@ -21,6 +21,12 @@ is the kernel (the twin on the CPU), the backward is the VJP of the twin,
 recomputed from the saved inputs. The JAX package has no backward kernel
 for either, so neither has the port.
 
+Under spatial sharding (``dist/halo_exchange.py``) a shard's K1 also takes
+halo rows (``fused_dense_layer(halo=)``): the neighbouring shards' rows of
+x above and below it, kept in x's buffer after its pixels
+(``halo_buffer``), where the kernel computes g as at any pixel instead of
+zero-padding it. K1 has no backward with halo rows yet (ROADMAP item 11b).
+
 ``k1_launches`` and ``k2_launches`` count the kernel launches in this
 process; the twins do not move them.
 """
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from fdgan_tpu_torch.dist import halo_exchange
 from fdgan_tpu_torch.dist.stats import combine as global_stats
 from fdgan_tpu_torch.nn.layers import unbiased
 from fdgan_tpu_torch.ops.common import pixel_stride, twin_vjp
@@ -69,16 +76,28 @@ def _t(x, a1, b1) -> torch.Tensor:
     return torch.relu(x.float() * a1.float() + b1.float()).to(x.dtype)
 
 
-def layer_reference(x, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
+def layer_reference(x, a1, b1, w1, a2, b2, w2, halo=None) -> torch.Tensor:
     """Plain twin of K1, with its rounding points: t and g are rounded to
     x's dtype, h and f are accumulated in fp32, and g is zero-padded. The
     weights are rounded to x's dtype, as the kernel reads them. The convs
-    run on fp32 copies, so bf16 operands multiply exactly."""
+    run on fp32 copies, so bf16 operands multiply exactly.
+
+    ``halo`` is K1's: (top, bottom), each None or the (B, 1, W, C) row of
+    x's channels above (below) x's first (last) row, a neighbouring shard's
+    under spatial sharding. g is computed on those rows like on x's and
+    feeds the 3×3 conv there instead of its zero padding."""
+    top, bottom = halo if halo is not None else (None, None)
+    if top is not None or bottom is not None:
+        x = torch.cat([r for r in (top, x, bottom) if r is not None], dim=1)
     t = _t(x, a1, b1).permute(0, 3, 1, 2)
     w1_oihw = w1.to(x.dtype).t().reshape(INTER, -1, 1, 1).float()
     h = F.conv2d(t.float(), w1_oihw)
     g = torch.relu(h * a2.float().view(1, -1, 1, 1) + b2.float().view(1, -1, 1, 1)).to(x.dtype)
-    f = F.conv2d(g.float(), w2.to(x.dtype).permute(3, 2, 0, 1).float(), padding=1)
+    w2_oihw = w2.to(x.dtype).permute(3, 2, 0, 1).float()
+    if top is None and bottom is None:
+        f = F.conv2d(g.float(), w2_oihw, padding=1)
+    else:  # the rows from the halo take the place of the H padding
+        f = F.conv2d(F.pad(g.float(), (1, 1, int(top is None), int(bottom is None))), w2_oihw)
     return f.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
@@ -128,6 +147,43 @@ def _check_out(out, x) -> int:
     if x.dtype == torch.bfloat16 and (ldo % 8 or out.data_ptr() % 16):
         raise ValueError(f"bf16 out needs a pixel stride ldo % 8 == 0 and 16-byte alignment, got ldo={ldo}")
     return ldo
+
+
+def halo_buffer(b: int, h: int, w: int, c: int, *, device, dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x, top, bottom): an empty NHWC x (B, H, W, C) and its two halo rows
+    (B, 1, W, C) each, in one buffer, the rows after x's B·H·W pixels with
+    x's pixel stride, where K1 finds them (``fused_dense_layer(halo=)``).
+    Channel slices of all three (``[..., c0:c1]``) are a halo'd x again."""
+    flat = torch.empty((b * h * w + 2 * b * w, c), device=device, dtype=dtype)
+    rows = flat[b * h * w:].view(2, b, 1, w, c)
+    return flat[:b * h * w].view(b, h, w, c), rows[0], rows[1]
+
+
+def _halo_rows(x, halo, ld: int) -> Tuple[int, int]:
+    """K1's ``top`` and ``bot``: the pixel index from x of each halo row's
+    first pixel, -1 for none. The rows must be (B, 1, W, C) views of x's
+    buffer after its pixels, with its dtype and pixel stride
+    (:func:`halo_buffer`); anything else raises."""
+    bsz, h, w, c = x.shape
+    esz = x.element_size()
+    offsets = []
+    for name, row in zip(("top", "bottom"), halo):
+        if row is None:
+            offsets.append(-1)
+            continue
+        if tuple(row.shape) != (bsz, 1, w, c) or row.dtype != x.dtype or row.device != x.device:
+            raise ValueError(f"halo {name} must be {(bsz, 1, w, c)} {x.dtype} on {x.device}, got "
+                             f"{tuple(row.shape)} {row.dtype} on {row.device}")
+        gap = row.data_ptr() - x.data_ptr()
+        same = row.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+        if (not same or pixel_stride(row, f"halo {name}") != ld or gap < 0 or gap % (esz * ld)
+                or gap // (esz * ld) < bsz * h * w):
+            raise ValueError(f"halo {name} must lie in x's buffer after its pixels, with its pixel stride {ld} "
+                             "(ops.dense.halo_buffer)")
+        offsets.append(gap // (esz * ld))
+    if (max(offsets) + bsz * w) * ld + c >= 2**31:
+        raise ValueError("x and its halo rows are too large for the kernels' 32-bit pixel indices")
+    return offsets[0], offsets[1]
 
 
 def w1_planes(w1: torch.Tensor) -> torch.Tensor:
@@ -203,16 +259,20 @@ def w2_tf32x3_planes(w2: torch.Tensor) -> torch.Tensor:
     return parts.permute(1, 3, 0, 5, 2, 6, 4).reshape(12, 2, 8, 3 * GROWTH, 4).contiguous()
 
 
-def _f32_operands(x, a1, b1):
+def _f32_operands(x, a1, b1, halo: bool = False):
     """x, a1, b1 as the fp32 kernels take them: a1 and b1 zero-padded to a
     multiple of 32 channels, and x as it is where C and its pixel stride are
     multiples of 4 and it is 16-byte aligned (its 16-byte loads), else a
-    contiguous copy with C zero-padded to a multiple of 4. Returns (x, a1,
-    b1, C, ld) for the launch."""
+    contiguous copy with C zero-padded to a multiple of 4; x with ``halo``
+    rows raises there instead (the copy would leave its rows behind).
+    Returns (x, a1, b1, C, ld) for the launch."""
     c, ld = x.shape[-1], pixel_stride(x)
     c32 = -(-c // 32) * 32
     a1k, b1k = (F.pad(_on_device(t, x, torch.float32).reshape(-1), (0, c32 - c)) for t in (a1, b1))
     if c % 4 or ld % 4 or x.data_ptr() % 16:
+        if halo:
+            raise ValueError(f"fp32 x with halo rows needs C and its pixel stride multiples of 4 and 16-byte "
+                             f"alignment, got C={c}, ld={ld}")
         c4 = -(-c // 4) * 4
         x = F.pad(x, (0, c4 - c)).contiguous()
         c, ld = c4, c4
@@ -231,10 +291,11 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None, halo=None) -> torch.Tensor:
     """Check the inputs, lay the weights out and launch K1, into ``out``
     (a (B,H,W,32) tensor, possibly a channel slice of a wider buffer) or a
-    new tensor; raises on a CUDA error."""
+    new tensor, with x's ``halo`` rows (:func:`_halo_rows`) where given;
+    raises on a CUDA error."""
     global k1_launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_dense_layer runs its kernel on cuda, got {x.device}")
@@ -254,7 +315,7 @@ def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None) ->
     entry = f"fdgan_dense_layer_{_KERNEL_DTYPES[x.dtype]}"
     with torch.cuda.device(x.device):
         if x.dtype == torch.float32:
-            xk, a1k, b1k, c, ldx = _f32_operands(x, a1, b1)
+            xk, a1k, b1k, c, ldx = _f32_operands(x, a1, b1, halo is not None)
             w1k = w1_tf32x3_planes(_on_device(w1, x, torch.float32))
             w2k = w2_tf32x3_planes(_on_device(w2, x, torch.float32))
         else:  # W2 as (9, 32, 128): per tap the inputs of each output channel
@@ -262,10 +323,11 @@ def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None) ->
             a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
             w1k = w1_planes(_on_device(w1, x, x.dtype))
             w2k = _on_device(w2.permute(0, 1, 3, 2), x, x.dtype)
+        top, bot = _halo_rows(xk, halo, ldx) if halo is not None else (-1, -1)
         err = getattr(lib, entry)(
             xk.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
             a2k.data_ptr(), b2k.data_ptr(), w2k.data_ptr(), out.data_ptr(),
-            bsz, h, w, c, ldx, ldo, _stream(x),
+            bsz, h, w, c, ldx, ldo, top, bot, _stream(x),
         )
     build.check(lib, err, entry)
     k1_launches += 1
@@ -388,7 +450,7 @@ class _HStats(torch.autograd.Function):
         return twin_vjp(h_stats_reference, ctx, (ct_mean, ct_var))
 
 
-def fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None, halo=None) -> torch.Tensor:
     """One fused dense layer (differentiable): x (B,H,W,C) → f (B,H,W,32)
     in x's dtype.
 
@@ -397,7 +459,30 @@ def fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = N
     NHWC buffer (``pixel_stride``). With ``out``, a (B,H,W,32) tensor that
     may be such a slice too, f is written into it and ``out`` is returned:
     a write in place, which autograd cannot record, so it raises where
-    autograd would record the call."""
+    autograd would record the call.
+
+    ``halo`` (top, bottom) gives the rows of x's channels just above and
+    below x, from the neighbouring shards of a spatially sharded image,
+    each None at an end of the image (g = 0 there, as without ``halo``):
+    (B, 1, W, C) views in x's buffer after its pixels (:func:`halo_buffer`).
+    K1 reads them where its tiles' halo ring leaves x. Its backward is not
+    ported: a call with ``halo`` that autograd would record raises
+    ``NotImplementedError``."""
+    if halo is not None and all(r is None for r in halo):
+        halo = None
+    if halo is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a1, b1, w1, a2, b2, w2)):
+            raise NotImplementedError("K1 with halo rows has no backward yet: training with H sharded is "
+                                      "ROADMAP item 11b; call it under torch.no_grad() or torch.inference_mode()")
+        if x.device.type == "cpu":
+            _check_inputs(x, a1, b1, w1)
+            _halo_rows(x, halo, pixel_stride(x))
+            f = layer_reference(x, a1, b1, w1, a2, b2, w2, halo=halo)
+            if out is None:
+                return f
+            _check_out(out, x)
+            return out.copy_(f)
+        return _launch_k1(x, a1, b1, w1, a2, b2, w2, out=out, halo=halo)
     if out is None:
         return _FusedLayer.apply(x, a1, b1, w1, a2, b2, w2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a1, b1, w1, a2, b2, w2, out)):
@@ -421,9 +506,9 @@ def h_batch_stats(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
 # Full dense block
 # ---------------------------------------------------------------------------
 
-def _reference_into(*args, out: torch.Tensor) -> torch.Tensor:
+def _reference_into(*args, out: torch.Tensor, halo=None) -> torch.Tensor:
     """``layer_reference`` written into ``out``: the plain buffer path."""
-    return out.copy_(layer_reference(*args))
+    return out.copy_(layer_reference(*args, halo=halo))
 
 
 def _layer_core(layer, mode: str, layer_fn, stats_fn, x, a1, b1):
@@ -478,9 +563,21 @@ def dense_block_fused(
     ``impl='plain'`` runs the twins on any device. ``remat`` (with grad
     enabled) checkpoints each layer's core (``_layer_core``, as JAX
     ``fdgan_fast._dense_layer_fast`` wraps its core in ``jax.checkpoint``):
-    the backward recomputes K2 and K1 from the layer's input."""
+    the backward recomputes K2 and K1 from the layer's input.
+
+    With H sharded (``dist.halo_exchange.spatial_sharding``) the buffer
+    also holds the row above and the row below x from the neighbouring
+    shards (``halo_buffer``): the block input's boundary rows are exchanged
+    once, then each layer's 32 new channels (but the last layer's, which no
+    3×3 conv reads), and each K1 reads its slice of those rows as its halo.
+    The statistics take x alone. A sharded block runs where autograd
+    records nothing; with grad enabled it raises ``NotImplementedError``."""
     if mode not in ("batch", "running"):
         raise ValueError(f"unknown BN mode {mode!r}")
+    shard = halo_exchange.current()
+    if shard is not None and torch.is_grad_enabled():
+        raise NotImplementedError("a dense block with H sharded runs under torch.no_grad() or "
+                                  "torch.inference_mode(): its backward is ROADMAP item 11b")
     if impl == "kernels":
         layer_fn, stats_fn, seg_fn = fused_dense_layer, h_batch_stats, channel_stats
     elif impl == "plain":
@@ -489,12 +586,20 @@ def dense_block_fused(
         raise ValueError(f"unknown impl {impl!r}")
     npix = x.shape[0] * x.shape[1] * x.shape[2]  # every segment's pixels on this rank
     n = npix  # and over the ranks of a data-parallel step (dist/stats.py)
-    buf = None
+    buf = rows = None
     if not torch.is_grad_enabled():
         c0 = x.shape[-1]
-        buf = torch.empty(tuple(x.shape[:3]) + (c0 + GROWTH * len(layers),), device=x.device, dtype=x.dtype)
+        width = c0 + GROWTH * len(layers)
+        if shard is None:
+            buf = torch.empty(tuple(x.shape[:3]) + (width,), device=x.device, dtype=x.dtype)
+        else:
+            buf, top, bottom = halo_buffer(*x.shape[:3], width, device=x.device, dtype=x.dtype)
+            # the rows this rank has neighbours for: K1 sets g to 0 on the others
+            rows = (top if shard.prev is not None else None, bottom if shard.next is not None else None)
         buf[..., :c0] = x
         x = buf[..., :c0]
+        if shard is not None:
+            halo_exchange.exchange_rows(x, top[..., :c0], bottom[..., :c0], shard)
     if mode == "batch":
         mean_cat, var_cat, n = global_stats(*seg_fn(x), npix)
     for i, layer in enumerate(layers):
@@ -509,8 +614,11 @@ def dense_block_fused(
         else:
             c = x.shape[-1]
             f = buf[..., c:c + GROWTH]
-            write = functools.partial(fused_dense_layer if impl == "kernels" else _reference_into, out=f)
+            halo = None if rows is None else tuple(None if r is None else r[..., :c] for r in rows)
+            write = functools.partial(fused_dense_layer if impl == "kernels" else _reference_into, out=f, halo=halo)
             _, m2, v2 = _layer_core(layer, mode, write, stats_fn, x, a1, b1)
+            if shard is not None and i + 1 < len(layers):
+                halo_exchange.exchange_rows(f, top[..., c:c + GROWTH], bottom[..., c:c + GROWTH], shard)
         if stats_out is not None and mode == "batch":
             key = f"{prefix}denselayer{i + 1}"
             stats_out[f"{key}.norm1"] = (m1.detach(), unbiased(v1.detach(), n))

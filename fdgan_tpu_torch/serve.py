@@ -26,6 +26,22 @@ halo-tiled route instead (``dist/tiling.py``): padded to H, W divisible by
 8, run tile by tile on the device, and handed back through the same pending
 result as a batch, so ``stream()`` and ``predict_batch()`` do not care which
 route an image took.
+
+With a ``mesh`` (``dist.mesh.make_mesh``: ranks on a ``data`` and a
+``spatial`` axis, one process each) a batch is split on ``data`` and, with
+``spatial``, each image's H on ``spatial`` (``dist.mesh.mesh_block``), and
+every rank runs its block through the same forward inside
+``dist.halo_exchange.spatial_sharding``: the 3×3 convs and K1 take their
+neighbours' rows, and every batch statistic is taken over the whole mesh.
+JAX does this in one process through GSPMD (``fdgan_tpu/serve.py:117-155``);
+here rank 0 is the engine its caller sees, and every other rank builds the
+same engine and runs :meth:`InferenceEngine.serve_worker`. For each batch
+rank 0 broadcasts a header (the command and the shape) and the staged batch,
+every rank runs its block, and rank 0 gathers the output blocks
+(``dist.mesh.gather_batch``) into the pending result. ``reload()``
+broadcasts the new weights, ``close()`` ends the workers' loop, and the
+tiled route runs on rank 0 alone (JAX computes those batch-1 tiles
+replicated, to the same values).
 """
 
 from __future__ import annotations
@@ -40,6 +56,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from fdgan_tpu_torch.dist import halo_exchange
+from fdgan_tpu_torch.dist import mesh as dmesh
 from fdgan_tpu_torch.dist.tiling import tiled_apply
 from fdgan_tpu_torch.models import fdgan_fast
 from fdgan_tpu_torch.models.fdgan import FDGAN
@@ -48,6 +66,9 @@ from fdgan_tpu_torch.ops import dense, stats
 __all__ = ["InferenceEngine"]
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# the mesh's header: command, B, H, W, staging dtype (0 float32, 1 uint8)
+_CLOSE, _FORWARD, _RELOAD = 0, 1, 2
+_STAGING = (torch.float32, torch.uint8)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -95,6 +116,15 @@ class InferenceEngine:
     input : staging dtype, 'float32' or 'uint8' ('uint8' uploads one byte
         per pixel and divides by 255 in fp32 on the device, exactly as the
         host would). Either accepts uint8 [0, 255] and float [0, 1] images.
+    mesh : a ``dist.mesh.make_mesh`` mesh of this process group's ranks
+        (every rank builds the engine alike; ranks other than 0 then run
+        :meth:`serve_worker`). The default ladder is (1, 2, 4, 8) × the
+        ``data`` size, and every rung must divide by it.
+    spatial : with a mesh, shard each image's H over ``spatial`` too (the
+        latency lever for few large images); ``bucket`` must divide by the
+        ``spatial`` size, and a bucketed H splits into whole blocks of 8
+        rows (``dist.mesh.spatial_rows``). Without it a spatial group's
+        ranks each run their data block whole.
     """
 
     def __init__(
@@ -110,6 +140,8 @@ class InferenceEngine:
         halo: int = 128,
         output: str = "float32",
         input: str = "float32",
+        mesh=None,
+        spatial: bool = False,
     ):
         if precision not in _DTYPES:
             raise ValueError(f"precision must be 'bf16' or 'fp32', got {precision!r}")
@@ -125,12 +157,19 @@ class InferenceEngine:
             raise ValueError("bucket must be a multiple of 8 (three ÷2 stages)")
         if tile and (tile % 8 or tile <= 2 * halo):
             raise ValueError(f"tile must be a multiple of 8 and exceed 2*halo, got tile {tile} halo {halo}")
+        n_data, n_spatial = dmesh.mesh_dims(mesh) if mesh is not None else (1, 1)
         if batch_sizes is None:
-            batch_sizes = (1, 2, 4, 8)
+            batch_sizes = tuple(b * n_data for b in (1, 2, 4, 8))
         if not batch_sizes or list(batch_sizes) != sorted(set(batch_sizes)):
             raise ValueError("batch_sizes must be ascending and non-empty")
         if any(b < 1 for b in batch_sizes):
             raise ValueError(f"batch_sizes must be positive, got {tuple(batch_sizes)}")
+        if any(b % n_data for b in batch_sizes):
+            raise ValueError(f"batch_sizes {tuple(batch_sizes)} must be divisible by the mesh data-axis size {n_data}")
+        if mesh is not None and spatial and bucket % n_spatial:
+            # every bucketed H (a multiple of bucket) must divide by the spatial axis, as JAX's device_put needs
+            raise ValueError(f"bucket {bucket} must be divisible by the mesh 'spatial' axis size {n_spatial} "
+                             "for H sharding")
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -144,6 +183,9 @@ class InferenceEngine:
         self.input = input
         self._stage_dtype = np.uint8 if input == "uint8" else np.float32
         self._dtype = _DTYPES[precision]
+        self.mesh = mesh
+        self.spatial = bool(spatial) and mesh is not None
+        self._rank = dmesh.rank() if mesh is not None else 0
         self._model = self._materialise(params, check_against=None)
         self._lock = threading.Lock()
         self.weights_version = 0  # bumped by reload(); 0 = the __init__ weights
@@ -158,6 +200,8 @@ class InferenceEngine:
         }
         self._pix_real = 0
         self._pix_padded = 0
+        if mesh is not None:  # every rank serves rank 0's weights
+            self._broadcast_weights(self._model)
 
     # --- weights -------------------------------------------------------------
 
@@ -205,8 +249,12 @@ class InferenceEngine:
         serialises dispatches: batches already dispatched finish on the old
         weights, every later one uses the new. Returns the new
         ``weights_version``."""
+        self._check_rank0("reload")
         new = self._materialise(params, check_against=self._model)
         with self._lock:
+            if self.mesh is not None:
+                self._broadcast_header(_RELOAD)
+                self._broadcast_weights(new)
             self._model = new
             self.weights_version += 1
             self.stats["reloads"] += 1
@@ -225,23 +273,37 @@ class InferenceEngine:
             return y.to(torch.uint8)
         return y.float()
 
+    def _forward_block(self, model: FDGAN, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole staged batch ``x`` (on the device)
+        through the forward, inside the mesh's spatial context."""
+        (block,) = dmesh.shard_batch((x,), self.mesh, self.spatial)
+        group = self.mesh.get_group("spatial") if self.spatial else None
+        with halo_exchange.spatial_sharding(group, dmesh.process_group()):
+            return self._forward(model, block)
+
     def _forward_tiled(self, model: FDGAN, x: torch.Tensor) -> torch.Tensor:
         return tiled_apply(lambda t: self._forward(model, t), x, tile=self.tile, halo=self.halo)
+
+    def _exact(self):
+        """fp32 is checkpoint-parity mode: cuDNN would otherwise run its convs
+        in TF32. A new context each time: a generator's cannot be re-entered."""
+        if self.precision == "fp32":
+            return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+        return contextlib.nullcontext()
 
     def _dispatch(self, batch: np.ndarray, tiled: bool = False) -> _Pending:
         """Upload, enqueue the forward (tile by tile when ``tiled``) and
         start the result copy; no wait."""
         x = torch.from_numpy(batch)
         cuda = self.device.type == "cuda"
-        # fp32 is checkpoint-parity mode: cuDNN would otherwise run its convs in TF32
-        exact = (
-            torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
-            if self.precision == "fp32"
-            else contextlib.nullcontext()
-        )
-        forward = self._forward_tiled if tiled else self._forward
-        with self._lock, torch.inference_mode(), exact:
+        self._check_rank0("dispatch")
+        meshed = self.mesh is not None and not tiled
+        forward = self._forward_tiled if tiled else self._forward_mesh if meshed else self._forward
+        with self._lock, torch.inference_mode(), self._exact():
             k1, k2, ks = dense.k1_launches, dense.k2_launches, stats.launches
+            if meshed:  # a shape the mesh cannot split raises here, before the ranks hear of it
+                dmesh.mesh_block(x.shape, self.mesh, self.spatial)
+                self._broadcast_header(_FORWARD, x)
             if cuda:
                 x = x.pin_memory().to(self.device, non_blocking=True)
                 y = forward(self._model, x)
@@ -256,6 +318,73 @@ class InferenceEngine:
             self.stats["k2_launches"] += dense.k2_launches - k2
             self.stats["channel_stats_launches"] += stats.launches - ks
         return _Pending(host, event)
+
+    # --- the mesh ------------------------------------------------------------------
+
+    def _check_rank0(self, what: str) -> None:
+        if self._rank != 0:
+            raise RuntimeError(f"{what} on rank {self._rank}: rank 0 of a mesh serves; the other ranks run "
+                               "serve_worker()")
+
+    def _broadcast_header(self, cmd: int, x: Optional[torch.Tensor] = None) -> List[int]:
+        """Rank 0 sends, the others receive, the command and the batch's
+        shape and staging dtype. Returns the header."""
+        header = torch.zeros(5, dtype=torch.int64)
+        if x is not None:
+            header[:4] = torch.tensor([cmd, *x.shape[:3]])
+            header[4] = _STAGING.index(x.dtype)
+        else:
+            header[0] = cmd
+        header = header.to(self.device)
+        torch.distributed.broadcast(header, src=0)
+        return header.tolist()
+
+    def _broadcast_weights(self, model: FDGAN) -> None:
+        """Rank 0's state dict into every rank's ``model``, in place."""
+        dmesh._flat_apply_(list(model.state_dict().values()), lambda flat: torch.distributed.broadcast(flat, src=0))
+
+    def _forward_mesh(self, model: FDGAN, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's side of a batch on the mesh: the staged batch to every
+        rank, its own block through the forward, the blocks gathered."""
+        torch.distributed.broadcast(x, src=0)
+        y = self._forward_block(model, x)
+        return dmesh.gather_batch(y, tuple(x.shape[:3]) + y.shape[3:], self.mesh, self.spatial)
+
+    def serve_worker(self) -> None:
+        """A rank other than 0: run rank 0's batches until it calls
+        :meth:`close` (its reloads too). Returns when rank 0 closes."""
+        if self.mesh is None or self._rank == 0:
+            raise RuntimeError("serve_worker runs on the ranks other than 0 of a mesh")
+        while True:
+            cmd, b, h, w, code = self._broadcast_header(_CLOSE)
+            if cmd == _CLOSE:
+                return
+            if cmd == _RELOAD:
+                new = copy.deepcopy(self._model)
+                self._broadcast_weights(new)
+                self._model = new
+                self.weights_version += 1
+                self.stats["reloads"] += 1
+                continue
+            with torch.inference_mode(), self._exact():
+                k1, k2, ks = dense.k1_launches, dense.k2_launches, stats.launches
+                x = torch.empty((b, h, w, 3), dtype=_STAGING[code], device=self.device)
+                torch.distributed.broadcast(x, src=0)
+                y = self._forward_block(self._model, x)
+                dmesh.gather_batch(y, (b, h, w) + y.shape[3:], self.mesh, self.spatial)
+                self.stats["batches"] += 1
+                self.stats["k1_launches"] += dense.k1_launches - k1
+                self.stats["k2_launches"] += dense.k2_launches - k2
+                self.stats["channel_stats_launches"] += stats.launches - ks
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: end the workers' loops (no batch may follow).
+        Nothing without a mesh."""
+        if self.mesh is None:
+            return
+        self._check_rank0("close")
+        with self._lock:
+            self._broadcast_header(_CLOSE)
 
     # --- shape management ------------------------------------------------------
 

@@ -102,6 +102,32 @@ def test_k1_wgmma_matches_twin_and_mma_body(cuda, shape):
     assert torch.equal(got, dense.fused_dense_layer(*args))  # no race: the same bits every launch
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,shards", [((2, 40, 24, 64), [16, 8, 16]), ((1, 24, 40, 96), [8, 16])])
+def test_k1_with_halo_rows_is_k1_on_the_whole_image(cuda, exact, shape, shards, dtype):
+    """K1 on shards of whole 8-row tiles, each with its neighbours' rows
+    (ops.dense.halo_buffer), gives the bits of K1 on the whole image, and
+    stays within the twin's tolerance (the twin with the same halo rows)."""
+    args = _layer_args(shape, 9, cuda, dtype)
+    x, rest = args[0], args[1:]
+    b, h, w, c = shape
+    whole = dense.fused_dense_layer(x, *rest)
+    parts, start = [], 0
+    with torch.inference_mode():
+        for n in shards:
+            xs, top, bottom = dense.halo_buffer(b, n, w, c, device=cuda, dtype=dtype)
+            xs.copy_(x[:, start:start + n])
+            top.copy_(x[:, max(start - 1, 0):max(start, 1)])
+            bottom.copy_(x[:, min(start + n, h - 1):min(start + n, h - 1) + 1])
+            halo = (top if start > 0 else None, bottom if start + n < h else None)
+            got = dense.fused_dense_layer(xs, *rest, halo=halo)
+            torch.testing.assert_close(got.float(), dense.layer_reference(xs, *rest, halo=halo).float(),
+                                       **(K1_TOL if dtype == torch.float32 else K1_TOL_BF16))
+            parts.append(got)
+            start += n
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
 def _buffer_view(x, ld):
     """x as the first C channels of a (B, H, W, ld) buffer, and the 32 after them."""
     c = x.shape[-1]

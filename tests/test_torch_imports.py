@@ -23,6 +23,7 @@ def fail(name):
 names = [m.name for m in pkgutil.walk_packages(fdgan_tpu_torch.__path__, "fdgan_tpu_torch.", onerror=fail)]
 for name in names:
     importlib.import_module(name)
+print(" ".join(names))
 print(len(names))
 """
 
@@ -32,5 +33,7 @@ def test_the_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    # the subpackages and their modules, the demo path's included
+    # the subpackages and their modules, the demo path's and the serving mesh's included
     assert int(res.stdout.split()[-1]) >= 50, res.stdout
+    for name in ("fdgan_tpu_torch.dist.halo_exchange", "fdgan_tpu_torch.dist.mesh", "fdgan_tpu_torch.tools.mesh_serve"):
+        assert name in res.stdout.split(), name
