@@ -39,6 +39,22 @@ log, the checkpoints and ``netG_best.pth``:
     FDGAN_TPU_DIST=1 FDGAN_TPU_DIST_COORD=host0:29500 FDGAN_TPU_DIST_NPROCS=2 FDGAN_TPU_DIST_PID=0 \
         python -m fdgan_tpu_torch.cli.train --dataroot ds/ --exp exp/ --batchSize 16
     torchrun --nproc-per-node 4 -m fdgan_tpu_torch.cli.train ...   # with FDGAN_TPU_DIST=1 set
+
+``--spatialShards N`` (JAX's memory lever for large images, ``:117-120``,
+``:294-331``) splits each image's H axis into bands over N ranks: the world
+is n_data × N processes in ``dist.mesh.make_mesh``'s ("data", "spatial")
+layout, the ranks of a data group load the same images (the loader's shard
+is the data index, rank // N, and the batch ``batchSize // n_data``) and
+each keeps its band of rows (``dist.mesh.mesh_block``), and the step is
+``train/loop.py``'s with the mesh. JAX's refusal of the flag under
+``FDGAN_TPU_DIST`` (each process loading whole images) does not apply here:
+the ranks of a data group load the same images with the same seed. One
+process holds one card, so a single process refuses the flag; so does the
+contextual term (ROADMAP.md, Queue 1 item 11c), and an ``--imageSize`` whose
+bands are too thin for the discriminator's tail:
+
+    FDGAN_TPU_DIST=1 torchrun --nproc-per-node 4 -m fdgan_tpu_torch.cli.train ... --imageSize 2048 \
+        --batchSize 1 --spatialShards 4 --rematStages --precision bf16
 """
 
 from __future__ import annotations
@@ -116,7 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save a checkpoint every N epochs (a final one is always written)")
     p.add_argument("--noAsyncCkpt", action="store_true", help="refused: saves are always blocking here")
     p.add_argument("--deviceSteps", type=int, default=0, help="refused: the TPU's device-resident loop")
-    p.add_argument("--spatialShards", type=int, default=1, help="refused: training with H sharded is not ported yet (ROADMAP item 11b)")
+    p.add_argument("--spatialShards", type=int, default=1,
+                   help="split each image's H axis into bands over this many processes (FDGAN_TPU_DIST); the "
+                        "memory lever for large images, with --rematStages")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     return p
 
@@ -129,16 +147,33 @@ def refuse(opt: argparse.Namespace) -> None:
     if opt.noAsyncCkpt:
         raise SystemExit("--noAsyncCkpt: the port's checkpoint saves are always blocking; AsyncCheckpointer is "
                          f"not ported ({ROADMAP_NOT_PORTED}); drop the flag")
-    if opt.spatialShards > 1 and os.environ.get("FDGAN_TPU_DIST"):
-        # the JAX CLI's reason (:181-190): each process loads whole images, not bands of one
-        raise SystemExit("--spatialShards > 1 is single-process only: the h5 loader shards IMAGES per process, "
-                         "not image bands")
     if opt.spatialShards > 1:
-        raise SystemExit("--spatialShards > 1: training with H sharded is not ported yet (ROADMAP.md, Queue 1 "
-                         "item 11b; serving shards H: cli/serve --spatialShards)")
+        if not os.environ.get("FDGAN_TPU_DIST"):
+            raise SystemExit(f"--spatialShards {opt.spatialShards}: each band of an image is one process with its "
+                             "own card; launch N x n_data processes under FDGAN_TPU_DIST, e.g. FDGAN_TPU_DIST=1 "
+                             f"torchrun --nproc-per-node {opt.spatialShards} -m fdgan_tpu_torch.cli.train ... "
+                             f"--spatialShards {opt.spatialShards}")
+        if opt.lambdaCX > 0:
+            raise SystemExit("--lambdaCX with --spatialShards > 1: the contextual term meets every position with "
+                             "every target position, across the bands; not ported (ROADMAP.md, Queue 1 item 11c)")
+        check_bands(opt.imageSize, opt.spatialShards)
     if opt.poolSize > 0 and opt.accumSteps > 1:
         raise SystemExit("--accumSteps > 1 requires --poolSize 0 (the ImagePool G/D split does not "
                          "accumulate; it would silently ignore the flag)")
+
+
+def check_bands(image_size: int, n_spatial: int) -> None:
+    """Stop where ``image_size`` rows do not split into ``n_spatial`` bands
+    that the generator (whole blocks of 8 rows, ``dist.mesh.spatial_rows``)
+    and the discriminator's tail (``models.discriminators.check_bands``)
+    take."""
+    from fdgan_tpu_torch.models.discriminators import check_bands as d_check_bands
+
+    try:
+        rows = mesh.spatial_rows(image_size, n_spatial)
+        d_check_bands([stop - start for start, stop in rows])
+    except ValueError as e:
+        raise SystemExit(f"--imageSize {image_size} with --spatialShards {n_spatial}: {e}")
 
 
 def evaluate(g, val_loader: Iterable, device, impl: str = "kernels"):
@@ -181,7 +216,9 @@ def train(opt: argparse.Namespace, loader: Iterable, val_loader: Optional[Iterab
 
     In a process group (``dist.mesh.maybe_init_distributed``) the loop is
     this process's share of a data-parallel run: ``loader`` yields this
-    process's ``batchSize // nprocs`` rows a batch."""
+    process's ``batchSize // nprocs`` rows a batch. With ``--spatialShards
+    N`` it yields its data group's ``batchSize // n_data`` whole images, of
+    which the loop keeps this rank's band of rows."""
     with fp32_exact(opt.precision, device):
         return _train(opt, loader, val_loader, torch.device(device))
 
@@ -197,11 +234,21 @@ def _train(opt, loader, val_loader, device):
     refuse(opt)
     nprocs, pid = mesh.world_size(), mesh.rank()
     is_main = pid == 0
-    local_batch = opt.batchSize // nprocs  # == batchSize single-process
+    n_sp = opt.spatialShards
+    if nprocs % n_sp:
+        raise SystemExit(f"--spatialShards {n_sp} must divide the {nprocs} processes")
+    n_data = nprocs // n_sp
+    local_batch = opt.batchSize // n_data  # == batchSize single-process
     if nprocs > 1:
-        if opt.batchSize % nprocs:
-            raise SystemExit(f"--batchSize {opt.batchSize} (global) must divide by the {nprocs} processes")
+        if opt.batchSize % n_data:
+            raise SystemExit(f"--batchSize {opt.batchSize} (global) must divide by the {n_data} data shards")
         print(f"multi-process: {nprocs} processes x 1 local devices = {nprocs} global; this is process {pid}")
+    sp_mesh = rows = None
+    if n_sp > 1:
+        sp_mesh = mesh.make_mesh(n_data, n_sp, device_type=device.type)
+        rows = slice(*mesh.spatial_rows(opt.imageSize, n_sp)[sp_mesh.get_coordinate()[1]])
+        print(f"spatial sharding: H axis over {n_sp} processes (mesh {n_data}x{n_sp}); this process holds rows "
+              f"{rows.start}:{rows.stop}")
     if opt.keepBest and (val_loader is None or not opt.evalIter):
         raise SystemExit("--keepBest needs --valDataroot and a nonzero --evalIter (best-model selection is by "
                          "val PSNR)")
@@ -247,12 +294,14 @@ def _train(opt, loader, val_loader, device):
     use_pool = opt.poolSize > 0
     if use_pool:
         g_step, d_step = make_gd_steps(tx_g, tx_d, weights, vgg, compute_dtype, impl=opt.impl,
-                                       real_label=opt.labelSmooth, remat=remat, group=group)
-        pool = ImagePool(opt.poolSize, seed=opt.seed)  # each process pools its own fakes
+                                       real_label=opt.labelSmooth, remat=remat, group=group, mesh=sp_mesh)
+        # each process pools its own fakes; with H sharded, its band of them: the pool's seed is the same on
+        # every rank, so the ranks of a spatial group draw alike and an image's bands stay together
+        pool = ImagePool(opt.poolSize, seed=opt.seed)
     else:
         train_step = make_train_step(tx_g, tx_d, weights, vgg, compute_dtype, impl=opt.impl,
                                      real_label=opt.labelSmooth, remat=remat, accum_steps=opt.accumSteps,
-                                     group=group)
+                                     group=group, mesh=sp_mesh)
 
     # the other processes run the same steps and write nothing
     logger = MetricLogger(os.path.join(opt.exp, "train_log.jsonl"), opt.logEvery) if is_main else _NullLogger()
@@ -305,8 +354,10 @@ def _train(opt, loader, val_loader, device):
                 # a ragged final batch the microbatches do not divide, or a ragged local batch (the same
                 # skip on every process: the shards are equal and share the shuffle's seed)
                 continue
-            haze_t = torch.from_numpy(np.asarray(haze, np.float32)).to(device)
-            gt_t = torch.from_numpy(np.asarray(gt, np.float32)).to(device)
+            if rows is not None:  # this rank's band of its data group's images
+                haze, gt = haze[:, rows], gt[:, rows]
+            haze_t = torch.from_numpy(np.ascontiguousarray(haze, np.float32)).to(device)
+            gt_t = torch.from_numpy(np.ascontiguousarray(gt, np.float32)).to(device)
             if use_pool:
                 state, metrics, x_hat = g_step(state, haze_t, gt_t)
                 state, d_metrics = d_step(state, pool.query(x_hat), gt_t)
@@ -317,8 +368,8 @@ def _train(opt, loader, val_loader, device):
                 # the metrics are 0-d device tensors: read them only here, since
                 # a read waits for the step
                 m = {k: float(v) for k, v in metrics.items()}
-                # the global batch's rows: the local rows times the processes
-                m["imgs_per_sec"] = haze.shape[0] * nprocs * opt.logEvery / max(time.time() - t_log, 1e-9)
+                # the global batch's images: the local images times the data shards
+                m["imgs_per_sec"] = haze.shape[0] * n_data * opt.logEvery / max(time.time() - t_log, 1e-9)
                 t_log = time.time()
                 logger.log(state.step, m)
                 meter.update(m.get("g_total", 0.0))
@@ -348,10 +399,13 @@ def main(argv=None):
         torch.cuda.set_device(device)
     from fdgan_tpu_torch.data import get_loader
 
-    # each process its own shard, with the same seed: the shards stay step-aligned
+    # each data group its own shard, with the same seed: the shards stay step-aligned, and the ranks of a
+    # spatial group load the same images
+    n_data = nprocs // opt.spatialShards
     loader = get_loader(opt.dataset, opt.dataroot, opt.originalSize, opt.imageSize,
-                        batch_size=opt.batchSize // nprocs, workers=opt.workers, split="train", shuffle=True,
-                        seed=opt.seed, shard=(mesh.rank(), nprocs) if nprocs > 1 else None)
+                        batch_size=opt.batchSize // max(n_data, 1), workers=opt.workers, split="train",
+                        shuffle=True, seed=opt.seed,
+                        shard=(mesh.rank() // opt.spatialShards, n_data) if n_data > 1 else None)
     val_loader = None
     if opt.valDataroot:
         val_loader = get_loader(opt.dataset, opt.valDataroot, opt.imageSize, opt.imageSize, batch_size=1,

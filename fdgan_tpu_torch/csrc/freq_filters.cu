@@ -43,6 +43,18 @@
 // rounding boundary; tests/test_torch_filters.py checks all 65,280 of them).
 // fp32 keeps the division. No tensor cores, TMA or wgmma: nothing here is a
 // product of matrices, and the copies are small.
+//
+// K3 with halo rows  fdgan_freq_filters_halo_{f32,bf16}
+//     The same body for a shard of the image along H (training with H
+//     sharded): the 7 rows above and below the shard come from two buffers
+//     the caller fills from the neighbouring shards (B,7,W,3 each, or null
+//     at an end of the image), where the body would reflect (blur) or read
+//     zeros (Laplacian); at a side without a buffer it reflects and
+//     zero-pads as on a whole image, which the end shard can do alone, since
+//     a shard holds at least 8 rows. The halo is a template parameter, so
+//     the whole-image body keeps its code (a run-time test in the one body
+//     cost K1 12%, PERF.md). Its output rows are the whole image's, bit for
+//     bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -192,9 +204,10 @@ __device__ __forceinline__ void stage_out(bf16* p, const float v[36]) {
     reinterpret_cast<uint2*>(p)[i] = make_uint2(pack_bf16(v[4 * i], v[4 * i + 1]), pack_bf16(v[4 * i + 2], v[4 * i + 3]));
 }
 
-template <int TH, typename T>
+template <int TH, typename T, bool HALO>
 __global__ void __launch_bounds__(THREADS)
-freq_filters_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W) {
+freq_filters_kernel(const T* __restrict__ x, const T* __restrict__ top, const T* __restrict__ bot,
+                    T* __restrict__ out, int H, int W) {
   using S = Smem<TH, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_col = reinterpret_cast<float*>(smem);         // [CH][CHUNK][PITCH] column sums
@@ -204,6 +217,9 @@ freq_filters_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W) 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH, b = blockIdx.z;
   const T* xb = x + (size_t)b * H * W * CH;
+  // with HALO, the neighbours' rows y0-7 .. -1 and H .. H+6 of this image (null at an end of the image)
+  const T* tb = HALO && top != nullptr ? top + (size_t)b * PAD * W * CH : nullptr;
+  const T* bb = HALO && bot != nullptr ? bot + (size_t)b * PAD * W * CH : nullptr;
   // whole 8-pixel groups load as vectors where each image row starts on a 16-byte boundary
   const bool rows_aligned = ((size_t)W * CH * sizeof(T)) % 16 == 0 && ((uintptr_t)x & 15) == 0;
 
@@ -220,7 +236,13 @@ freq_filters_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W) 
   for (int task = tid; task < S::NRM_ROWS * GROUPS; task += THREADS) {
     const int r = task / GROUPS, g = task % GROUPS;
     const int y = y0 - PAD + r, px0 = x0 - GROUP + g * GROUP;
-    const T* row = xb + (size_t)reflect(y, H) * W * CH;
+    const T* row;
+    if (HALO && y < 0 && tb != nullptr)
+      row = tb + (size_t)(y + PAD) * W * CH;
+    else if (HALO && y >= H && bb != nullptr)  // rows past H+6 only feed tiles past the ragged edge
+      row = bb + (size_t)min(y - H, PAD - 1) * W * CH;
+    else
+      row = xb + (size_t)reflect(y, H) * W * CH;
     float v[24];
     if (rows_aligned && px0 >= 0 && px0 + GROUP <= W) {
       load_group(row + (size_t)px0 * CH, v);
@@ -233,7 +255,7 @@ freq_filters_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W) 
       }
     }
     const bool raw_row = r >= PAD - 1 && r < PAD + TH + 1;
-    const bool y_in = y >= 0 && y < H;
+    const bool y_in = HALO ? (y >= 0 || tb != nullptr) && (y < H || bb != nullptr) : y >= 0 && y < H;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       float n[GROUP], z[GROUP];
@@ -349,25 +371,26 @@ int sm_count(int* sms) {
   return 0;
 }
 
-template <int TH, typename T>
-int launch_tiles(const T* x, T* out, int B, int H, int W, cudaStream_t stream) {
+template <int TH, typename T, bool HALO>
+int launch_tiles(const T* x, const T* top, const T* bot, T* out, int B, int H, int W, cudaStream_t stream) {
   static bool attr_done[MAX_DEVICES] = {};  // the opt-in above 48 KB, once per device
   int dev = 0;
   if (int err = (int)cudaGetDevice(&dev)) return err;
   const size_t smem = Smem<TH, T>::BYTES;
   if (dev >= MAX_DEVICES || !attr_done[dev]) {
-    if (int err = (int)cudaFuncSetAttribute(freq_filters_kernel<TH, T>,
+    if (int err = (int)cudaFuncSetAttribute(freq_filters_kernel<TH, T, HALO>,
                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
       return err;
     if (dev < MAX_DEVICES) attr_done[dev] = true;
   }
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  freq_filters_kernel<TH, T><<<grid, THREADS, smem, stream>>>(x, out, H, W);
+  freq_filters_kernel<TH, T, HALO><<<grid, THREADS, smem, stream>>>(x, top, bot, out, H, W);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* x, void* out, const void* consts, int B, int H, int W, void* stream) {
+template <typename T, bool HALO>
+int launch(const void* x, const void* top, const void* bot, void* out, const void* consts, int B, int H, int W,
+           void* stream) {
   if (int err = upload_consts((const float*)consts)) return err;
   int sms = 0;
   if (int err = sm_count(&sms)) return err;
@@ -375,9 +398,10 @@ int launch(const void* x, void* out, const void* consts, int B, int H, int W, vo
   const long long cols = (long long)B * ((W + TW - 1) / TW);
   auto tiles = [&](int th) { return cols * ((H + th - 1) / th); };
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tiles(32) >= 2LL * sms) return launch_tiles<32>((const T*)x, (T*)out, B, H, W, s);
-  if (tiles(16) >= 2LL * sms) return launch_tiles<16>((const T*)x, (T*)out, B, H, W, s);
-  return launch_tiles<8>((const T*)x, (T*)out, B, H, W, s);
+  const T *xt = (const T*)x, *tt = (const T*)top, *bt = (const T*)bot;
+  if (tiles(32) >= 2LL * sms) return launch_tiles<32, T, HALO>(xt, tt, bt, (T*)out, B, H, W, s);
+  if (tiles(16) >= 2LL * sms) return launch_tiles<16, T, HALO>(xt, tt, bt, (T*)out, B, H, W, s);
+  return launch_tiles<8, T, HALO>(xt, tt, bt, (T*)out, B, H, W, s);
 }
 
 }  // namespace
@@ -390,12 +414,25 @@ extern "C" {
 
 int fdgan_freq_filters_f32(const void* x, void* out, const void* consts, int B, int H, int W,
                            void* stream) {
-  return launch<float>(x, out, consts, B, H, W, stream);
+  return launch<float, false>(x, nullptr, nullptr, out, consts, B, H, W, stream);
 }
 
 int fdgan_freq_filters_bf16(const void* x, void* out, const void* consts, int B, int H, int W,
                             void* stream) {
-  return launch<bf16>(x, out, consts, B, H, W, stream);
+  return launch<bf16, false>(x, nullptr, nullptr, out, consts, B, H, W, stream);
+}
+
+// x a shard of the image along H (H > 7 rows); top and bot the (B,7,W,3)
+// rows above and below it, contiguous and 16-byte aligned, or null at an end
+// of the image.
+int fdgan_freq_filters_halo_f32(const void* x, const void* top, const void* bot, void* out, const void* consts,
+                                int B, int H, int W, void* stream) {
+  return launch<float, true>(x, top, bot, out, consts, B, H, W, stream);
+}
+
+int fdgan_freq_filters_halo_bf16(const void* x, const void* top, const void* bot, void* out, const void* consts,
+                                 int B, int H, int W, void* stream) {
+  return launch<bf16, true>(x, top, bot, out, consts, B, H, W, stream);
 }
 
 }  // extern "C"

@@ -234,10 +234,21 @@ def _flat_apply_(tensors: Sequence[torch.Tensor], collective) -> None:
 
 
 @torch.no_grad()
-def average_gradients(module: torch.nn.Module, group) -> None:
-    """Every gradient of ``module`` replaced by its mean over the ranks of
-    ``group`` (one flattened all-reduce); nothing at world size 1. The
-    parameters without a gradient are the same on every rank."""
+def average_gradients(module: torch.nn.Module, group, n_spatial: int = 1) -> None:
+    """Every gradient of ``module`` replaced by its sum over the ranks of
+    ``group`` divided by the number of data groups, world / ``n_spatial``
+    (one flattened all-reduce); nothing at world size 1. The parameters
+    without a gradient are the same on every rank.
+
+    The convention: each rank backpropagates its own share of the loss. With
+    whole images (``n_spatial`` 1) that is the mean over its rows, and the
+    global batch's gradient is the mean of the ranks' gradients. With H
+    sharded over a spatial group of ``n_spatial`` ranks it is its band's sum
+    over the data group's count (``halo_exchange.global_mean``): the shares
+    of a spatial group add up to the data group's loss, so the gradient of
+    the global-mean loss is the sum over each spatial group, averaged over
+    the data groups. The exchanges' and the statistics all-reduces' backwards
+    carry each rank's cotangents to the ranks whose values it read."""
     if group is None or dist.get_world_size(group) == 1:
         return
     grads = [p.grad for p in module.parameters() if p.grad is not None]
@@ -246,22 +257,24 @@ def average_gradients(module: torch.nn.Module, group) -> None:
 
     def mean(flat):
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat.div_(dist.get_world_size(group))
+        flat.div_(dist.get_world_size(group) // n_spatial)
 
     _flat_apply_(grads, mean)
     counts["grads"] += 1
 
 
 @torch.no_grad()
-def average_metrics(metrics: dict, group) -> dict:
-    """The 0-d metric tensors averaged over the ranks (one all-reduce); the
-    dict as it is at world size 1."""
+def average_metrics(metrics: dict, group, n_spatial: int = 1) -> dict:
+    """The 0-d metric tensors summed over the ranks and divided by the data
+    groups, world / ``n_spatial`` (one all-reduce): the mean over the ranks
+    with whole images, the sum of the band shares within a spatial group
+    (:func:`average_gradients`). The dict as it is at world size 1."""
     if group is None or dist.get_world_size(group) == 1 or not metrics:
         return metrics
     flat = torch.stack([v.float() for v in metrics.values()])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     counts["metrics"] += 1
-    return dict(zip(metrics, flat / dist.get_world_size(group)))
+    return dict(zip(metrics, flat / (dist.get_world_size(group) // n_spatial)))
 
 
 @torch.no_grad()

@@ -12,6 +12,14 @@ graphs are never built.
 
 ``impl`` picks how the discriminator's input is built: ``'kernels'``
 through K3 (``ops.freq``), ``'plain'`` through its plain version.
+
+With H sharded (``dist.halo_exchange.spatial_sharding``) every image is a
+band of rows, and every mean (the pixel term, BCE over D's patches, the
+perceptual MSEs, SSIM, the logged ``d_real`` / ``d_fake``) is this rank's
+share of the whole image's: its band's sum over the global count
+(``halo_exchange.global_mean``), so that the shares of a spatial group add
+up to the mean. The contextual term, where every position meets every
+target position, is not sharded (ROADMAP.md, Queue 1 item 11c): it raises.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from fdgan_tpu_torch.dist import halo_exchange
+from fdgan_tpu_torch.dist.halo_exchange import global_mean
 from fdgan_tpu_torch.losses.contextual import contextual_loss
 from fdgan_tpu_torch.losses.gan import d_loss, g_adv_loss
 from fdgan_tpu_torch.losses.perceptual import perceptual_loss
@@ -40,7 +50,7 @@ class LossWeights:
 
 def pixel_loss(x: torch.Tensor, y: torch.Tensor, norm: str) -> torch.Tensor:
     diff = (x - y).float()
-    return diff.abs().mean() if norm == "l1" else diff.square().mean()
+    return global_mean(diff.abs() if norm == "l1" else diff.square())
 
 
 def generator_loss(
@@ -65,8 +75,12 @@ def generator_loss(
         total = total + weights.perceptual * terms["perceptual"]
     if weights.ssim > 0:
         terms["ssim"] = ssim(x01, gt)
-        total = total + weights.ssim * (1.0 - terms["ssim"])
+        # with H sharded each rank's share of the 1, so that the shares add up to 1 − SSIM
+        total = total + weights.ssim * (1.0 / halo_exchange.spatial_size() - terms["ssim"])
     if weights.contextual > 0 and vgg is not None:
+        if halo_exchange.current() is not None:
+            raise ValueError("the contextual loss with H sharded is not ported (ROADMAP.md, Queue 1 item 11c): "
+                             "every position meets every target position, across the bands")
         # relu3_3, downsampled enough for CX's cost, quadratic in H·W
         terms["contextual"] = contextual_loss(vgg(x01)[2], vgg(gt)[2])
         total = total + weights.contextual * terms["contextual"]
@@ -87,4 +101,4 @@ def discriminator_loss(
     d_real = fusion_apply(d, gt, impl)
     d_fake = fusion_apply(d, x01, impl)
     loss = d_loss(d_real, d_fake, real_label)
-    return loss, {"d_total": loss, "d_real": d_real.mean(), "d_fake": d_fake.mean()}
+    return loss, {"d_total": loss, "d_real": global_mean(d_real), "d_fake": global_mean(d_fake)}

@@ -9,13 +9,16 @@ from __future__ import annotations
 
 import torch
 
+from fdgan_tpu_torch.dist.halo_exchange import global_mean
+
 _EPS = 1e-7
 
 
 def bce(pred: torch.Tensor, target: float) -> torch.Tensor:
-    """Mean BCE of a probability map against a constant label."""
+    """Mean BCE of a probability map against a constant label (with H
+    sharded, this rank's share of the whole map's mean)."""
     p = pred.float().clamp(_EPS, 1.0 - _EPS)
-    return -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p)).mean()
+    return global_mean(-(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p)))
 
 
 def d_loss(d_real: torch.Tensor, d_fake: torch.Tensor, real_label: float = 1.0) -> torch.Tensor:

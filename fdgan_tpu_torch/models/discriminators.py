@@ -15,6 +15,13 @@ parameters. BatchNorm always normalises with the batch's statistics and its
 running statistics are never folded, as in the JAX train step. Convs run in
 the activation's dtype; the sigmoid head runs in fp32, since a bf16 sigmoid
 saturates to exactly 0 or 1 and defeats the BCE clip.
+
+With H sharded (``dist.halo_exchange.spatial_sharding``) the fusion
+discriminator runs on a band of rows: K3 takes its 7 halo rows a side, the
+convs theirs (``conv2d_halo_sharded``, whose last shard drops the row that
+each 4×4 stride-1 tail conv yields past the global output), and the BNs
+their statistics over the rows kept, over the mesh. :func:`check_bands`
+says which bands are too thin for the tail.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fdgan_tpu_torch.dist import halo_exchange
 from fdgan_tpu_torch.models.blocks import BeganConvBlock, BeganDeconvBlock, BlockUNet
 from fdgan_tpu_torch.nn.layers import (
     BatchNorm,
@@ -59,7 +67,12 @@ class NLayerDiscriminator(nn.Module):
         finish(self, device, generator)
 
     def forward(self, x: torch.Tensor, impl: str = "kernels") -> torch.Tensor:
-        """``impl`` picks the BNs' batch statistics (``nn.layers.batch_stats``)."""
+        """``impl`` picks the BNs' batch statistics (``nn.layers.batch_stats``).
+        With H sharded x is this rank's band, and the result its rows of the
+        whole image's map; a band too thin for the tail raises ``ValueError``."""
+        shard = halo_exchange.current()
+        if shard is not None:
+            check_bands([x.shape[1]], self.n_layers, last=shard.next is None)
         h = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         h = leaky_relu(self.model["0"](h))
         idx = 2
@@ -73,16 +86,38 @@ class NLayerDiscriminator(nn.Module):
         return sigmoid(h.float()).permute(0, 2, 3, 1)
 
 
+def check_bands(rows, n_layers: int = 3, last: bool = True) -> None:
+    """Raise ``ValueError`` where a band of rows is too thin for the
+    discriminator's tail: after its ``n_layers`` stride-2 convs a band's
+    rows feed the two 4×4 stride-1 convs, whose halo takes 2 rows from the
+    next band, so every band needs 2 rows there, and the last band 3 (the
+    first tail conv drops one of its rows). ``rows``: the bands' heights in
+    order, the last one the image's last when ``last``."""
+    step = 2**n_layers
+    for i, r in enumerate(rows):
+        need = (3 if last and i == len(rows) - 1 else 2) * step
+        if r % step or r < need:
+            raise ValueError(f"a band of {r} rows is too thin for the discriminator's tail: after its {n_layers} "
+                             f"stride-2 convs the 4x4 stride-1 convs take 2 rows from the next band, so a band "
+                             f"needs a multiple of {step} rows and at least {2 * step} ({3 * step} for the last)")
+
+
 def fusion_apply(d: NLayerDiscriminator, x: torch.Tensor, impl: str = "kernels") -> torch.Tensor:
     """D(concat[RGB, Gaussian LF, Laplacian HF] of NHWC x). ``impl='kernels'``
     builds the input with K3 (``ops.freq``) and D's batch statistics with
     ``channel_stats`` (``ops.stats``), their plain versions for a CPU tensor;
-    ``impl='plain'`` runs the plain versions on any device."""
-    if impl == "kernels":
-        return d(freq.frequency_fuse(x), impl)
-    if impl == "plain":
-        return d(filters.frequency_fuse(x), impl)
-    raise ValueError(f"unknown impl {impl!r}")
+    ``impl='plain'`` runs the plain versions on any device. With H sharded
+    the filters take the 7 rows above and below this rank's band from its
+    neighbours (none at the image's ends, where they reflect)."""
+    if impl not in ("kernels", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    fuse = freq.frequency_fuse if impl == "kernels" else filters.frequency_fuse
+    shard = halo_exchange.current()
+    if shard is None:
+        return d(fuse(x), impl)
+    top, bottom = halo_exchange.halo_rows(x, filters.BLUR_PAD, filters.BLUR_PAD, shard=shard)
+    return d(fuse(x, halo=(top if shard.prev is not None else None, bottom if shard.next is not None else None)),
+             impl)
 
 
 class PatchD(nn.Module):

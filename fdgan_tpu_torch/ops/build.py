@@ -44,6 +44,8 @@ _SIGNATURES = {
     "fdgan_channel_stats_blocks": [_I, _I],
     "fdgan_freq_filters_f32": [_P] * 3 + [_I] * 3 + [_P],
     "fdgan_freq_filters_bf16": [_P] * 3 + [_I] * 3 + [_P],
+    "fdgan_freq_filters_halo_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "fdgan_freq_filters_halo_bf16": [_P] * 5 + [_I] * 3 + [_P],
     "fdgan_probe_mm": [_P] * 3 + [_I] * 2 + [_P],
     "fdgan_probe_scale_copy": [_P, _P, _L, _I, _P],
     "fdgan_probe_conv1": [_P, _P, _I] + [_P] * 4 + [_I, _I, _P],

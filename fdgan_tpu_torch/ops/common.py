@@ -33,11 +33,12 @@ def pixel_stride(t: torch.Tensor, name: str = "x") -> int:
 
 
 def twin_vjp(twin, ctx, cts):
-    """The VJP of ``twin`` at a Function's saved inputs, for the inputs that
-    need a grad: the backward of K1, K2 and K3."""
+    """The VJP of ``twin`` at a Function's saved inputs (None where an
+    optional input was None), for the inputs that need a grad: the backward
+    of K1, K2 and K3."""
     need = ctx.needs_input_grad
     with torch.enable_grad():
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        inputs = [None if t is None else t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
         outs = twin(*inputs)
         outs = outs if isinstance(outs, tuple) else (outs,)
         pairs = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]

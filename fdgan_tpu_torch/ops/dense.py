@@ -25,7 +25,8 @@ Under spatial sharding (``dist/halo_exchange.py``) a shard's K1 also takes
 halo rows (``fused_dense_layer(halo=)``): the neighbouring shards' rows of
 x above and below it, kept in x's buffer after its pixels
 (``halo_buffer``), where the kernel computes g as at any pixel instead of
-zero-padding it. K1 has no backward with halo rows yet (ROADMAP item 11b).
+zero-padding it. Its backward is the twin's VJP with the same rows
+(``layer_reference(halo=)``), which also gives the halo rows' cotangents.
 
 ``k1_launches`` and ``k2_launches`` count the kernel launches in this
 process; the twins do not move them.
@@ -436,6 +437,49 @@ class _FusedLayer(torch.autograd.Function):
         return twin_vjp(layer_reference, ctx, (ct,))
 
 
+def _layer_reference_halo(x, top, bottom, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
+    return layer_reference(x, a1, b1, w1, a2, b2, w2, halo=(top, bottom))
+
+
+class _FusedLayerHalo(torch.autograd.Function):
+    """K1 with halo rows, differentiable in x, in the rows and in the
+    weights: the forward launches K1 with the rows (the twin on the CPU),
+    the backward is the twin's VJP, as without rows."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, a1, b1, w1, a2, b2, w2):
+        ctx.save_for_backward(x, top, bottom, a1, b1, w1, a2, b2, w2)
+        if x.device.type == "cpu":
+            _check_inputs(x, a1, b1, w1)
+            _halo_rows(x, (top, bottom), pixel_stride(x))
+            return layer_reference(x, a1, b1, w1, a2, b2, w2, halo=(top, bottom))
+        return _launch_k1(x, a1, b1, w1, a2, b2, w2, halo=(top, bottom))
+
+    @staticmethod
+    def backward(ctx, ct):
+        return twin_vjp(_layer_reference_halo, ctx, (ct,))
+
+
+class _HaloPack(torch.autograd.Function):
+    """The concat along channels of k parts of a halo'd x, with their halo
+    rows, in one new ``halo_buffer``: (x, top, bottom) views of it. One
+    autograd-recorded copy, as ``torch.cat``; the backward splits the
+    cotangents by channels."""
+
+    @staticmethod
+    def forward(ctx, k: int, *parts):
+        xs, tops, bottoms = parts[:k], parts[k:2 * k], parts[2 * k:]
+        ctx.widths = [t.shape[-1] for t in xs]
+        x, top, bottom = halo_buffer(*xs[0].shape[:3], sum(ctx.widths), device=xs[0].device, dtype=xs[0].dtype)
+        for into, src in ((x, xs), (top, tops), (bottom, bottoms)):
+            torch.cat(src, dim=-1, out=into)
+        return x, top, bottom
+
+    @staticmethod
+    def backward(ctx, ct_x, ct_top, ct_bottom):
+        return (None,) + tuple(p for ct in (ct_x, ct_top, ct_bottom) for p in ct.split(ctx.widths, dim=-1))
+
+
 class _HStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a1, b1, w1):
@@ -465,21 +509,22 @@ def fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = N
     below x, from the neighbouring shards of a spatially sharded image,
     each None at an end of the image (g = 0 there, as without ``halo``):
     (B, 1, W, C) views in x's buffer after its pixels (:func:`halo_buffer`).
-    K1 reads them where its tiles' halo ring leaves x. Its backward is not
-    ported: a call with ``halo`` that autograd would record raises
-    ``NotImplementedError``."""
+    K1 reads them where its tiles' halo ring leaves x. Without ``out`` the
+    call is differentiable in x, the rows and the weights (the twin's VJP,
+    ``layer_reference(halo=)``)."""
     if halo is not None and all(r is None for r in halo):
         halo = None
     if halo is not None:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a1, b1, w1, a2, b2, w2)):
-            raise NotImplementedError("K1 with halo rows has no backward yet: training with H sharded is "
-                                      "ROADMAP item 11b; call it under torch.no_grad() or torch.inference_mode()")
+        if out is None:
+            return _FusedLayerHalo.apply(x, halo[0], halo[1], a1, b1, w1, a2, b2, w2)
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in (x, a1, b1, w1, a2, b2, w2, out) + tuple(halo)):
+            raise RuntimeError("fused_dense_layer(out=...) writes in place, which autograd cannot record: "
+                               "call it under torch.no_grad() or torch.inference_mode()")
         if x.device.type == "cpu":
             _check_inputs(x, a1, b1, w1)
             _halo_rows(x, halo, pixel_stride(x))
             f = layer_reference(x, a1, b1, w1, a2, b2, w2, halo=halo)
-            if out is None:
-                return f
             _check_out(out, x)
             return out.copy_(f)
         return _launch_k1(x, a1, b1, w1, a2, b2, w2, out=out, halo=halo)
@@ -511,18 +556,21 @@ def _reference_into(*args, out: torch.Tensor, halo=None) -> torch.Tensor:
     return out.copy_(layer_reference(*args, halo=halo))
 
 
-def _layer_core(layer, mode: str, layer_fn, stats_fn, x, a1, b1):
+def _layer_core(layer, mode: str, layer_fn, stats_fn, x, a1, b1, *halo):
     """One dense layer after its folded norm1 (a1, b1): norm2's statistics
     (K2 in batch mode, the running ones otherwise), its fold, and the layer
-    (K1). Returns ``(f, m2, v2)``: the statistics are outputs, not writes, so
-    that a checkpoint's recompute records nothing twice."""
+    (K1, with x's ``halo`` rows (top, bottom) where given: arguments, so
+    that a checkpoint's recompute gets the rows of its own recomputed
+    buffer). Returns ``(f, m2, v2)``: the statistics are outputs, not
+    writes, so that a checkpoint's recompute records nothing twice."""
     w1 = layer.conv1.weight.reshape(INTER, -1).t()
     if mode == "batch":
         m2, v2, _ = global_stats(*stats_fn(x, a1, b1, w1), x.shape[0] * x.shape[1] * x.shape[2])
     else:
         m2, v2 = layer.norm2.running_mean, layer.norm2.running_var
     a2, b2 = fold_bn(layer.norm2.weight, layer.norm2.bias, m2, v2)
-    return layer_fn(x, a1, b1, w1, a2, b2, layer.conv2.weight.permute(2, 3, 1, 0)), m2, v2
+    kw = {"halo": halo} if halo else {}
+    return layer_fn(x, a1, b1, w1, a2, b2, layer.conv2.weight.permute(2, 3, 1, 0), **kw), m2, v2
 
 
 def dense_block_fused(
@@ -570,14 +618,15 @@ def dense_block_fused(
     shards (``halo_buffer``): the block input's boundary rows are exchanged
     once, then each layer's 32 new channels (but the last layer's, which no
     3×3 conv reads), and each K1 reads its slice of those rows as its halo.
-    The statistics take x alone. A sharded block runs where autograd
-    records nothing; with grad enabled it raises ``NotImplementedError``."""
+    The statistics take x alone. With grad enabled each layer's concat is a
+    new ``halo_buffer`` with its rows (``_HaloPack``, one copy, as
+    ``torch.cat``), the exchanges are differentiable
+    (``halo_exchange.halo_rows``) and K1 with its rows too; under ``remat``
+    the recompute of a layer's core re-issues its K2 statistics'
+    all-reduce, and no exchange."""
     if mode not in ("batch", "running"):
         raise ValueError(f"unknown BN mode {mode!r}")
     shard = halo_exchange.current()
-    if shard is not None and torch.is_grad_enabled():
-        raise NotImplementedError("a dense block with H sharded runs under torch.no_grad() or "
-                                  "torch.inference_mode(): its backward is ROADMAP item 11b")
     if impl == "kernels":
         layer_fn, stats_fn, seg_fn = fused_dense_layer, h_batch_stats, channel_stats
     elif impl == "plain":
@@ -587,6 +636,7 @@ def dense_block_fused(
     npix = x.shape[0] * x.shape[1] * x.shape[2]  # every segment's pixels on this rank
     n = npix  # and over the ranks of a data-parallel step (dist/stats.py)
     buf = rows = None
+    sharded_grad = shard is not None and torch.is_grad_enabled()
     if not torch.is_grad_enabled():
         c0 = x.shape[-1]
         width = c0 + GROWTH * len(layers)
@@ -602,6 +652,8 @@ def dense_block_fused(
             halo_exchange.exchange_rows(x, top[..., :c0], bottom[..., :c0], shard)
     if mode == "batch":
         mean_cat, var_cat, n = global_stats(*seg_fn(x), npix)
+    if sharded_grad:
+        x, top, bottom = _HaloPack.apply(1, x, *halo_exchange.halo_rows(x, 1, 1, shard=shard))
     for i, layer in enumerate(layers):
         if mode == "batch":
             m1, v1 = mean_cat, var_cat
@@ -609,8 +661,11 @@ def dense_block_fused(
             m1, v1 = layer.norm1.running_mean, layer.norm1.running_var
         a1, b1 = fold_bn(layer.norm1.weight, layer.norm1.bias, m1, v1)
         if buf is None:
+            # with H sharded, the rows this rank has neighbours for: g is 0 on the others
+            args = (x, a1, b1) + ((top if shard.prev is not None else None,
+                                   bottom if shard.next is not None else None) if sharded_grad else ())
             core = functools.partial(_layer_core, layer, mode, layer_fn, stats_fn)
-            f, m2, v2 = checkpoint(core, x, a1, b1, use_reentrant=False) if remat else core(x, a1, b1)
+            f, m2, v2 = checkpoint(core, *args, use_reentrant=False) if remat else core(*args)
         else:
             c = x.shape[-1]
             f = buf[..., c:c + GROWTH]
@@ -627,5 +682,11 @@ def dense_block_fused(
             mf, vf, _ = global_stats(*seg_fn(f), npix)
             mean_cat = torch.cat([mean_cat, mf])
             var_cat = torch.cat([var_cat, vf])
-        x = torch.cat([x, f], dim=-1) if buf is None else buf[..., :c + GROWTH]
+        if buf is not None:
+            x = buf[..., :c + GROWTH]
+        elif sharded_grad and i + 1 < len(layers):
+            f_top, f_bottom = halo_exchange.halo_rows(f, 1, 1, shard=shard)
+            x, top, bottom = _HaloPack.apply(2, x, f, top, f_top, bottom, f_bottom)
+        else:
+            x = torch.cat([x, f], dim=-1)
     return x, ((mean_cat, var_cat, n) if mode == "batch" else None)

@@ -7,6 +7,11 @@ zero padding of 5, C1 = 0.01², C2 = 0.03², the mean of the SSIM map.
 Everything runs in fp32: the E[x²] − μ² cancellation makes the result
 useless at reduced precision. So the separable window is applied as
 shifted-slice sums, which no card runs in TF32, forward or backward.
+
+With H sharded (``dist.halo_exchange.spatial_sharding``) the H pass takes
+its 5 rows a side from the neighbouring shards, zeros at the image's ends
+(the zero padding of the whole image), and :func:`ssim` is this rank's
+share of the whole image's mean (``halo_exchange.global_mean``).
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fdgan_tpu_torch.dist import halo_exchange
 
 SSIM_WINDOW_SIZE = 11
 
@@ -28,9 +35,15 @@ def gaussian_window_1d() -> np.ndarray:
 
 
 def _sep_filter(x: torch.Tensor, taps, pad: int) -> torch.Tensor:
-    """Zero-padded separable filter of NHWC x: along H, then along W."""
+    """Zero-padded separable filter of NHWC x: along H, then along W; with H
+    sharded the H pass reads the neighbours' rows (zeros at the ends)."""
     n, h, w = len(taps), x.shape[1], x.shape[2]
-    a = F.pad(x, (0, 0, 0, 0, pad, pad))
+    shard = halo_exchange.current()
+    if shard is not None:
+        top, bottom = halo_exchange.halo_rows(x, pad, pad, shard=shard)
+        a = torch.cat([top, x, bottom], dim=1)
+    else:
+        a = F.pad(x, (0, 0, 0, 0, pad, pad))
     y = taps[0] * a[:, 0:h]
     for k in range(1, n):
         y = y + taps[k] * a[:, k:k + h]
@@ -55,5 +68,6 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-    """Mean SSIM of two NHWC images."""
-    return ssim_map(img1, img2).mean()
+    """Mean SSIM of two NHWC images (with H sharded, this rank's share of
+    it: ``halo_exchange.global_mean``)."""
+    return halo_exchange.global_mean(ssim_map(img1, img2))

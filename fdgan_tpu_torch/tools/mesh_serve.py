@@ -114,41 +114,13 @@ def _turns(engines: dict, batch: np.ndarray, n: int, device) -> dict:
 
 
 def _profile(engine: InferenceEngine, batch: np.ndarray, device) -> dict:
-    """One dispatch of the mesh under ``torch.profiler`` on this rank: its
-    wall ms (host clock, synchronised), the device's busy ms (the union of
-    its kernels' intervals) and idle share, the exchanges' device ms and
-    count (NCCL's kernels, which also wait for the peer), and the kernels
-    that take the most time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One dispatch of the mesh under ``torch.profiler`` on this rank, after
+    a warm-up (``tools.timing.busy_profile``: wall ms, the device's busy ms
+    and idle share, NCCL's ms, the kernels that take the most time)."""
+    from fdgan_tpu_torch.tools.timing import busy_profile
 
     engine._dispatch(batch).fetch()
-    _synchronize(device)
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    with profile(activities=activities) as prof:
-        t = time.perf_counter()
-        engine._dispatch(batch).fetch()
-        _synchronize(device)
-        wall = time.perf_counter() - t
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    nccl = [e for e in kernels if "nccl" in e.name.lower()]
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (e.time_range.end - e.time_range.start) / 1000
-    return {"wall_ms": 1000 * wall, "device_busy_ms": busy / 1000,
-            "idle_share": 1.0 - busy / 1000 / (1000 * wall) if wall > 0 else None,
-            "device_events": len(kernels), "nccl_ms": sum(e.time_range.end - e.time_range.start for e in nccl) / 1000,
-            "nccl_kernels": len(nccl),
-            "top_kernels": sorted(({"name": k, "ms": v} for k, v in by_name.items()), key=lambda r: -r["ms"])[:10]}
+    return busy_profile(lambda: engine._dispatch(batch).fetch())
 
 
 def run_one(run: dict, weights: dict, device) -> dict:

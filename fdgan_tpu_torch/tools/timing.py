@@ -53,3 +53,40 @@ def peak_gib(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def busy_profile(fn) -> dict:
+    """One fn() under ``torch.profiler`` with the card synchronised around
+    it: its wall ms (host clock), the device's busy ms (the union of its
+    kernels' intervals) and idle share, NCCL's kernels' ms and count (which
+    also wait for the peers), and the kernels that take the most time."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (e.time_range.end - e.time_range.start) / 1000
+    return {"wall_ms": 1000 * wall, "device_busy_ms": busy / 1000,
+            "idle_share": 1.0 - busy / 1000 / (1000 * wall) if wall > 0 else None,
+            "device_events": len(kernels), "nccl_ms": sum(e.time_range.end - e.time_range.start for e in nccl) / 1000,
+            "nccl_kernels": len(nccl),
+            "top_kernels": sorted(({"name": k, "ms": v} for k, v in by_name.items()), key=lambda r: -r["ms"])[:10]}

@@ -39,7 +39,19 @@ under GSPMD), and the returned metrics are averaged over the ranks, so
 that they are the global batch's. With equal local batches the step is then
 JAX's step on the global batch; each rank applies the same update to the
 same state. ``group=None``, or a group of one rank, issues no collective:
-bit for bit the single-process step. The state is updated in place: a step
+bit for bit the single-process step.
+
+Spatial sharding (``mesh``, ``dist.mesh.make_mesh``'s ("data", "spatial")
+mesh; ``cli/train --spatialShards``): the ranks of a spatial group hold the
+same images, each a band of their rows (``dist.mesh.shard_batch(mesh,
+spatial=True)``), and the step runs G's and D's forwards and backwards
+inside ``dist.halo_exchange.spatial_sharding`` (the spatial group, the whole
+mesh): the convs, K1, K3 and SSIM take their halo rows from the
+neighbouring bands, the batch statistics are taken over the whole mesh, and
+each loss is the rank's share of the whole image's mean. The gradients are
+summed over each spatial group and averaged over the data groups
+(``dist.mesh.average_gradients``' convention), as are the metrics. With a
+spatial axis of 1 the step is the data-parallel step above. The state is updated in place: a step
 returns the same ``TrainState``. Not ported (ROADMAP.md): the
 device-resident ``lax.scan`` loops and ``make_device_eval``, workarounds for
 the TPU's host link.
@@ -54,7 +66,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
-from fdgan_tpu_torch.dist.mesh import average_gradients, average_metrics
+from fdgan_tpu_torch.dist.halo_exchange import spatial_sharding
+from fdgan_tpu_torch.dist.mesh import average_gradients, average_metrics, mesh_dims, process_group
 from fdgan_tpu_torch.dist.stats import global_batch_stats
 from fdgan_tpu_torch.losses.composite import LossWeights, discriminator_loss, generator_loss
 from fdgan_tpu_torch.models import fdgan_fast
@@ -155,16 +168,33 @@ def _frozen(*modules: Optional[nn.Module]):
             p.requires_grad_(True)
 
 
-def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=False, accum_steps=1, group=None):
+def _groups(group, mesh):
+    """(the step's whole group, its spatial group or None, the spatial
+    axis' size) for ``group`` and ``mesh``."""
+    if mesh is None:
+        return group, None, 1
+    n_spatial = mesh_dims(mesh)[1]
+    return (group if group is not None else process_group()), mesh.get_group("spatial"), n_spatial
+
+
+def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=False, accum_steps=1, group=None,
+           mesh=None):
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    group, sp_group, n_spatial = _groups(group, mesh)
+
+    def sharded():
+        """The context of the forwards and backwards: the batch statistics
+        over ``group``, and with a mesh the spatial sharding over its
+        spatial group."""
+        return spatial_sharding(sp_group, group) if sp_group is not None else global_batch_stats(group)
 
     def g_update(state: TrainState, haze, gt) -> Tuple[Metrics, torch.Tensor]:
         if haze.shape[0] % accum_steps:
             raise ValueError(f"batch {haze.shape[0]} not divisible by accum_steps {accum_steps}")
         micro = haze.shape[0] // accum_steps
         parts = []  # (terms, stats, x_hat) of each microbatch
-        with _frozen(state.d, vgg), global_batch_stats(group):
+        with _frozen(state.d, vgg), sharded():
             state.g_opt.zero_grad(set_to_none=True)
             for h, g in zip(haze.split(micro), gt.split(micro)):
                 stats: dict = {}
@@ -185,21 +215,21 @@ def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=Fals
             stats = {k: tuple(torch.stack([s[k][j] for _, s, _ in parts]).mean(0) for j in (0, 1))
                      for k in parts[0][1]}
             x_hat = torch.cat([x for _, _, x in parts])
-        average_gradients(state.g, group)
+        average_gradients(state.g, group, n_spatial)
         tx_g.apply(state.g_opt, state.step)
         fold_stats(state.g, stats)
         state.step += 1
-        return average_metrics({f"g_{k}": v for k, v in terms.items()}, group), x_hat
+        return average_metrics({f"g_{k}": v for k, v in terms.items()}, group, n_spatial), x_hat
 
     def d_update(state: TrainState, fake, gt) -> Metrics:
-        with global_batch_stats(group):
+        with sharded():
             loss, terms = discriminator_loss(state.d, fake, gt.to(compute_dtype), real_label, impl)
             state.d_opt.zero_grad(set_to_none=True)
             loss.backward()
-        average_gradients(state.d, group)
+        average_gradients(state.d, group, n_spatial)
         tx_d.apply(state.d_opt, state.d_updates)
         state.d_updates += 1
-        return average_metrics({k: v.detach() for k, v in terms.items()}, group)
+        return average_metrics({k: v.detach() for k, v in terms.items()}, group, n_spatial)
 
     return g_update, d_update
 
@@ -215,6 +245,7 @@ def make_train_step(
     remat=False,
     accum_steps: int = 1,
     group=None,
+    mesh=None,
 ):
     """``train_step(state, haze, gt) -> (state, metrics)``: a G update, the
     BN fold, then a D update on the pre-update G output. NHWC ``haze`` and
@@ -232,9 +263,12 @@ def make_train_step(
 
     ``group``: the data-parallel step over the ranks of that process group
     (the module's docstring); ``haze`` and ``gt`` are this rank's slice of
-    the global batch."""
+    the global batch. ``mesh``: the step with H sharded over the mesh's
+    spatial axis (``group`` then defaults to the whole process group), and
+    ``haze`` and ``gt`` this rank's block (``dist.mesh.shard_batch(mesh,
+    spatial=True)``)."""
     g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat, accum_steps,
-                                group)
+                                group, mesh)
 
     def train_step(state: TrainState, haze: torch.Tensor, gt: torch.Tensor) -> Tuple[TrainState, Metrics]:
         metrics, x_hat = g_update(state, haze, gt)
@@ -254,14 +288,16 @@ def make_gd_steps(
     real_label: float = 1.0,
     remat=False,
     group=None,
+    mesh=None,
 ):
     """Split steps for ImagePool training (misc.py:140-161):
     ``g_step(state, haze, gt) -> (state, metrics, x_hat)`` returns the
     generated batch, which the caller pools; ``d_step(state, fake, gt) ->
     (state, metrics)`` trains D on the (possibly older) fake batch.
-    ``group`` as :func:`make_train_step`'s: under data parallelism each
-    rank pools its own slice of the fakes."""
-    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat, group=group)
+    ``group`` and ``mesh`` as :func:`make_train_step`'s: each rank pools its
+    own block of the fakes."""
+    g_update, d_update = _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat, group=group,
+                                mesh=mesh)
 
     def g_step(state: TrainState, haze: torch.Tensor, gt: torch.Tensor):
         metrics, x_hat = g_update(state, haze, gt)

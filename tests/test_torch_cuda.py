@@ -128,6 +128,26 @@ def test_k1_with_halo_rows_is_k1_on_the_whole_image(cuda, exact, shape, shards, 
     assert torch.equal(torch.cat(parts, dim=1), whole)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bands", [((2, 40, 24, 3), [16, 8, 16]), ((1, 64, 200, 3), [24, 40])])
+def test_k3_with_halo_rows_is_k3_on_the_whole_image(cuda, exact, shape, bands, dtype):
+    """K3's halo variant on bands of rows, each with its neighbours' 7 rows
+    a side (none at the image's ends, where it reflects), gives the bits of
+    K3 on the whole image, and its twin's within K3_TOL."""
+    x = torch.tensor(np.random.default_rng(12).uniform(size=shape), dtype=dtype, device=cuda)
+    h = shape[1]
+    whole = freq.frequency_fuse(x)
+    parts, start = [], 0
+    for n in bands:
+        halo = (x[:, start - 7:start] if start else None, x[:, start + n:start + n + 7] if start + n < h else None)
+        xs = x[:, start:start + n].contiguous()
+        got = freq.frequency_fuse(xs, halo=halo)
+        torch.testing.assert_close(got.float(), filters.frequency_fuse(xs, halo=halo).float(), **K3_TOL[dtype])
+        parts.append(got)
+        start += n
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
 def _buffer_view(x, ld):
     """x as the first C channels of a (B, H, W, ld) buffer, and the 32 after them."""
     c = x.shape[-1]

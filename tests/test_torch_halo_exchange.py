@@ -140,17 +140,26 @@ def test_k1_twin_with_halo_rows_matches_the_whole_image(dtype, c):
 
 
 def test_k1_with_halo_rows_refuses_what_it_cannot_take():
-    """Rows outside x's buffer raise; a call autograd would record raises
-    NotImplementedError (training with H sharded is ROADMAP item 11b)."""
+    """Rows outside x's buffer raise; a call autograd records gives the
+    twin's gradients, the halo row's too (training with H sharded)."""
     c = 64
     x, top, bottom = dense.halo_buffer(1, 8, 16, c, device="cpu", dtype=torch.float32)
     x.uniform_()
-    top.zero_()
+    top.uniform_()
     args = (torch.ones(c), torch.zeros(c), torch.zeros(c, 128), torch.ones(128), torch.zeros(128),
             torch.zeros(3, 3, 128, 32))
     with pytest.raises(ValueError, match="halo_buffer"):
         with torch.inference_mode():
             dense.fused_dense_layer(x, *args, halo=(torch.zeros(1, 1, 16, c), None))
-    w1 = torch.zeros(c, 128, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="11b"):
-        dense.fused_dense_layer(x, args[0], args[1], w1, *args[3:], halo=(top, None))
+    rng = np.random.default_rng(1)
+    w1 = torch.tensor(rng.standard_normal((c, 128)) / 8, dtype=torch.float32, requires_grad=True)
+    w2 = torch.tensor(rng.standard_normal((3, 3, 128, 32)) / 30, dtype=torch.float32)
+    xg, tg = x.clone().requires_grad_(True), top.clone().requires_grad_(True)
+    xs, ts, _ = dense._HaloPack.apply(1, xg, tg, bottom.clone())
+    dense.fused_dense_layer(xs, args[0], args[1], w1, args[3], args[4], w2, halo=(ts, None)).square().sum().backward()
+    got = (w1.grad.clone(), xg.grad, tg.grad)
+    w1.grad = None
+    xw, tw = x.clone().requires_grad_(True), top.clone().requires_grad_(True)
+    dense.layer_reference(xw, args[0], args[1], w1, args[3], args[4], w2, halo=(tw, None)).square().sum().backward()
+    for g, want in zip(got, (w1.grad, xw.grad, tw.grad)):
+        torch.testing.assert_close(g, want, rtol=0, atol=0)

@@ -192,10 +192,12 @@ def test_best_snapshot_is_a_copy(tmp_path):
 @pytest.mark.parametrize("flags, dist, message", [
     (["--deviceSteps", "4"], False, "Queue 1 item 4"),
     (["--noAsyncCkpt"], False, "Queue 1 item 4"),
-    (["--spatialShards", "2"], False, "Queue 1 item 11"),
+    # a single process has one card: the bands need a process each, and the message says how to start them
+    (["--spatialShards", "2"], False, "launch N x n_data processes under FDGAN_TPU_DIST"),
     (["--accumSteps", "2"], False, "requires --poolSize 0"),
-    # the JAX CLI's refusal under FDGAN_TPU_DIST (fdgan_tpu/cli/train.py:181-190), before any rendezvous
-    (["--spatialShards", "2"], True, "single-process only: the h5 loader shards IMAGES per process"),
+    # under FDGAN_TPU_DIST, before any rendezvous: the contextual term is not sharded (its ROADMAP item)
+    (["--spatialShards", "2", "--lambdaCX", "1"], True, "Queue 1 item 11c"),
+    (["--spatialShards", "2", "--imageSize", "32"], True, "too thin for the discriminator's tail"),
 ])
 def test_refused_flags_exit_with_their_messages(monkeypatch, flags, dist, message):
     if dist:
