@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, kernel-probe, demo,
-training-CLI, model-zoo, data-parallel, serving-mesh and sharded-training
-paths once on one CUDA GPU, and check them.
+training-CLI, model-zoo, data-parallel, serving-mesh, sharded-training and
+export paths once on one CUDA GPU, and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dp-ranks   # only phase 10's ranks: one per card over NCCL, and their step timed
@@ -178,6 +178,27 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    vectors; bf16: phase 10's gate), every halo'd K3 launch against its twin,
    each rank's launches, halo exchanges, count and statistics all-reduces
    exact.
+13. the export path (``io.export``, ``native/``; build/export): the
+   generator (seed 0) exported by ``export_forward``, saved and loaded back,
+   at the engine's default (8×512² bf16 running BN), the demo's (1×1024²
+   fp32 batch BN) and 2×256² bf16 batch BN; each loaded program's forward
+   with the counters zeroed just before and read just after (K1 42, K2 42 in
+   batch BN, channel_stats 45 in bf16 batch BN), every launch held against
+   its twin on its own input, the fp32 program against the eager forward
+   within GEN_TOL and the bf16 ones by the PSNR criterion; ms per forward at
+   8×512² in turns with the eager forward. Then one AOTInductor package,
+   ``export_native_bundle`` at 1×512² bf16 running BN with uint8 in and
+   out (its export, compile, save and load seconds, MB): in Python
+   (``aoti_load_package``: K1 42 by the counters, each held against its
+   twin, and the profiler's kernel names reported) and through ``aoti_runner
+   --ops`` (``native/``, built here: the same bytes, K1 42 a forward by the
+   C++ operators' own counts), within one level of the eager engine's
+   uint8, as is the ``ExportedProgram``; the runner without ``--ops`` must
+   stop naming it; ms per forward in turns (eager, program, package) and
+   per request (the runner against the package in Python); the runner's
+   HTTP daemon: /dehaze (the same bytes), /healthz, /stats, and /reload
+   with a package of two outputs (refused, the old one serving: ADVICE r5
+   fault 2), a .sig mismatch (409) and Content-Length: 0 (re-promoted).
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
@@ -194,7 +215,9 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2876,6 +2899,389 @@ def sp_ranks_main() -> int:
     return 0
 
 
+# phase 13: the export path. The ExportedProgram at the engine's default (8x512^2 bf16 running BN) and the demo's
+# (1x1024^2 fp32 batch BN), and at 2x256^2 bf16 batch BN, where all three ops run; one AOTInductor package
+# (1x512^2 bf16 running BN, uint8 in and out: export_native_bundle) in Python and through aoti_runner --ops
+EXPORT_PROGRAMS = [("serve", (8, 512), "bf16", "running"), ("demo", (1, 1024), "fp32", "batch"),
+                   ("bf16_batch", (2, 256), "bf16", "batch")]
+EXPORT_BUNDLE = 512
+EXPORT_PER_FORWARD = {"running": {"k1": 42, "k2": 0}, "batch": {"k1": 42, "k2": 42}}
+EXPORT_TURNS = 10  # forwards a turn in the timed turns
+EXPORT_LOOPS = 10  # aoti_runner --loops, and requests through the package in Python
+
+
+def plain_operands(x, a1, b1, w1, a2=None, b2=None, w2=None, tw1=False):
+    """The twins' operands from an fdgan:: op's: the affines cut back to C
+    and the weights out of the kernels' layouts (ops/dense.py: w1_planes,
+    w1_tw1_planes when ``tw1``, the bf16 W2 permutation, the fp32 tf32 big
+    and small planes, whose sum holds W to ~2^-22)."""
+    import torch
+
+    c = x.shape[-1]
+    f32 = x.dtype == torch.float32
+    if f32:
+        w1p = w1.permute(1, 0, 4, 2, 3).reshape(2, 32 * w1.shape[0], -1).sum(0)[:c]
+    elif tw1:
+        g, n = w1.shape[0] // 8, w1.shape[1]
+        w1p = w1.reshape(g, 4, 2, n, 4, 2).permute(0, 4, 1, 2, 5, 3).reshape(64 * g, n)[:c]
+    else:
+        w1p = w1.permute(0, 2, 1).reshape(-1, w1.shape[1])[:c]
+    out = [x, a1[:c], b1[:c], w1p]
+    if w2 is not None:
+        w2p = (w2.reshape(3, 4, 2, 8, 3, 32, 4).permute(2, 0, 4, 1, 6, 3, 5).reshape(2, 3, 3, 128, 32).sum(0) if f32
+               else w2.permute(0, 1, 3, 2))
+        out += [a2, b2, w2p]
+    return out
+
+
+@contextlib.contextmanager
+def checked_op_launches(record):
+    """Every launch of the fdgan:: ops' CUDA implementations inside the block
+    (K1, K2, channel_stats, as an exported program or a package in this
+    process calls them) held against its twin on its own input: K1 at
+    K1_TOL_F32 / K1_TOL_BF16, K2 at K2_MEAN_TOL / K2_VAR_TOL (as phase 2),
+    channel_stats at STATS_MEAN_TOL / STATS_VAR_TOL.
+    ``record`` gets the launches checked and the worst errors."""
+    import torch
+
+    from fdgan_tpu_torch.ops import dense, stats
+
+    record.update(k1=0, k2=0, channel_stats=0, k1_max_abs_err=0.0, k2_max_abs_err=0.0, stats_max_abs_err=0.0)
+
+    def hold(name, got, want, tols):
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        record[name] += 1
+        key = {"k1": "k1", "k2": "k2", "channel_stats": "stats"}[name] + "_max_abs_err"
+        record[key] = max(record[key], err)
+        if not all(torch.allclose(g.float(), w.float(), **t) for g, w, t in zip(got, want, tols)):
+            raise AssertionError(f"{name} disagrees with its twin in an exported program: {err:.3e}")
+
+    def wrap_k1(orig):
+        def launch(x, a1, b1, w1, a2, b2, w2, ld, top, bot, out, ldo):
+            orig(x, a1, b1, w1, a2, b2, w2, ld, top, bot, out, ldo)
+            with exact_fp32():
+                twin = dense.layer_reference(*plain_operands(x, a1, b1, w1, a2, b2, w2))
+            hold("k1", (out,), (twin,), (K1_TOL_F32 if x.dtype == torch.float32 else K1_TOL_BF16,))
+        return launch
+
+    def wrap_k2(orig):
+        def launch(x, a1, b1, w1, ld):
+            got = orig(x, a1, b1, w1, ld)
+            twin = dense.h_stats_reference(*plain_operands(x, a1, b1, w1, tw1=True))
+            hold("k2", got, twin, (K2_MEAN_TOL, K2_VAR_TOL))
+            return got
+        return launch
+
+    def wrap_stats(orig):
+        def launch(x, ld=None):
+            got = orig(x, ld)
+            hold("channel_stats", got, stats.one_pass_reference(x), (STATS_MEAN_TOL, STATS_VAR_TOL))
+            return got
+        return launch
+
+    with patched(dense, "_launch_k1", wrap_k1), patched(dense, "_launch_k2", wrap_k2), \
+            patched(stats, "_launch", wrap_stats):
+        yield
+
+
+def kernel_counts(fn):
+    """fn() once under the CLIs' profiler (``cli._common.maybe_profile``,
+    host and device, as phase 7 counts the demo's kernels): the trace's
+    device kernels named as K1's, K2's and channel_stats' kernels."""
+    import tempfile
+
+    import torch
+
+    from fdgan_tpu_torch.cli._common import maybe_profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        with maybe_profile(tmp):
+            fn()
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in names) for k in ("dense_layer_bf16_kernel", "dense_layer_tf32x3_kernel",
+                                                   "h_stats_bf16_kernel", "h_stats_tf32x3_kernel",
+                                                   "channel_stats_kernel")}
+
+
+def export_turns(fns, x, turns=2):
+    """ms per call of each fn(x) in turns (a, b, ..., ..., b, a), CUDA events
+    around EXPORT_TURNS calls after 2; each fn's turns and their mean."""
+    from fdgan_tpu_torch.tools.timing import events_ms
+
+    names = list(fns)
+    order = names + names[::-1] if turns == 2 else names
+    times = {n: [] for n in names}
+    for n in order:
+        times[n].append(events_ms(lambda: fns[n](x), reps=EXPORT_TURNS))
+    return {n: {"ms": statistics.mean(t), "turns": t} for n, t in times.items()}
+
+
+def export_profiles(fns, x):
+    """One fn(x) of each under torch.profiler (tools.timing.busy_profile):
+    its wall ms, the device's busy ms, idle share and kernels."""
+    from fdgan_tpu_torch.tools.timing import busy_profile
+
+    keep = ("wall_ms", "device_busy_ms", "idle_share", "device_events")
+    return {n: {k: v for k, v in busy_profile(lambda: fn(x)).items() if k in keep} for n, fn in fns.items()}
+
+
+def http_request(port, method, path, body=None, headers=None, timeout=120):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    c.request(method, path, body=body, headers=headers or {})
+    r = c.getresponse()
+    data = r.read()
+    c.close()
+    return r.status, dict(r.getheaders()), data
+
+
+def arity_two_bundle(base, size):
+    """A package of the bundle's .sig whose program returns two outputs
+    (255 − x and x), for ADVICE r5 fault 2: a reload must refuse it."""
+    import torch
+
+    from fdgan_tpu_torch.io.export import signature_lines
+    from fdgan_tpu_torch.ops.build import cxx
+
+    class Two(torch.nn.Module):
+        def forward(self, x):
+            return 255 - x, x
+
+    x = torch.zeros((1, size, size, 3), dtype=torch.uint8, device="cuda")
+    exported = torch.export.export(Two(), (x,), strict=False)
+    torch._inductor.aoti_compile_and_package(exported, package_path=base + ".pt2",
+                                             inductor_configs={"cpp.cxx": (None, cxx())})
+    with open(base + ".sig", "w") as f:
+        f.write(f"u8 1 {size} {size} 3\nu8 1 {size} {size} 3\n")
+    return base
+
+
+def runner_http(base, img, python_bytes, two_base):
+    """aoti_runner --serve over the bundle: /healthz, /dehaze (the package's
+    bytes in Python), /stats, a reload of a package of two outputs (refused,
+    reported, the old one serving: ADVICE r5 fault 2), a .sig mismatch
+    (409), Content-Length: 0 (the current bundle re-promoted). Returns the
+    numbers; raises on any disagreement."""
+    import socket
+
+    from fdgan_tpu_torch.ops import build
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen([str(build.aoti_runner()), base, "--ops", str(build.torch_ops_library()), "--serve",
+                             str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"aoti_runner --serve exited: {proc.stdout.read()}")
+            try:
+                if http_request(port, "GET", "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("aoti_runner --serve never came up")
+                time.sleep(0.2)
+        out["startup_s"] = time.perf_counter() - t0
+        lat = []
+        for _ in range(EXPORT_LOOPS):
+            t = time.perf_counter()
+            status, headers, data = http_request(port, "POST", "/dehaze", img.tobytes())
+            lat.append(1000 * (time.perf_counter() - t))
+            if status != 200 or data != python_bytes.tobytes():
+                raise AssertionError(f"/dehaze: {status}, the package's bytes in Python: {data == python_bytes.tobytes()}")
+        if (headers["X-Image-Shape"], headers["X-Image-Dtype"]) != (f"{EXPORT_BUNDLE}x{EXPORT_BUNDLE}x3", "uint8"):
+            raise AssertionError(f"/dehaze headers {headers}")
+        out["request_ms"] = {"median": statistics.median(lat), "all": lat}
+
+        def wait_idle():
+            t = time.perf_counter()
+            while True:
+                st = json.loads(http_request(port, "GET", "/stats")[2])
+                if not st["reloading"]:
+                    return st
+                if time.perf_counter() - t > 300:
+                    raise AssertionError("a reload never finished")
+                time.sleep(0.2)
+
+        status, _, data = http_request(port, "POST", "/reload", two_base.encode())
+        if status != 202:
+            raise AssertionError(f"reload of the two-output package: {status} {data}")
+        st = wait_idle()
+        if st["weights_version"] != 0 or "outputs" not in st["last_reload_error"] or st["bundle"] != base:
+            raise AssertionError(f"the two-output package was not refused: {st}")
+        out["fault2_error"] = st["last_reload_error"][:200]
+        if http_request(port, "POST", "/dehaze", img.tobytes())[2] != python_bytes.tobytes():
+            raise AssertionError("the old package stopped serving after a refused reload")
+        with open(base + "_other.sig", "w") as f:
+            f.write("u8 1 8 8 3\nu8 1 8 8 3\n")
+        status, _, _ = http_request(port, "POST", "/reload", (base + "_other").encode())
+        if status != 409:
+            raise AssertionError(f"a .sig mismatch gave {status}, not 409")
+        status, _, _ = http_request(port, "POST", "/reload", b"")
+        st = wait_idle()
+        if status != 202 or json.loads(http_request(port, "GET", "/healthz")[2])["weights_version"] != 1:
+            raise AssertionError(f"re-promotion: {status} {st}")
+        if http_request(port, "POST", "/dehaze", img.tobytes())[2] != python_bytes.tobytes():
+            raise AssertionError("the re-promoted package gives other bytes")
+        st = json.loads(http_request(port, "GET", "/stats")[2])
+        out["stats"] = {k: st[k] for k in ("served", "mean_inference_s", "weights_version", "launches", "device")}
+        # every forward: the startup check, the warm-up, the served requests, the reload check
+        forwards = 2 + st["served"] + 1
+        if st["launches"]["dense_layer"] != 42 * forwards or st["launches"]["h_stats"] or st["launches"]["channel_stats"]:
+            raise AssertionError(f"the runner's launches {st['launches']} over {forwards} forwards")
+    finally:
+        proc.kill()
+        proc.wait()
+    return out
+
+
+def phase_export():
+    """Phase 13: the export path (``io.export``, ``native/``). Returns the
+    phase's numbers and the launches of a forward through it by kernel."""
+    import torch
+
+    from fdgan_tpu_torch.io.export import ArtifactRunner, export_forward, export_native_bundle, load_exported, save_exported
+    from fdgan_tpu_torch.models import fdgan_fast
+    from fdgan_tpu_torch.models.fdgan import FDGAN
+    from fdgan_tpu_torch.ops import build
+    from fdgan_tpu_torch.serve import InferenceEngine
+    from fdgan_tpu_torch.tools import check_native
+
+    t_phase = time.perf_counter()
+    model = FDGAN(generator=torch.Generator().manual_seed(0))
+    randomise_running_stats(model)
+    model = model.cuda().eval()
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out, launches = {"programs": {}}, {}
+    os.makedirs("build/export", exist_ok=True)
+    for name, (b, s), precision, mode in EXPORT_PROGRAMS:
+        t0 = time.perf_counter()
+        with exact_fp32():
+            ep = export_forward(model, image_size=s, batch=b, precision=precision, bn_mode=mode, device="cuda")
+        t1 = time.perf_counter()
+        path = f"build/export/{name}.pt2"
+        mb = save_exported(path, ep) / 1e6
+        t2 = time.perf_counter()
+        ep = load_exported(path)  # the loaded program runs below
+        t3 = time.perf_counter()
+        fn = ep.module()
+        x = torch.rand((b, s, s, 3), device="cuda", generator=gen)
+        row = {"shape": [b, s, s], "precision": precision, "bn_mode": mode, "export_s": t1 - t0, "save_s": t2 - t1,
+               "load_s": t3 - t2, "mb": mb}
+        with torch.inference_mode(), exact_fp32():
+            eager = fdgan_fast.apply(model if precision == "fp32" else bf16,
+                                     x if precision == "fp32" else x.bfloat16(), bn_mode=mode).float()
+            reset_all_counts()
+            rec = {}
+            with checked_op_launches(rec):
+                got = fn(x)
+            torch.cuda.synchronize()
+            row["launches"] = all_counts()
+            row["checked"] = rec
+            want = {"k1": 42, "k2": 42 if mode == "batch" else 0, "k3": 0,
+                    "channel_stats": 45 if (mode, precision) == ("batch", "bf16") else 0}
+            if row["launches"] != want or {k: rec[k] for k in ("k1", "k2", "channel_stats")} != {
+                    k: want[k] for k in ("k1", "k2", "channel_stats")}:
+                raise AssertionError(f"export {name}: launches {row['launches']}, checked {rec}, want {want}")
+            row["max_abs_err_vs_eager"] = (got - eager).abs().max().item()
+            if precision == "fp32":
+                if not torch.allclose(got, eager, **GEN_TOL):
+                    raise AssertionError(f"export {name}: the fp32 program against the eager forward: {row}")
+            else:
+                ref = fdgan_fast.apply(model, x, bn_mode=mode)  # fp32, the kernels, TF32 off
+                row["psnr"], row["eager_psnr"] = psnr(got, ref), psnr(eager, ref)
+                if row["psnr"] < row["eager_psnr"] - 1.0:
+                    raise AssertionError(f"export {name}: the bf16 program's PSNR: {row}")
+            if name == "serve":
+                fns = {"eager": lambda t: fdgan_fast.apply(bf16, t.bfloat16(), bn_mode=mode), "exported": fn}
+                row["turns"] = export_turns(fns, x)
+                row["profile"] = export_profiles(fns, x)
+        log(f"export {name} {json.dumps(row)}")
+        out["programs"][name] = row
+        launches[f"{precision}_{mode}"] = row["launches"]
+        del ep, fn
+        torch.cuda.empty_cache()
+
+    # the package: export_native_bundle at 1x512^2 bf16 running BN, uint8
+    base = "build/export/fdgan_512"
+    bundle = export_native_bundle(model, base, image_size=EXPORT_BUNDLE, batch=1, precision="bf16",
+                                  bn_mode="running", io="uint8", device="cuda")
+    out["bundle"] = {"seconds": bundle["seconds"], "mb": {k: os.path.getsize(bundle[k]) / 1e6 for k in ("pt2", "ep")},
+                     "sig": open(bundle["sig"]).read().split("\n")[:2]}
+    t0 = time.perf_counter()
+    package = torch._inductor.aoti_load_package(bundle["pt2"])
+    out["bundle"]["load_s"] = time.perf_counter() - t0
+    img = check_native.sample_image(EXPORT_BUNDLE)
+    xu = torch.from_numpy(img[None]).cuda()
+    with torch.inference_mode():
+        reset_all_counts()
+        rec, result = {}, []
+        with checked_op_launches(rec):  # the profiled forward is the checked one: each K1 ran and was right
+            names = kernel_counts(lambda: result.append(package(xu)[0]))
+        pkg_launches = all_counts()
+        python_bytes = result[0].cpu().numpy()
+    if pkg_launches["k1"] != 42 or rec["k1"] != 42:
+        raise AssertionError(f"the package in Python: launches {pkg_launches}, checked {rec}")
+    # reported, not gated: in a process that has profiled before, the trace has lacked 3-5 of the 42 K1
+    # kernels of a package's forward whose 42 launches the counters and the twin checks saw
+    out["bundle"].update(python_launches=pkg_launches, checked=rec, profiler_kernels=names)
+    log(f"export package: K1 launches {pkg_launches['k1']}, checked {rec['k1']}, named in the profiler's trace "
+        f"{names['dense_layer_bf16_kernel']}")
+    native = check_native.run_native(base, img, loops=EXPORT_LOOPS)
+    if not np.array_equal(native["output"], python_bytes):
+        raise AssertionError("aoti_runner --ops gives other bytes than the package in Python")
+    if native["launches"] != {"dense_layer": 42 * (EXPORT_LOOPS + 1), "h_stats": 0, "channel_stats": 0}:
+        raise AssertionError(f"aoti_runner's launches {native['launches']} over {EXPORT_LOOPS} + 1 forwards")
+    bare = subprocess.run([str(build.aoti_runner()), base], capture_output=True, text=True, timeout=600)
+    if bare.returncode == 0 or "--ops" not in bare.stderr:
+        raise AssertionError(f"the CUDA package without --ops: rc {bare.returncode}, {bare.stderr[-500:]}")
+    program = ArtifactRunner(bundle["ep"])([img])[0]
+    engine = InferenceEngine(model, device="cuda", precision="bf16", bn_mode="running", batch_sizes=(1,),
+                             input="uint8", output="uint8")
+    try:
+        eager_bytes = engine.predict(img)
+    finally:
+        engine.close()
+    levels = {k: int(np.abs(v.astype(np.int16) - eager_bytes.astype(np.int16)).max())
+              for k, v in (("package", python_bytes), ("runner", native["output"]), ("program", program))}
+    out["bundle"]["levels_vs_eager"] = levels
+    if max(levels.values()) > 1:
+        raise AssertionError(f"an artifact's output is more than one level from the eager engine's: {levels}")
+
+    def eager_u8(t):
+        y = fdgan_fast.apply(bf16, (t.float() / 255.0).bfloat16(), bn_mode="running")
+        return torch.clamp(torch.round((y.float() + 1.0) * 127.5), 0.0, 255.0).to(torch.uint8)
+
+    ep_fn = load_exported(bundle["ep"]).module()
+    with torch.inference_mode():
+        fns = {"eager": eager_u8, "exported": ep_fn, "package": package}
+        out["bundle"]["turns"] = export_turns(fns, xu)
+        out["bundle"]["profile"] = export_profiles(fns, xu)
+        req = []
+        for _ in range(EXPORT_LOOPS):  # a request as the runner serves one: upload, run, fetch
+            t = time.perf_counter()
+            package(torch.from_numpy(img[None]).cuda())[0].cpu()
+            req.append(1000 * (time.perf_counter() - t))
+    out["bundle"]["python_request_ms"] = {"median": statistics.median(req), "all": req}
+    out["bundle"]["runner_request_ms"] = {"median": 1000 * statistics.median(native["seconds"]),
+                                         "all": [1000 * s for s in native["seconds"]]}
+    two = arity_two_bundle("build/export/two_outputs", EXPORT_BUNDLE)
+    out["bundle"]["http"] = runner_http(base, img, python_bytes, two)
+    del package, ep_fn
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13: {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2926,6 +3332,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sp_out, sp_launches = phase_sp()
     log(json.dumps({"sp": sp_out}))
+    torch.cuda.empty_cache()
+    export_out, export_launches = phase_export()
+    log(json.dumps({"export": export_out}))
     ragged_c = {f"c{r['shape'][-1]}": {k: r[k] for k in r if k.startswith(("k1_", "k2_"))} | {"shape": r["shape"]}
                 for r in zoo["kernels_ragged_c"] if r["dtype"] == "bfloat16"}
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
@@ -2942,7 +3351,9 @@ def main() -> int:
                 "demo": demo_launches[k], "train_cli": cli_launches[k], "zoo": zoo_launches[k],
                 "dp": dp_launches["bf16"][k] + (dp_launches["fp32"][k] if k == "k3" else 0),
                 "mesh": mesh_launches["bf16"][k],
-                "sp": sp_launches["bf16"][k] + (sp_launches["fp32"][k] if k == "k3" else 0)}
+                "sp": sp_launches["bf16"][k] + (sp_launches["fp32"][k] if k == "k3" else 0),
+                # a forward of the exported programs: K1 in running BN, K2 and channel_stats in bf16 batch BN
+                "export": export_launches["bf16_batch"][k]}
 
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
@@ -2960,7 +3371,8 @@ def main() -> int:
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": demo32["k1"],
          "launches_by_path": {"demo_fp32": demo32["k1"], "dp": dp_launches["fp32"]["k1"],
-                              "mesh": mesh_launches["fp32"]["k1"], "sp": sp_launches["fp32"]["k1"]},
+                              "mesh": mesh_launches["fp32"]["k1"], "sp": sp_launches["fp32"]["k1"],
+                              "export": export_launches["fp32_batch"]["k1"]},
          "max_abs_err": worst["float32"]["k1"], "ms": timed32["k1_ms"], "plain_ms": timed32["k1_plain_ms"],
          "bound_ms": timed32["k1_bound_ms"], "bound_by": timed32["k1_bound_by"],
          "cuda_core_bound_ms": timed32["k1_cuda_core_bound_ms"], "library_ms": None,
@@ -2983,7 +3395,8 @@ def main() -> int:
          "source": "fdgan_tpu_torch/csrc/dense_layer.cu",
          "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": demo32["k2"],
          "launches_by_path": {"demo_fp32": demo32["k2"], "dp": dp_launches["fp32"]["k2"],
-                              "mesh": mesh_launches["fp32"]["k2"], "sp": sp_launches["fp32"]["k2"]},
+                              "mesh": mesh_launches["fp32"]["k2"], "sp": sp_launches["fp32"]["k2"],
+                              "export": export_launches["fp32_batch"]["k2"]},
          "max_abs_err": worst["float32"]["k2"], "ms": timed32["k2_ms"], "plain_ms": timed32["k2_plain_ms"],
          "bound_ms": timed32["k2_bound_ms"], "bound_by": timed32["k2_bound_by"],
          "cuda_core_bound_ms": timed32["k2_cuda_core_bound_ms"], "library_ms": None,
@@ -3015,7 +3428,7 @@ def main() -> int:
             "launches": probe_launches[name],
             "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name],
                                  "demo": demo_probe_launches[name], "train_cli": 0, "zoo": 0, "dp": 0, "mesh": 0,
-                                 "sp": 0},
+                                 "sp": 0, "export": 0},
             "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call

@@ -10,6 +10,12 @@ normalize=True protocol (demo.py:151).
     python -m fdgan_tpu_torch.cli.serve --http 8731 --netG netG.pth
     python -m fdgan_tpu_torch.cli.serve --inDir ntire/ --outDir dehazed/ \
         --netG netG.pth --tile 512 --halo 128
+    python -m fdgan_tpu_torch.cli.serve --inDir hazy/ --outDir dehazed/ --artifact netG_512.pt2
+
+``--artifact`` serves a folder through an exported program
+(``cli/convert --dst x.pt2``, ``io.export.ArtifactRunner``: weights
+inside, no model code), as the JAX CLI serves a ``.shlo``; its device is
+the program's, and it runs with TF32 off (the fp32 programs' contract).
 
 A data × spatial mesh runs one process a card, started as the training
 CLI's ranks are (``FDGAN_TPU_DIST`` with its coordinates, or torchrun),
@@ -56,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "/dehaze, GET /healthz, GET /stats, POST /reload")
     p.add_argument("--httpHost", default="127.0.0.1",
                    help="bind address for --http (default loopback)")
+    p.add_argument("--artifact", default="",
+                   help="serve the folder from an exported program (.pt2 from cli/convert; weights inside, "
+                        "no model code) instead of the engine")
     p.add_argument("--outputDtype", choices=["float32", "uint8"], default="float32",
                    help="uint8 quantises results on the device: a 4x smaller "
                         "fetch at <= 1/255 per pixel")
@@ -78,6 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
+    if opt.artifact:
+        if opt.http:
+            raise SystemExit("--http serves the live engine; an exported program has no streaming path "
+                             "(drop --artifact or --http)")
+        if opt.dataShards or opt.spatialShards > 1:
+            raise SystemExit("--artifact runs one program in one process: drop --dataShards/--spatialShards")
+        return _serve_artifact(opt)
 
     import torch
 
@@ -103,16 +119,7 @@ def main(argv=None):
             rank = dmesh.rank()
 
     if not opt.http and rank == 0:
-        if not opt.inDir:
-            raise SystemExit("--inDir is required (or pass --http PORT)")
-        names = sorted(f for f in os.listdir(opt.inDir) if f.lower().endswith(EXTS))
-        if not names:
-            raise SystemExit(f"no images ({'/'.join(EXTS)}) in {opt.inDir}")
-        os.makedirs(opt.outDir, exist_ok=True)
-        # stem.png unless two inputs share a stem (a.jpg + a.png): then keep
-        # the full name so nothing is silently overwritten
-        stems = [os.path.splitext(n)[0] for n in names]
-        out_names = [(s if stems.count(s) == 1 else n) + ".png" for s, n in zip(stems, names)]
+        names, out_names = _folder(opt)
 
     if opt.netG:
         model = load_generator(opt.netG, device=opt.device)
@@ -157,6 +164,45 @@ def main(argv=None):
         _serve(opt, engine, names if not opt.http else None, out_names if not opt.http else None)
     finally:
         engine.close()
+
+
+def _folder(opt):
+    """The input names of --inDir and their output names (stem.png unless
+    two inputs share a stem, a.jpg + a.png: then the full name, so that
+    nothing is silently overwritten)."""
+    if not opt.inDir:
+        raise SystemExit("--inDir is required (or pass --http PORT)")
+    names = sorted(f for f in os.listdir(opt.inDir) if f.lower().endswith(EXTS))
+    if not names:
+        raise SystemExit(f"no images ({'/'.join(EXTS)}) in {opt.inDir}")
+    os.makedirs(opt.outDir, exist_ok=True)
+    stems = [os.path.splitext(n)[0] for n in names]
+    return names, [(s if stems.count(s) == 1 else n) + ".png" for s, n in zip(stems, names)]
+
+
+def _serve_artifact(opt):
+    """--artifact: the folder through ``io.export.ArtifactRunner``, as
+    ``fdgan_tpu/cli/serve.py:147-163``."""
+    import numpy as np
+
+    from fdgan_tpu_torch.cli._common import fp32_exact, save_image_normalized
+    from fdgan_tpu_torch.io.export import ArtifactRunner
+    from fdgan_tpu_torch.utils.images import load_rgb_image
+
+    names, out_names = _folder(opt)
+    runner = ArtifactRunner(opt.artifact)
+    bdesc = runner.batch if runner.batch is not None else "poly"
+    print(f"serving from artifact {opt.artifact} ({bdesc}x{runner.height}x{runner.width}, {runner.input} in, "
+          f"on {runner.device})")
+    imgs = [load_rgb_image(os.path.join(opt.inDir, n)) / 255.0 for n in names]
+    t0 = time.time()
+    with fp32_exact("fp32", runner.device):
+        results = runner(imgs, group=opt.maxBatch)
+    for name, out_name, out in zip(names, out_names, results):
+        save_image_normalized(out.astype(np.float32), os.path.join(opt.outDir, out_name))
+        print(name)
+    dt = time.time() - t0
+    print(f"{len(names)} images in {dt:.2f}s ({len(names) / dt:.2f} img/s)")
 
 
 def _serve(opt, engine, names, out_names):

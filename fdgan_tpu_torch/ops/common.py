@@ -2,9 +2,10 @@
 
 ``pixel_stride`` reads the layout the kernels take: an NHWC tensor, or a
 channel slice of a wider NHWC buffer. ``twin_vjp`` is the backward of K1,
-K2 and K3: the VJP of a kernel's plain twin, recomputed from the inputs a
-``torch.autograd.Function`` saved (``channel_stats`` has its VJP in closed
-form instead, ``ops/stats.py``).
+K2 and K3: the VJP of a kernel's plain twin, recomputed from the inputs
+that a ``torch.autograd.Function`` or a ``torch.library`` op's autograd
+(``ops/library.py``) saved (``channel_stats`` has its VJP in closed form
+instead, ``ops/stats.py``).
 """
 
 from __future__ import annotations
@@ -22,20 +23,22 @@ def pixel_stride(t: torch.Tensor, name: str = "x") -> int:
     b, h, w, c = t.shape
     s = t.stride()
     ld = s[2] if w > 1 else s[1] if h > 1 else s[0] if b > 1 else c
-    if not ((c == 1 or s[3] == 1) and (h == 1 or s[1] == w * ld) and (b == 1 or s[0] == h * w * ld)):
+    # the batch is compared last: under export it may be symbolic, and a comparison on it would guard it
+    if not ((c == 1 or s[3] == 1) and (h == 1 or s[1] == w * ld) and (s[0] == h * w * ld or b == 1)):
         raise ValueError(f"{name} must be NHWC-contiguous or a channel slice of an NHWC-contiguous buffer, "
                          f"got strides {s} for shape {tuple(t.shape)}")
     if ld < c:
         raise ValueError(f"{name} has a pixel stride ld={ld} below its C={c} channels")
-    if t.numel() and (t.numel() // c - 1) * ld + c >= 2**31:
+    n = t.numel()
+    if isinstance(n, int) and n and (n // c - 1) * ld + c >= 2**31:  # symbolic under export: the op checks
         raise ValueError(f"{name} is too large for the kernels' 32-bit pixel indices")
     return ld
 
 
 def twin_vjp(twin, ctx, cts):
-    """The VJP of ``twin`` at a Function's saved inputs (None where an
-    optional input was None), for the inputs that need a grad: the backward
-    of K1, K2 and K3."""
+    """The VJP of ``twin`` at the saved inputs of a Function or an op's
+    autograd context (None where an optional input was None), for the
+    inputs that need a grad: the backward of K1, K2 and K3."""
     need = ctx.needs_input_grad
     with torch.enable_grad():
         inputs = [None if t is None else t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]

@@ -15,11 +15,15 @@ x, and K1's output ``out=``, may be channel slices of one wider NHWC buffer
 (the kernels take a pixel stride): ``dense_block_fused`` keeps a block's
 concat in one buffer that way when autograd records nothing.
 
-Both ops are ``torch.autograd.Function``s, as the JAX ops are
-``jax.custom_vjp``s (``pallas_dense.py:247-262``, ``:293-307``): the forward
-is the kernel (the twin on the CPU), the backward is the VJP of the twin,
-recomputed from the saved inputs. The JAX package has no backward kernel
-for either, so neither has the port.
+The kernels run as the ``fdgan::dense_layer`` and ``fdgan::h_stats`` ops
+(``ops/library.py``), which take the kernels' own operands: ``k1`` and
+``k2`` lay x and the weights out for x's device and call them. Both
+wrappers are differentiable, as the JAX ops are ``jax.custom_vjp``s
+(``pallas_dense.py:247-262``, ``:293-307``): where autograd records,
+they run ``fdgan::fused_dense_layer`` / ``fdgan::h_batch_stats`` over the
+plain weights, whose backward is the VJP of the twin, recomputed from the
+saved inputs. The JAX package has no backward kernel for either, so
+neither has the port.
 
 Under spatial sharding (``dist/halo_exchange.py``) a shard's K1 also takes
 halo rows (``fused_dense_layer(halo=)``): the neighbouring shards' rows of
@@ -44,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from fdgan_tpu_torch.dist import halo_exchange
 from fdgan_tpu_torch.dist.stats import combine as global_stats
 from fdgan_tpu_torch.nn.layers import unbiased
+from fdgan_tpu_torch.ops import library  # noqa: F401  (registers the fdgan:: ops)
 from fdgan_tpu_torch.ops.common import pixel_stride, twin_vjp
 from fdgan_tpu_torch.ops.stats import channel_stats
 from fdgan_tpu_torch.ops.stats import reference as stats_reference
@@ -118,6 +123,13 @@ def h_stats_reference(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def _aligned(t: torch.Tensor) -> bool:
+    """Whether t's first element lies on a 16-byte boundary, read from its
+    offset in its storage (the allocators align storages to more): a
+    traced tensor has no address. The CUDA ops check the address itself."""
+    return t.storage_offset() * t.element_size() % 16 == 0
+
+
 def _check_inputs(x, a1, b1, w1) -> Tuple[int, int]:
     """(C, ld) of x; raises on what the kernels do not take, on any device."""
     if x.device.type not in ("cpu", "cuda"):
@@ -130,7 +142,7 @@ def _check_inputs(x, a1, b1, w1) -> Tuple[int, int]:
         raise ValueError(f"w1 must be ({c}, {INTER}), got {tuple(w1.shape)}")
     if a1.numel() != c or b1.numel() != c:
         raise ValueError(f"a1, b1 must have {c} entries")
-    if x.dtype == torch.bfloat16 and (c % 8 or ld % 8 or x.data_ptr() % 16):
+    if x.dtype == torch.bfloat16 and (c % 8 or ld % 8 or not _aligned(x)):
         # the bf16 kernels load x in 16-byte vectors of 8 channels
         raise ValueError(f"bf16 x needs C % 8 == 0, a pixel stride ld % 8 == 0 and 16-byte alignment, "
                          f"got C={c}, ld={ld}")
@@ -145,7 +157,7 @@ def _check_out(out, x) -> int:
         raise ValueError(f"out must be {want} {x.dtype} on {x.device}, got {tuple(out.shape)} {out.dtype} "
                          f"on {out.device}")
     ldo = pixel_stride(out, "out")
-    if x.dtype == torch.bfloat16 and (ldo % 8 or out.data_ptr() % 16):
+    if x.dtype == torch.bfloat16 and (ldo % 8 or not _aligned(out)):
         raise ValueError(f"bf16 out needs a pixel stride ldo % 8 == 0 and 16-byte alignment, got ldo={ldo}")
     return ldo
 
@@ -270,7 +282,7 @@ def _f32_operands(x, a1, b1, halo: bool = False):
     c, ld = x.shape[-1], pixel_stride(x)
     c32 = -(-c // 32) * 32
     a1k, b1k = (F.pad(_on_device(t, x, torch.float32).reshape(-1), (0, c32 - c)) for t in (a1, b1))
-    if c % 4 or ld % 4 or x.data_ptr() % 16:
+    if c % 4 or ld % 4 or not _aligned(x):
         if halo:
             raise ValueError(f"fp32 x with halo rows needs C and its pixel stride multiples of 4 and 16-byte "
                              f"alignment, got C={c}, ld={ld}")
@@ -282,7 +294,7 @@ def _f32_operands(x, a1, b1, halo: bool = False):
 
 def _on_device(t: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
     """A contiguous copy of ``t`` on x's device in ``dtype`` (a no-op when it
-    already is one); the kernels take raw pointers."""
+    already is one): the layouts the kernels read."""
     if t.device != x.device:
         raise ValueError(f"tensor on {t.device}, x on {x.device}")
     return t.to(dtype).contiguous()
@@ -292,15 +304,63 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None, halo=None) -> torch.Tensor:
-    """Check the inputs, lay the weights out and launch K1, into ``out``
-    (a (B,H,W,32) tensor, possibly a channel slice of a wider buffer) or a
-    new tensor, with x's ``halo`` rows (:func:`_halo_rows`) where given;
-    raises on a CUDA error."""
-    global k1_launches
+def check_stride(t: torch.Tensor, ld: int, name: str) -> None:
+    """Raise unless ``t``'s pixel stride is ``ld``: an op gets the layout
+    it was traced with, or fails."""
+    got = pixel_stride(t, name)
+    if got != ld:
+        raise ValueError(f"{name} has pixel stride {got}, the op was given ld={ld}")
+
+
+def _check_operand(t: torch.Tensor, x: torch.Tensor, dtype, numel: int, name: str) -> None:
+    """A kernel reads ``t`` through a raw pointer: it must be a contiguous
+    ``dtype`` tensor of ``numel`` elements on x's device."""
+    if t.device != x.device or t.dtype != dtype or t.numel() != numel or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of {numel} elements on {x.device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_address(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the kernels' vector loads)")
+
+
+def _k1_operands(x, a1, b1, w1, a2, b2, w2, halo: bool = False):
+    """(x, a1, b1, w1, a2, b2, w2) as ``fdgan::dense_layer`` takes them on
+    x's device: on CUDA the fp32 kernel's (``_f32_operands``, W1 and W2 as
+    tf32 big and small planes) or the bf16 kernel's (fp32 affines, W1 as
+    ``w1_planes``, W2 as (3, 3, 32, 128), in bf16); on the CPU as they are,
+    for the twin. Ordinary tensor ops: in an exported program they are part
+    of the graph, where a compiler may fold them into constants."""
     if x.device.type != "cuda":
-        raise ValueError(f"fused_dense_layer runs its kernel on cuda, got {x.device}")
-    c, ldx = _check_inputs(x, a1, b1, w1)
+        return x, a1, b1, w1, a2, b2, w2
+    a2k, b2k = (_on_device(t, x, torch.float32) for t in (a2, b2))
+    if x.dtype == torch.float32:
+        x, a1k, b1k, _, _ = _f32_operands(x, a1, b1, halo)
+        return (x, a1k, b1k, w1_tf32x3_planes(_on_device(w1, x, torch.float32)), a2k, b2k,
+                w2_tf32x3_planes(_on_device(w2, x, torch.float32)))
+    a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
+    return x, a1k, b1k, w1_planes(_on_device(w1, x, x.dtype)), a2k, b2k, _on_device(w2.permute(0, 1, 3, 2), x, x.dtype)
+
+
+def _k2_operands(x, a1, b1, w1):
+    """(x, a1, b1, w1) as ``fdgan::h_stats`` takes them on x's device: W1 as
+    tf32 planes in fp32, as ``w1_tw1_planes`` in bf16 (as they are on the CPU)."""
+    if x.device.type != "cuda":
+        return x, a1, b1, w1
+    if x.dtype == torch.float32:
+        x, a1k, b1k, _, _ = _f32_operands(x, a1, b1)
+        return x, a1k, b1k, w1_tf32x3_planes(_on_device(w1, x, torch.float32))
+    a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
+    return x, a1k, b1k, w1_tw1_planes(_on_device(w1, x, x.dtype))
+
+
+def k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None, halo=None) -> torch.Tensor:
+    """K1 through ``fdgan::dense_layer``: check the inputs, lay them out for
+    x's device and run the op into ``out`` (a (B,H,W,32) tensor, possibly a
+    channel slice of a wider buffer) or a new tensor, with x's ``halo`` rows
+    (:func:`_halo_rows`) where given. Records nothing for autograd."""
+    _check_inputs(x, a1, b1, w1)
     if tuple(w2.shape) != (3, 3, INTER, GROWTH):
         raise ValueError(f"w2 must be (3, 3, {INTER}, {GROWTH}), got {tuple(w2.shape)}")
     if a2.numel() != INTER or b2.numel() != INTER:
@@ -308,88 +368,135 @@ def _launch_k1(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None, ha
     if out is None:
         out = torch.empty(tuple(x.shape[:3]) + (GROWTH,), device=x.device, dtype=x.dtype)
     ldo = _check_out(out, x)
-    from fdgan_tpu_torch.ops import build
-
-    lib = build.load()
-    bsz, h, w, _ = x.shape
-    a2k, b2k = (_on_device(t, x, torch.float32) for t in (a2, b2))
-    entry = f"fdgan_dense_layer_{_KERNEL_DTYPES[x.dtype]}"
-    with torch.cuda.device(x.device):
-        if x.dtype == torch.float32:
-            xk, a1k, b1k, c, ldx = _f32_operands(x, a1, b1, halo is not None)
-            w1k = w1_tf32x3_planes(_on_device(w1, x, torch.float32))
-            w2k = w2_tf32x3_planes(_on_device(w2, x, torch.float32))
-        else:  # W2 as (9, 32, 128): per tap the inputs of each output channel
-            xk = x
-            a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
-            w1k = w1_planes(_on_device(w1, x, x.dtype))
-            w2k = _on_device(w2.permute(0, 1, 3, 2), x, x.dtype)
-        top, bot = _halo_rows(xk, halo, ldx) if halo is not None else (-1, -1)
-        err = getattr(lib, entry)(
-            xk.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
-            a2k.data_ptr(), b2k.data_ptr(), w2k.data_ptr(), out.data_ptr(),
-            bsz, h, w, c, ldx, ldo, top, bot, _stream(x),
-        )
-    build.check(lib, err, entry)
-    k1_launches += 1
+    xk, a1k, b1k, w1k, a2k, b2k, w2k = _k1_operands(x, a1, b1, w1, a2, b2, w2, halo is not None)
+    ld = pixel_stride(xk)
+    top, bot = _halo_rows(xk, halo, ld) if halo is not None else (-1, -1)
+    torch.ops.fdgan.dense_layer(xk, a1k, b1k, w1k, a2k, b2k, w2k, ld, top, bot, out, ldo)
     return out
 
 
-def _run_k2(x, a1, b1, w1, mma: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2 (its ``wgmma`` kernel: 3×TF32 products in fp32, bf16 ones in
-    bf16; with ``mma`` the bf16 ``mma.sync`` body) and reduce its per-block
-    partials; raises on a CUDA error."""
+def k2(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 through ``fdgan::h_stats``: norm2's (mean, biased var), fp32
+    (128,) each. Records nothing for autograd."""
+    _check_inputs(x, a1, b1, w1)
+    xk, a1k, b1k, w1k = _k2_operands(x, a1, b1, w1)
+    return torch.ops.fdgan.h_stats(xk, a1k, b1k, w1k, pixel_stride(xk))
+
+
+def twin_into(x, a1, b1, w1, a2, b2, w2, ld, top, bot, out, ldo) -> None:
+    """``fdgan::dense_layer`` on the CPU: the twin written into ``out``, with
+    the halo rows at pixel offsets ``top`` / ``bot`` from x read from x's
+    buffer where the kernel reads them."""
+    check_stride(x, ld, "x")
+    check_stride(out, ldo, "out")
+    bsz, _, w, c = x.shape
+    rows = tuple(None if p < 0 else x.as_strided((bsz, 1, w, c), (w * ld, w * ld, ld, 1), x.storage_offset() + p * ld)
+                 for p in (top, bot))
+    out.copy_(layer_reference(x, a1, b1, w1, a2, b2, w2, halo=None if rows == (None, None) else rows))
+
+
+def _launch_k1(x, a1, b1, w1, a2, b2, w2, ld, top, bot, out, ldo) -> None:
+    """``fdgan::dense_layer`` on CUDA: check the operands the op was given
+    (layouts, sizes, addresses) and launch K1; raises on a CUDA error."""
+    global k1_launches
     if x.device.type != "cuda":
-        raise ValueError(f"h_batch_stats runs its kernel on cuda, got {x.device}")
-    c, ldx = _check_inputs(x, a1, b1, w1)
+        raise ValueError(f"fused_dense_layer runs its kernel on cuda, got {x.device}")
+    if x.dtype not in _KERNEL_DTYPES or out.dtype != x.dtype or out.device != x.device:
+        raise TypeError(f"x and out must be float32 or bfloat16 on one device, got {x.dtype}, {out.dtype}")
+    check_stride(x, ld, "x")
+    check_stride(out, ldo, "out")
+    bsz, h, w, c = x.shape
+    f32 = x.dtype == torch.float32
+    c32 = -(-c // 32) * 32
+    for t, numel, name in ((a1, c32 if f32 else c, "a1"), (b1, c32 if f32 else c, "b1"), (a2, INTER, "a2"),
+                           (b2, INTER, "b2")):
+        _check_operand(t, x, torch.float32, numel, name)
+    _check_operand(w1, x, x.dtype, 2 * c32 * INTER if f32 else c * INTER, "w1")
+    _check_operand(w2, x, x.dtype, (2 if f32 else 1) * 9 * INTER * GROWTH, "w2")
+    _check_address(x, "x")
+    if not f32:  # the fp32 kernel stores f with scalar writes: any ldo, any address
+        _check_address(out, "out")
     from fdgan_tpu_torch.ops import build
 
     lib = build.load()
-    npix = x.numel() // c
-    xk = x
+    entry = f"fdgan_dense_layer_{_KERNEL_DTYPES[x.dtype]}"
     with torch.cuda.device(x.device):
-        if mma:
-            entry, partial = "fdgan_h_stats_bf16_mma", torch.float32
-            a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
-            w1k = _on_device(w1, x, x.dtype).t().contiguous()  # the mma.sync body stages W1 as (128, C)
-            rows = -(-npix // lib.fdgan_h_stats_rows())  # one row per block of 192 pixels
-        else:
-            entry, partial = f"fdgan_h_stats_{_KERNEL_DTYPES[x.dtype]}", torch.float64
-            if x.dtype == torch.float32:
-                xk, a1k, b1k, c, ldx = _f32_operands(x, a1, b1)
-                w1k = w1_tf32x3_planes(_on_device(w1, x, torch.float32))
-            else:
-                a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
-                w1k = w1_tw1_planes(_on_device(w1, x, x.dtype))
-            rows = getattr(lib, f"{entry}_blocks")(npix)  # one row per persistent block
-            build.check(lib, -min(rows, 0), f"{entry}_blocks")
-        part = torch.empty((2, rows, INTER), device=x.device, dtype=partial)  # sums of h, of h·h
-        err = getattr(lib, entry)(xk.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
-                                  part[0].data_ptr(), part[1].data_ptr(), npix, c, ldx, _stream(x))
+        err = getattr(lib, entry)(
+            x.data_ptr(), a1.data_ptr(), b1.data_ptr(), w1.data_ptr(),
+            a2.data_ptr(), b2.data_ptr(), w2.data_ptr(), out.data_ptr(),
+            bsz, h, w, c, ld, ldo, top, bot, _stream(x),
+        )
     build.check(lib, err, entry)
-    # the partials are reduced in float64: at 8×512² the count is 2.1 M, and
-    # E[h²]−μ² in fp32 would lose the variance to cancellation
+    k1_launches += 1
+
+
+def _reduce_partials(part: torch.Tensor, npix: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased var) in fp32 from K2's per-block sums of h and of h·h,
+    reduced in float64: at 8×512² the count is 2.1 M, and E[h²]−μ² in fp32
+    would lose the variance to cancellation."""
     mom = part.double().sum(dim=1).div_(npix)
     mom[1].addcmul_(mom[0], mom[0], value=-1.0).clamp_min_(0.0)
     mean, var = mom.float()
     return mean, var
 
 
-def _launch_k2(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_k2(x, a1, b1, w1, ld) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fdgan::h_stats`` on CUDA: launch K2 (its ``wgmma`` kernel: 3×TF32
+    products in fp32, bf16 ones in bf16) and reduce its per-block partials;
+    raises on a CUDA error and on operands it was not given."""
     global k2_launches
-    stats = _run_k2(x, a1, b1, w1)
+    if x.device.type != "cuda":
+        raise ValueError(f"h_batch_stats runs its kernel on cuda, got {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    check_stride(x, ld, "x")
+    c = x.shape[-1]
+    f32 = x.dtype == torch.float32
+    ck = -(-c // (32 if f32 else 64)) * (32 if f32 else 64)
+    for t, name in ((a1, "a1"), (b1, "b1")):
+        _check_operand(t, x, torch.float32, ck if f32 else c, name)
+    _check_operand(w1, x, x.dtype, (2 if f32 else 1) * ck * INTER, "w1")
+    _check_address(x, "x")
+    from fdgan_tpu_torch.ops import build
+
+    lib = build.load()
+    npix = x.numel() // c
+    entry = f"fdgan_h_stats_{_KERNEL_DTYPES[x.dtype]}"
+    with torch.cuda.device(x.device):
+        rows = getattr(lib, f"{entry}_blocks")(npix)  # one row per persistent block
+        build.check(lib, -min(rows, 0), f"{entry}_blocks")
+        part = torch.empty((2, rows, INTER), device=x.device, dtype=torch.float64)  # sums of h, of h·h
+        err = getattr(lib, entry)(x.data_ptr(), a1.data_ptr(), b1.data_ptr(), w1.data_ptr(),
+                                  part[0].data_ptr(), part[1].data_ptr(), npix, c, ld, _stream(x))
+    build.check(lib, err, entry)
     k2_launches += 1
-    return stats
+    return _reduce_partials(part, npix)
 
 
 def _launch_k2_mma(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's earlier bf16 body (``mma.sync`` fragments, one block per 192
-    pixels), kept so that one run can time it beside the ``wgmma`` kernel
-    that ``h_batch_stats`` launches. No model path calls it and it moves no
-    launch count."""
+    pixels, fp32 partials), kept so that one run can time it beside the
+    ``wgmma`` kernel that ``h_batch_stats`` launches. No model path calls it
+    and it moves no launch count."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the mma.sync body is bfloat16 only, got {x.dtype}")
-    return _run_k2(x, a1, b1, w1, mma=True)
+    if x.device.type != "cuda":
+        raise ValueError(f"h_batch_stats runs its kernel on cuda, got {x.device}")
+    c, ldx = _check_inputs(x, a1, b1, w1)
+    _check_address(x, "x")
+    from fdgan_tpu_torch.ops import build
+
+    lib = build.load()
+    npix = x.numel() // c
+    with torch.cuda.device(x.device):
+        a1k, b1k = (_on_device(t, x, torch.float32) for t in (a1, b1))
+        w1k = _on_device(w1, x, x.dtype).t().contiguous()  # the mma.sync body stages W1 as (128, C)
+        rows = -(-npix // lib.fdgan_h_stats_rows())  # one row per block of 192 pixels
+        part = torch.empty((2, rows, INTER), device=x.device, dtype=torch.float32)
+        err = lib.fdgan_h_stats_bf16_mma(x.data_ptr(), a1k.data_ptr(), b1k.data_ptr(), w1k.data_ptr(),
+                                         part[0].data_ptr(), part[1].data_ptr(), npix, c, ldx, _stream(x))
+    build.check(lib, err, "fdgan_h_stats_bf16_mma")
+    return _reduce_partials(part, npix)
 
 
 def tf32x3_selfcheck(a: torch.Tensor, b: torch.Tensor, reps: int = 1, blocks: int = 1) -> torch.Tensor:
@@ -423,37 +530,21 @@ def tf32x3_selfcheck(a: torch.Tensor, b: torch.Tensor, reps: int = 1, blocks: in
     return d
 
 
-class _FusedLayer(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, a1, b1, w1, a2, b2, w2):
-        ctx.save_for_backward(x, a1, b1, w1, a2, b2, w2)
-        if x.device.type == "cpu":
-            _check_inputs(x, a1, b1, w1)
-            return layer_reference(x, a1, b1, w1, a2, b2, w2)
-        return _launch_k1(x, a1, b1, w1, a2, b2, w2)
-
-    @staticmethod
-    def backward(ctx, ct):
-        return twin_vjp(layer_reference, ctx, (ct,))
-
-
 def _layer_reference_halo(x, top, bottom, a1, b1, w1, a2, b2, w2) -> torch.Tensor:
     return layer_reference(x, a1, b1, w1, a2, b2, w2, halo=(top, bottom))
 
 
 class _FusedLayerHalo(torch.autograd.Function):
     """K1 with halo rows, differentiable in x, in the rows and in the
-    weights: the forward launches K1 with the rows (the twin on the CPU),
-    the backward is the twin's VJP, as without rows."""
+    weights: the forward runs ``fdgan::dense_layer`` with the rows' offsets
+    (the twin on the CPU), the backward is the twin's VJP with the rows. The
+    op sees the rows only as offsets into x's buffer, so their gradient
+    needs this Function of its own."""
 
     @staticmethod
     def forward(ctx, x, top, bottom, a1, b1, w1, a2, b2, w2):
         ctx.save_for_backward(x, top, bottom, a1, b1, w1, a2, b2, w2)
-        if x.device.type == "cpu":
-            _check_inputs(x, a1, b1, w1)
-            _halo_rows(x, (top, bottom), pixel_stride(x))
-            return layer_reference(x, a1, b1, w1, a2, b2, w2, halo=(top, bottom))
-        return _launch_k1(x, a1, b1, w1, a2, b2, w2, halo=(top, bottom))
+        return k1(x, a1, b1, w1, a2, b2, w2, halo=(top, bottom))
 
     @staticmethod
     def backward(ctx, ct):
@@ -480,18 +571,9 @@ class _HaloPack(torch.autograd.Function):
         return (None,) + tuple(p for ct in (ct_x, ct_top, ct_bottom) for p in ct.split(ctx.widths, dim=-1))
 
 
-class _HStats(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, a1, b1, w1):
-        ctx.save_for_backward(x, a1, b1, w1)
-        if x.device.type == "cpu":
-            _check_inputs(x, a1, b1, w1)
-            return h_stats_reference(x, a1, b1, w1)
-        return _launch_k2(x, a1, b1, w1)
-
-    @staticmethod
-    def backward(ctx, ct_mean, ct_var):
-        return twin_vjp(h_stats_reference, ctx, (ct_mean, ct_var))
+def _records(*tensors) -> bool:
+    """Whether autograd would record an op on these tensors (None skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = None, halo=None) -> torch.Tensor:
@@ -511,40 +593,36 @@ def fused_dense_layer(x, a1, b1, w1, a2, b2, w2, out: Optional[torch.Tensor] = N
     (B, 1, W, C) views in x's buffer after its pixels (:func:`halo_buffer`).
     K1 reads them where its tiles' halo ring leaves x. Without ``out`` the
     call is differentiable in x, the rows and the weights (the twin's VJP,
-    ``layer_reference(halo=)``)."""
+    ``layer_reference(halo=)``).
+
+    Where autograd records the call, it runs ``fdgan::fused_dense_layer``
+    (the twin's VJP over the plain weights); otherwise ``fdgan::dense_layer``
+    on the operands laid out for x's device (:func:`k1`), which is what an
+    exported program holds."""
     if halo is not None and all(r is None for r in halo):
         halo = None
-    if halo is not None:
-        if out is None:
-            return _FusedLayerHalo.apply(x, halo[0], halo[1], a1, b1, w1, a2, b2, w2)
-        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                           for t in (x, a1, b1, w1, a2, b2, w2, out) + tuple(halo)):
+    rows = () if halo is None else tuple(halo)
+    if out is not None:
+        if _records(x, a1, b1, w1, a2, b2, w2, out, *rows):
             raise RuntimeError("fused_dense_layer(out=...) writes in place, which autograd cannot record: "
                                "call it under torch.no_grad() or torch.inference_mode()")
-        if x.device.type == "cpu":
-            _check_inputs(x, a1, b1, w1)
-            _halo_rows(x, halo, pixel_stride(x))
-            f = layer_reference(x, a1, b1, w1, a2, b2, w2, halo=halo)
-            _check_out(out, x)
-            return out.copy_(f)
-        return _launch_k1(x, a1, b1, w1, a2, b2, w2, out=out, halo=halo)
-    if out is None:
-        return _FusedLayer.apply(x, a1, b1, w1, a2, b2, w2)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a1, b1, w1, a2, b2, w2, out)):
-        raise RuntimeError("fused_dense_layer(out=...) writes in place, which autograd cannot record: "
-                           "call it under torch.no_grad() or torch.inference_mode()")
-    if x.device.type == "cpu":
-        _check_inputs(x, a1, b1, w1)
-        _check_out(out, x)
-        return out.copy_(layer_reference(x, a1, b1, w1, a2, b2, w2))
-    return _launch_k1(x, a1, b1, w1, a2, b2, w2, out=out)
+        return k1(x, a1, b1, w1, a2, b2, w2, out=out, halo=halo)
+    if halo is not None:
+        return _FusedLayerHalo.apply(x, halo[0], halo[1], a1, b1, w1, a2, b2, w2)
+    if _records(x, a1, b1, w1, a2, b2, w2):
+        return torch.ops.fdgan.fused_dense_layer(x, a1, b1, w1, a2, b2, w2)
+    return k1(x, a1, b1, w1, a2, b2, w2)
 
 
 def h_batch_stats(x, a1, b1, w1) -> Tuple[torch.Tensor, torch.Tensor]:
     """norm2's batch statistics (differentiable): per-channel fp32 (mean,
     biased var) of h = relu(a1·x + b1)·W1 over B, H and W. x may be a
-    channel slice of a wider NHWC buffer (``pixel_stride``)."""
-    return _HStats.apply(x, a1, b1, w1)
+    channel slice of a wider NHWC buffer (``pixel_stride``). Where autograd
+    records the call, ``fdgan::h_batch_stats``; else ``fdgan::h_stats``
+    (:func:`k2`)."""
+    if _records(x, a1, b1, w1):
+        return torch.ops.fdgan.h_batch_stats(x, a1, b1, w1)
+    return k2(x, a1, b1, w1)
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,9 @@ same one-pass formula in torch (which does make an fp32 copy). fp32
 activations are the parity mode: they keep the two-pass form
 (:func:`two_pass_reference`) on every device, as the JAX package does.
 
-The bf16 op is a ``torch.autograd.Function``: the train step
-differentiates through the batch statistics, of the generator and of the
-discriminator. Its backward is the one-pass formula's VJP in closed form
+The bf16 op is ``fdgan::channel_stats`` (``ops/library.py``), differentiable:
+the train step differentiates through the batch statistics, of the
+generator and of the discriminator. Its backward is the one-pass formula's VJP in closed form
 (:func:`one_pass_vjp`), one elementwise pass in fp32 that writes dx in x's
 dtype: no fp32 copy of x in the backward either.
 
@@ -26,10 +26,11 @@ move it.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from fdgan_tpu_torch.ops import library  # noqa: F401  (registers the fdgan:: ops)
 from fdgan_tpu_torch.ops.common import pixel_stride
 
 _DIMS = (0, 1, 2)  # B, H, W of an NHWC tensor
@@ -79,13 +80,20 @@ def one_pass_vjp(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, ct_mean
     return torch.addcmul(b, x, a, out=torch.empty(x.shape, device=x.device, dtype=x.dtype))
 
 
-def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check x, launch the kernel and its float64 reduction; raises on a
-    CUDA error and on a layout the kernel does not take."""
+def _launch(x: torch.Tensor, ld: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fdgan::channel_stats`` on CUDA: check x (its pixel stride against
+    ``ld``, the op's; x's own where None), launch the kernel and its float64
+    reduction; raises on a CUDA error and on a layout the kernel does not
+    take."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"channel_stats runs its kernel on cuda, got {x.device}")
-    ld = pixel_stride(x)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the channel_stats kernel is bfloat16 only, got {x.dtype}")
+    own = pixel_stride(x)
+    if ld is not None and own != ld:
+        raise ValueError(f"x has pixel stride {own}, the op was given ld={ld}")
+    ld = own
     b, h, w, c = x.shape
     npix = b * h * w
     if c % 8 or ld % 8 or x.data_ptr() % 16:
@@ -109,22 +117,11 @@ def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return out[0], out[1]
 
 
-class _ChannelStats(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        mean, var = one_pass_reference(x) if x.device.type == "cpu" else _launch(x)
-        ctx.save_for_backward(x, mean, var)
-        return mean, var
-
-    @staticmethod
-    def backward(ctx, ct_mean, ct_var):
-        return one_pass_vjp(*ctx.saved_tensors, ct_mean, ct_var)
-
-
 def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel fp32 (mean, biased var) of NHWC x over B, H and W
-    (differentiable). bf16 x goes through the kernel on a CUDA tensor (its
-    twin on a CPU one); any other dtype takes the two-pass form."""
+    (differentiable). bf16 x goes through ``fdgan::channel_stats``: the
+    kernel on a CUDA tensor, its twin on a CPU one, the closed-form VJP
+    backward. Any other dtype takes the two-pass form."""
     if x.dtype == torch.bfloat16:
-        return _ChannelStats.apply(x)
+        return torch.ops.fdgan.channel_stats(x, pixel_stride(x))
     return two_pass_reference(x)

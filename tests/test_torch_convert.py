@@ -9,6 +9,8 @@ JAX package, on the CPU.
 - the converter: ``.pth`` → ``.msgpack`` → ``.pth`` through both CLIs on the
   same reference-named files (doubled blockUNet keys, IOHW transposed convs),
   bit for bit;
+- the ``.pt2`` destination: the forward exported with the JAX CLI's six
+  export flags (one export at 32², shared), and what it refuses;
 - its errors.
 
 Parameter trees are ``zoo_params`` over ``jax.eval_shape`` of the inits. The
@@ -34,7 +36,9 @@ from fdgan_tpu_torch.cli import convert
 from fdgan_tpu_torch.cli._common import load_model
 from fdgan_tpu_torch.io import msgpack
 from fdgan_tpu_torch.io.checkpoint import load_params, save_params
+from fdgan_tpu_torch.io.export import user_inputs as export_inputs
 from fdgan_tpu_torch.io.torch_import import jax_leaves, model_registry, state_dict_from_jax
+from fdgan_tpu_torch.models import fdgan_fast
 from zoo_params import random_params
 
 KEY = jax.random.PRNGKey(0)
@@ -175,19 +179,98 @@ def test_export_prefix(tmp_path):
 
 # --- errors -------------------------------------------------------------------
 
-def test_shlo_destination_raises_naming_item_12():
-    with pytest.raises(SystemExit, match="Queue 1 item 12"):
+def test_shlo_destination_raises_naming_pt2():
+    with pytest.raises(SystemExit, match=r"--dst <name>\.pt2"):
         convert.main(["--src", "netG.msgpack", "--dst", "netG.shlo"])
 
 
-@pytest.mark.parametrize("flag,value", [("--imageSize", "512"), ("--batch", "poly"), ("--precision", "fp32"),
-                                        ("--bnMode", "running"), ("--ioDtype", "uint8"), ("--platforms", "cpu")])
-def test_shlo_export_flags_are_refused(flag, value, capsys):
-    """The JAX CLI's flags of the .shlo export configure nothing here: argparse
-    refuses them (exit 2) rather than ignoring them."""
-    with pytest.raises(SystemExit) as exc:
-        convert.main(["--src", "netG.pth", "--dst", "netG.msgpack", flag, value])
-    assert exc.value.code == 2 and f"unrecognized arguments: {flag}" in capsys.readouterr().err
+@pytest.fixture(scope="module")
+def pt2_export(tmp_path_factory):
+    """One .pt2 export through the CLI, every export flag away from its
+    default, shared by the flags' cases: a seed-0 generator's .msgpack to
+    a 32² program."""
+    d = tmp_path_factory.mktemp("pt2")
+    model = model_registry()["fdgan"].build()
+    src = save_params(str(d / "netG.msgpack"), model, model_registry()["fdgan"].transposed)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        convert.main(["--src", src, "--dst", str(d / "netG_32.pt2"), "--imageSize", "32", "--batch", "poly",
+                      "--precision", "fp32", "--bnMode", "running", "--ioDtype", "uint8", "--platforms", "cpu"])
+        from fdgan_tpu_torch.io.export import ArtifactRunner
+
+        runner = ArtifactRunner(str(d / "netG_32.pt2"))
+        x = np.random.default_rng(0).integers(0, 256, (3, 32, 32, 3), dtype=np.uint8)
+        got = np.stack(runner(list(x)))
+        with torch.inference_mode():
+            y = fdgan_fast.apply(load_model(src, "fdgan", device="cpu"), torch.from_numpy(x).float() / 255.0,
+                                 bn_mode="running")
+    finally:
+        torch.set_num_threads(threads)
+    want = torch.clamp(torch.round((y + 1.0) * 127.5), 0, 255).numpy()
+    return runner, got, want, str(d / "netG_32.pt2")
+
+
+@pytest.mark.parametrize("flag", ["--imageSize", "--batch", "--precision", "--bnMode", "--ioDtype", "--platforms"])
+def test_pt2_export_takes_the_jax_clis_flags(pt2_export, flag):
+    """Each of the JAX CLI's export flags reaches the program: its size, a
+    symbolic batch (3 images in one call), fp32 weights and the fp32
+    forward's values, running BN (no K2 in the graph), the uint8 contract,
+    the device it was traced for."""
+    runner, got, want, _ = pt2_export
+    inp = export_inputs(runner.exported)[0]
+    if flag == "--imageSize":
+        assert (runner.height, runner.width) == (32, 32)
+    elif flag == "--batch":
+        assert runner.batch is None and got.shape == (3, 32, 32, 3)
+    elif flag == "--precision":
+        assert {v.dtype for v in runner.exported.state_dict.values() if v.is_floating_point()} == {torch.float32}
+        assert np.abs(got.astype(np.int16) - want).max() <= 1
+    elif flag == "--bnMode":
+        targets = {str(n.target) for n in runner.exported.graph.nodes if n.op == "call_function"}
+        assert "fdgan.dense_layer.default" in targets and "fdgan.h_stats.default" not in targets
+    elif flag == "--ioDtype":
+        assert inp.dtype == torch.uint8 and got.dtype == np.uint8
+    else:
+        assert inp.device.type == "cpu"
+
+
+def test_serve_artifact_dehazes_a_folder(pt2_export, tmp_path):
+    """cli/serve --artifact: a folder of ragged PNGs through the exported
+    program (ArtifactRunner), each written at its own size as the program's
+    output normalised (the reference's PNG protocol); --http refused."""
+    from PIL import Image
+
+    from fdgan_tpu_torch.cli import serve
+    from fdgan_tpu_torch.utils.images import normalize_to_uint8
+
+    runner, _, _, path = pt2_export
+    rng = np.random.default_rng(3)
+    images = {"a.png": rng.integers(0, 256, (32, 24, 3), dtype=np.uint8),
+              "b.png": rng.integers(0, 256, (20, 32, 3), dtype=np.uint8)}
+    (tmp_path / "in").mkdir()
+    for name, img in images.items():
+        Image.fromarray(img).save(tmp_path / "in" / name)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        serve.main(["--inDir", str(tmp_path / "in"), "--outDir", str(tmp_path / "out"), "--artifact", path])
+        want = runner(list(images.values()))
+    finally:
+        torch.set_num_threads(threads)
+    for (name, img), y in zip(images.items(), want):
+        got = np.asarray(Image.open(tmp_path / "out" / name))
+        assert got.shape == img.shape
+        np.testing.assert_array_equal(got, normalize_to_uint8(y.astype(np.float32)))
+    with pytest.raises(SystemExit, match="--http serves the live engine"):
+        serve.main(["--http", "8731", "--artifact", path])
+
+
+@pytest.mark.parametrize("platforms", ["tpu", "cuda,cpu"])
+def test_pt2_export_refuses_other_platforms(platforms):
+    """A torch program is traced for one device: a list, or the TPU, stops."""
+    with pytest.raises(SystemExit, match="one device"):
+        convert.main(["--src", "netG.msgpack", "--dst", "netG.pt2", "--platforms", platforms])
 
 
 def test_wrong_family_raises_naming_the_leaf(tmp_path):

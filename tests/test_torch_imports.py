@@ -33,7 +33,8 @@ def test_the_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    # the subpackages and their modules, the demo path's and the serving mesh's included
+    # the subpackages and their modules, the demo path's, the serving mesh's and the export's included
     assert int(res.stdout.split()[-1]) >= 50, res.stdout
-    for name in ("fdgan_tpu_torch.dist.halo_exchange", "fdgan_tpu_torch.dist.mesh", "fdgan_tpu_torch.tools.mesh_serve"):
+    for name in ("fdgan_tpu_torch.dist.halo_exchange", "fdgan_tpu_torch.dist.mesh", "fdgan_tpu_torch.tools.mesh_serve",
+                 "fdgan_tpu_torch.io.export", "fdgan_tpu_torch.ops.library", "fdgan_tpu_torch.tools.check_native"):
         assert name in res.stdout.split(), name

@@ -635,8 +635,8 @@ def test_k1_k2_outputs_carry_their_functions():
         rng.standard_normal((3, 3, 128, 32)) / np.sqrt(9 * 128))]
     f = dense.fused_dense_layer(*args)
     m, v = dense.h_batch_stats(*args[:4])
-    assert type(f.grad_fn).__name__ == "_FusedLayerBackward"
-    assert type(m.grad_fn).__name__ == type(v.grad_fn).__name__ == "_HStatsBackward"
+    assert type(f.grad_fn).__name__ == "GeneratedBackwardFor_fdgan_fused_dense_layer_defaultBackward"
+    assert type(m.grad_fn).__name__ == type(v.grad_fn).__name__ == "GeneratedBackwardFor_fdgan_h_batch_stats_defaultBackward"
     (f.square().sum() + m.sum() + v.sum()).backward()
     assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in args)
 
