@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, kernel-probe, demo,
-training-CLI, model-zoo, data-parallel, serving-mesh, sharded-training and
-export paths once on one CUDA GPU, and check them.
+training-CLI, model-zoo, data-parallel, serving-mesh, sharded-training,
+export and device-resident training paths once on one CUDA GPU, and check
+them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dp-ranks   # only phase 10's ranks: one per card over NCCL, and their step timed
     python3 chip_smoke.py --mesh-ranks # only phase 11's mesh: one rank per card over NCCL, timed against one card
-    python3 chip_smoke.py --sp-ranks   # only phase 12's step: one rank per card over NCCL, 1xN at 2048^2 against one card
+    python3 chip_smoke.py --sp-ranks   # only phase 12's steps: one rank per card over NCCL, 1xN at 2048^2 (and 512^2
+                                       # with the contextual term) against one card; with one card, that
+                                       # contextual cell's memory as gloo ranks of the card
 
 Run from the root of a checkout. Phases, each of which raises on failure:
 
@@ -44,7 +47,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    behind the BatchingFrontend answer ragged uint8 requests from several
    threads.
    The kernels' launch counters are zeroed just before this phase and read
-   just after it: every kernel must have run in it;
+   just after it: every kernel must have run in it. Then the warmup
+   (``InferenceEngine.warmup`` of two shapes over the ladder:
+   ``stats["compiles"]`` rungs × shapes, no dispatch statistic moved, K1 42
+   a rung and shape by the counters), ``auto_warm`` (a new bucket's first
+   request, its other rungs run in the background, a top-rung request
+   after it counts no compile), and a fresh process's first request at
+   512², cold and after ``warmup``, in turns;
 5. training: K3 against its plain version at the train path's shape and
    others (fp32 bit for bit, and bf16), with its time on the device alone
    beside its bound, gradients through K1, K2 and K3
@@ -177,7 +186,14 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    on the whole batch (fp32: the train-step criteria and the gradient
    vectors; bf16: phase 10's gate), every halo'd K3 launch against its twin,
    each rank's launches, halo exchanges, count and statistics all-reduces
-   exact.
+   exact. The contextual term with H sharded: one fp32 step at 2×64² with CX
+   (a seed-0 VGG16) through the 1×2 and 2×2 meshes against one process at
+   the same criteria, each rank's kernels' launches, gathers (1) and max
+   reductions (2) exact, the band-local control (each band's term alone)
+   failing the losses' criterion, and CX alone on bands of relu3_3-sized
+   maps (2×64×64×256): the shares add up to the whole maps' term, the
+   gradients stitch to its gradients, and no rank saves more than its
+   band's rows of the N×N matrix.
 13. the export path (``io.export``, ``native/``; build/export): the
    generator (seed 0) exported by ``export_forward``, saved and loaded back,
    at the engine's default (8×512² bf16 running BN), the demo's (1×1024²
@@ -199,10 +215,25 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    HTTP daemon: /dehaze (the same bytes), /healthz, /stats, and /reload
    with a package of two outputs (refused, the old one serving: ADVICE r5
    fault 2), a .sig mismatch (409) and Content-Length: 0 (re-promoted).
+14. device-resident training at phase 5's cell (4×256² bf16, no perceptual
+   term; build/device_loop): one chunk of ``make_device_loop`` (10 steps over
+   5 staged bf16 batches) under ``torch.cuda.set_sync_debug_mode("error")``,
+   the counters zeroed just before and read just after (K1 42, K2 42, K3 3,
+   channel_stats 54 a step), against 10 streaming steps on the same batches
+   at phase 5's criteria (both under torch's deterministic algorithms); the
+   pool loop (``make_device_pool_loop``, pool 50) over 3 chunks under
+   "error" too; img/s of a chunk in turns with phase 8's streaming loop;
+   ``make_device_eval`` against the host ``cli.train.evaluate`` on 4 fp32
+   256² val images (rtol 1e-4); an ``AsyncCheckpointer`` save during a
+   chunk, its file the state at ``save()``, the ms the loop loses to it
+   against a blocking save; ``cli.train.train --deviceSteps 10`` over
+   in-memory loaders (staged, logged, evaluated on the device, its async
+   checkpoint the final state).
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
-launches per path, the training CLI's, the zoo's, "dp", "mesh" and "sp" included; K3's with
+launches per path, the training CLI's, the zoo's, "dp", "mesh", "sp", "warmup", "sp_cx" (the
+contextual term's sharded steps) and "device_loop" included; K3's with
 and without halo rows; K1's and K2's
 times at C = 400 and 456; the fp32 K1 and K2 as entries of their own, timed
 at 1×1024²×64 with their launches from the fp32 demo run); the last
@@ -798,6 +829,113 @@ def phase_serving(model):
     return launches, {"wall_s": wall, "batches_total": eng_batches, **lat}
 
 
+WARM_SHAPES = [(512, 512), (480, 640)]  # phase 4's warmup: two buckets (512², 512x640) at every rung of the ladder
+WARM_AUTO = (384, 384)  # phase 4's auto-warm: a bucket no earlier request has met
+# a fresh process's first request at 512² bf16 running BN, cold or after warmup (its time, then a second request's),
+# the generator's weights read from a file (argv[2])
+FIRST_REQUEST_SCRIPT = r"""
+import json, sys, time
+import numpy as np
+import torch
+from fdgan_tpu_torch.serve import InferenceEngine
+t0 = time.perf_counter()
+engine = InferenceEngine(torch.load(sys.argv[2], weights_only=True), device="cuda", precision="bf16")
+if sys.argv[1] == "warm":
+    engine.warmup([(512, 512)])
+torch.cuda.synchronize()
+setup = time.perf_counter() - t0
+img = np.random.default_rng(0).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+ms = []
+for _ in range(2):
+    t = time.perf_counter()
+    y = engine.predict(img)
+    ms.append(1000 * (time.perf_counter() - t))
+print(json.dumps({"first_ms": ms[0], "second_ms": ms[1], "setup_s": setup, "compiles": engine.stats["compiles"],
+                  "finite": bool(np.isfinite(y).all()), "shape": list(y.shape)}))
+"""
+
+
+def phase_warmup(model):
+    """Phase 4's warmup: (1) ``InferenceEngine.warmup`` of WARM_SHAPES over
+    the default ladder: ``stats["compiles"]`` equals rungs × shapes, the
+    dispatch statistics do not move, and the counters show K1 42 a rung and
+    shape (running BN: no K2, no channel_stats); (2) ``auto_warm``: the first
+    request of WARM_AUTO's bucket starts a thread that runs the other rungs
+    (counted K1 launches), after which a request at the top rung counts no
+    compile; (3) the first request at 512² of a fresh process, cold and after
+    ``warmup``, in turns (cold, warm, warm, cold), each process alone on the
+    card. Returns the phase's numbers and the K1 launches of the warmup."""
+    import torch
+
+    from fdgan_tpu_torch.ops import dense, stats
+    from fdgan_tpu_torch.serve import InferenceEngine
+
+    t0 = time.perf_counter()
+    out = {}
+    eng = InferenceEngine(model, device="cuda", precision="bf16")
+    rungs = len(eng.batch_sizes)
+    dense.reset_launch_counts()
+    stats.reset_launch_count()
+    t = time.perf_counter()
+    eng.warmup(WARM_SHAPES)
+    torch.cuda.synchronize()
+    launches = {"k1": dense.k1_launches, "k2": dense.k2_launches, "channel_stats": stats.launches}
+    out["warmup"] = {"shapes": WARM_SHAPES, "rungs": list(eng.batch_sizes), "seconds": time.perf_counter() - t,
+                     "compiles": eng.stats["compiles"], "batches": eng.stats["batches"], "launches": launches}
+    log(f"warmup: {json.dumps(out['warmup'])}")
+    want = {"k1": 42 * rungs * len(WARM_SHAPES), "k2": 0, "channel_stats": 0}
+    if eng.stats["compiles"] != rungs * len(WARM_SHAPES) or eng.stats["batches"] or launches != want:
+        raise AssertionError(f"warmup: compiles {eng.stats['compiles']}, batches {eng.stats['batches']}, "
+                             f"launches {launches}; expected {rungs * len(WARM_SHAPES)}, 0, {want}")
+    del eng
+
+    auto = InferenceEngine(model, device="cuda", precision="bf16", auto_warm=True)
+    img = np.random.default_rng(4).integers(0, 256, WARM_AUTO + (3,), dtype=np.uint8)
+    dense.reset_launch_counts()
+    auto.predict(img)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        with auto._lock:
+            if WARM_AUTO in auto._warmed and not auto._warming:
+                break
+        time.sleep(0.05)
+    torch.cuda.synchronize()
+    warmed = dense.k1_launches
+    ys = auto.predict_batch([img] * auto.batch_sizes[-1])
+    out["auto_warm"] = {"bucket": list(WARM_AUTO), "k1_first_and_warm": warmed, "compiles": auto.stats["compiles"],
+                        "batches": auto.stats["batches"]}
+    log(f"auto-warm: {json.dumps(out['auto_warm'])}")
+    if not (warmed == 42 * rungs and auto.stats["compiles"] == 1 and all(np.isfinite(y).all() for y in ys)):
+        raise AssertionError(f"auto-warm: {out['auto_warm']}; expected K1 {42 * rungs} and one compile")
+    del auto
+    torch.cuda.empty_cache()
+
+    # fresh processes, one at a time: a cold start is the process's, not the engine's
+    import os
+
+    weights = os.path.join("build", "first_request_netG.pt")
+    os.makedirs("build", exist_ok=True)
+    torch.save(model.state_dict(), weights)
+    turns = {"cold": [], "warm": []}
+    for mode in ("cold", "warm", "warm", "cold"):
+        res = subprocess.run([sys.executable, "-c", FIRST_REQUEST_SCRIPT, mode, weights], capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode:
+            raise AssertionError(f"first request ({mode}): {res.stdout[-2000:]}{res.stderr[-2000:]}")
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        if not (row["finite"] and row["shape"] == [512, 512, 3] and row["compiles"] == (1 if mode == "cold" else 4)):
+            raise AssertionError(f"first request ({mode}): {row}")
+        turns[mode].append(row)
+    out["first_request_512"] = {m: {"first_ms": [r["first_ms"] for r in rows],
+                                    "second_ms": [r["second_ms"] for r in rows],
+                                    "setup_s": [r["setup_s"] for r in rows]} for m, rows in turns.items()}
+    os.remove(weights)
+    log(f"first request at 512^2 bf16, fresh process: {json.dumps(out['first_request_512'])}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 4 warmup: {out['seconds']:.1f} s")
+    return out, launches
+
+
 def train_batch(b, size, seed, device="cuda"):
     """gt uniform, haze = clip(0.6·gt + 0.3), from a numpy seed."""
     import torch
@@ -1342,15 +1480,21 @@ def phase_train_cli(step_img_s: float):
     evals = {"calls": 0, "images": 0, "launches": collections.Counter()}
     io_ms = {"save": [], "load": [], "resumed_equals_file": []}
 
-    def count_eval(orig):
-        def wrapped(g, val, device, impl="kernels"):
+    def counted(fn):
+        def wrapped(*args):
             before = all_counts()
-            res = orig(g, val, device, impl)
+            res = fn(*args)
             torch.cuda.synchronize()
             evals["launches"].update({k: v - before[k] for k, v in all_counts().items()})
             evals["calls"] += 1
             evals["images"] += len(val_pairs)
             return res
+        return wrapped
+
+    def count_device_eval(orig):  # the val set stacks: the CLI evaluates on the device (train/loop.make_device_eval)
+        def wrapped(val, device, impl="kernels"):
+            fn = orig(val, device, impl)
+            return None if fn is None else counted(fn)
         return wrapped
 
     def timed_save(orig):
@@ -1374,8 +1518,8 @@ def phase_train_cli(step_img_s: float):
         return wrapped
 
     reset_all_counts()  # the path's runs: counters from 0 just before, read just after
-    with patched(cli, "evaluate", count_eval), patched(cli, "save_checkpoint", timed_save), \
-            patched(cli, "load_checkpoint", timed_load):
+    with patched(cli, "evaluate", counted), patched(cli, "device_eval", count_device_eval), \
+            patched(cli, "save_checkpoint", timed_save), patched(cli, "load_checkpoint", timed_load):
         state, _, records = run_cli(args + ["--epochs", str(c["epochs"])], loader, val_loader)
         steps_first = state.step
         state2, stdout2, records = run_cli(args + ["--epochs", "1"], loader, val_loader)
@@ -2638,21 +2782,32 @@ SP_RUNS = {2: [("1x2_fp32", [1, 2], "fp32"), ("1x2_bf16", [1, 2], "bf16")],
 # first conv's input needs a gradient); SSIM 1 and 1. The global means' count all-reduces: pixel, SSIM,
 # G's BCE, D's two BCEs, d_real and d_fake. The statistics' all-reduces: phase 10's DP_COLLECTIVES
 SP_PER_STEP = {"k1": 42, "k2": 42, "k3": 3, "exchanges": 49 + 48 + 12 + 2 + 12 + 8, "counts": 7,
-               "stats_forward": 96, "stats_backward": 96, "grads": 2, "metrics": 2}
+               "stats_forward": 96, "stats_backward": 96, "grads": 2, "metrics": 2, "gathers": 0, "max_reduces": 0}
 # the gradient vectors against one process's step: tests/test_torch_train_spatial.py's gate for the port's
 # step on the whole batch (relative L2 and cosine over all of a net's gradients)
 SP_GRAD_GATE = dict(rel=5e-3, cos=0.99999)
 # --sp-ranks' step under remat="stages": phase 8's REMAT_LAUNCHES["stages"], and the collectives of the CPU
 # run of tools.sp_step (the recompute of each encoder stage re-issues its exchanges and statistics)
 SP_PER_STEP_STAGES = {"k1": 126, "k2": 126, "k3": 3, "channel_stats": 99, "exchanges": 176, "host_staged": 0,
-                      "counts": 7, "stats_forward": 225, "stats_backward": 96, "grads": 2, "metrics": 2}
+                      "counts": 7, "stats_forward": 225, "stats_backward": 96, "grads": 2, "metrics": 2, "gathers": 0,
+                      "max_reduces": 0}
 # K3 with halo rows on the card alone: (shape, dtype, band rows); each band with its neighbours' 7 rows a side,
 # against K3 on the whole image (the same bits: the body reads the rows the whole image's reads)
 SP_K3_CASES = [((8, 512, 512, 3), "bfloat16", [256, 256]), ((4, 256, 256, 3), "bfloat16", [96, 88, 72]),
                ((2, 256, 256, 3), "float32", [128, 128]), ((2, 120, 200, 3), "float32", [64, 56]),
                ((1, 2048, 2048, 3), "bfloat16", [512, 512, 512, 512])]
+# phase 12's contextual term: one fp32 step at 2×64² with CX (weight 1) on a seed-0 VGG16, no remat, through the
+# 1x2 and 2x2 meshes against one process on the whole batch; the band-local control (each band's term alone)
+SP_CX = (2, 64)
+SP_CX_RUNS = {2: [("1x2_fp32_cx", [1, 2], None), ("1x2_fp32_cx_local", [1, 2], "band_local_cx")],
+              4: [("2x2_fp32_cx", [2, 2], None)]}
+SP_CX_PER_STEP = {"k1": 42, "k2": 42, "k3": 3, "channel_stats": 0, "gathers": 1, "max_reduces": 2}
+# CX alone on bands of two feature maps of relu3_3's size for 2 images of 256² (N = 4096 positions, C = 256)
+SP_CX_FEATURES = [2, 64, 64, 256]
+SP_CX_ALONE_REL = 1e-5  # the shares' sum and the stitched gradients against the whole maps' (relative)
 SP_TIMED = 4  # --sp-ranks: steps a turn, mesh and one card
 SP_RANKS_IMAGE = (1, 2048)  # --sp-ranks: one 2048² bf16 image, --rematStages, one rank a card
+SP_RANKS_CX_IMAGE = (1, 512)  # --sp-ranks: one 512² bf16 image with the contextual term (relu3_3: N = 16384)
 
 
 def sp_k3_halo():
@@ -2775,10 +2930,15 @@ def phase_sp():
     haze, gt = train_batch(b, size, 21, device="cpu")
     out = {"k3_halo": sp_k3_halo(), "checks": {}}
 
+    cx_haze, cx_gt = train_batch(*SP_CX, 23, device="cpu")
+
     def ranks(nprocs):
         t = time.perf_counter()
         runs = [{"name": name, "mesh": dims, "precision": prec, "remat": False,
                  "check_k3": K3_TOL["float32" if prec == "fp32" else "bfloat16"]} for name, dims, prec in SP_RUNS[nprocs]]
+        runs += [{"name": name, "mesh": dims, "precision": "fp32", "remat": False, "haze": cx_haze, "gt": cx_gt,
+                  "contextual": 0, "control": control, "cx_features": None if control else SP_CX_FEATURES,
+                  "check_k3": K3_TOL["float32"]} for name, dims, control in SP_CX_RUNS[nprocs]]
         res = run_sp_ranks({"haze": haze, "gt": gt, "runs": runs}, nprocs, "gloo", os.path.join(root, f"ranks{nprocs}"))
         return res, time.perf_counter() - t
 
@@ -2793,11 +2953,38 @@ def phase_sp():
                 "g": {k: v.cpu() for k, v in state.g.state_dict().items()},
                 "d": {k: v.cpu() for k, v in state.d.state_dict().items()}}
 
+    def single_cx():
+        """One process's fp32 step with the contextual term on the whole
+        batch, and the term alone on the whole feature maps (its value,
+        gradients and peak memory above what was allocated before)."""
+        from fdgan_tpu_torch.losses.contextual import contextual_loss
+        from fdgan_tpu_torch.models.vgg16 import VGG16
+
+        grads = {}
+        state, tx_g, tx_d = sp_step._state("cuda", grads)
+        vgg = VGG16(device="cuda", generator=torch.Generator().manual_seed(0))
+        with fp32_exact("fp32", "cuda"):
+            metrics, x_hat = sp_step._stepper(tx_g, tx_d, torch.float32, False, None, vgg)(state, cx_haze.cuda(),
+                                                                                          cx_gt.cuda())
+            img, tgt = (t.requires_grad_(True) for t in sp_step.cx_features(SP_CX_FEATURES, "cuda"))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            whole = contextual_loss(img, tgt)
+            whole.backward()
+            torch.cuda.synchronize()
+        return {"metrics": {k: float(v) for k, v in metrics.items()}, "x_hat": x_hat.float().cpu(), "grads": grads,
+                "g": {k: v.cpu() for k, v in state.g.state_dict().items()},
+                "d": {k: v.cpu() for k, v in state.d.state_dict().items()},
+                "alone": {"loss": whole.item(), "di": img.grad.cpu(), "dt": tgt.grad.cpu(),
+                          "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}}
+
     # both launches of ranks run at once, beside this process's references: their start-up would otherwise
     # take most of the phase
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         launched = {nprocs: pool.submit(ranks, nprocs) for nprocs in SP_RUNS}
         refs = {prec: single(prec) for prec in ("fp32", "bf16")}
+        ref_cx = single_cx()
         results = {nprocs: f.result() for nprocs, f in launched.items()}
     ref = refs["fp32"]
     bf16_single = {"psnr": psnr(refs["bf16"]["x_hat"], ref["x_hat"]),
@@ -2853,11 +3040,146 @@ def phase_sp():
                 f"ok={ok}")
             if not ok:
                 raise AssertionError(f"sp {name}: {res}; per step expected {want}")
+    launches["cx"] = collections.Counter()
+    for nprocs, specs in SP_CX_RUNS.items():
+        for name, dims, control in specs:
+            rks = results[nprocs][0][name]
+            res = sp_cx_check(rks, ref_cx, control)
+            if control is None:
+                for rk in rks:
+                    launches["cx"].update({k: rk["per_step"][k] for k in ("k1", "k2", "k3", "channel_stats")})
+            out["checks"][name] = res
+            log(f"sp {name} ({nprocs} gloo ranks on this card) {SP_CX[0]}x{SP_CX[1]}^2 with the contextual term "
+                f"against one process: {json.dumps(res)}")
+    out["cx_alone_whole_peak_gib"] = ref_cx["alone"]["peak_gib"]
     shutil.rmtree(root, ignore_errors=True)
     out["launches"] = {k: dict(v) for k, v in launches.items()}
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 12: {out['seconds']:.1f} s")
     return out, launches
+
+
+def sp_cx_check(rks, ref, control):
+    """One contextual-term run of phase 12 against one process's step with
+    the term on the whole batch (``ref``): at phase 12's fp32 criteria, every
+    rank's kernels' launches, gathers and max reductions SP_CX_PER_STEP and
+    its halo'd K3 launches checked; the CX alone on bands: each spatial
+    group's shares add up to the whole maps' term and its gradients stitch
+    to the whole's (SP_CX_ALONE_REL), and the widest tensor a rank saves for
+    the backward spans its band's rows by all N target positions, never N
+    by N. The band-local control must fail the losses' criterion instead.
+    Raises on a failure; returns the numbers."""
+    import torch
+
+    r0 = rks[0]
+    shape = tuple(ref["x_hat"].shape)
+    got = stitch(rks, shape)
+    loss_err = max(abs(r0["metrics"][k] - v) / max(abs(v), 1e-6) for k, v in ref["metrics"].items())
+    res = {"loss_max_rel_err": loss_err, "g_contextual": [r0["metrics"]["g_contextual"], ref["metrics"]["g_contextual"]],
+           "per_step": [{k: rk["per_step"][k] for k in ("k1", "k2", "k3", "channel_stats", "gathers", "max_reduces",
+                                                          "exchanges", "counts")} for rk in rks],
+           "peak_gib": [rk["peak_gib"] for rk in rks]}
+    if control is not None:
+        if loss_err <= 1e-4:
+            raise AssertionError(f"sp {r0['name']}: the band-local control passes the losses' criterion: {res}")
+        return res
+    worst_p = worst_s = 0.0
+    for net in ("g", "d"):
+        for k, v in r0[net].items():
+            diff = (v - ref[net][k]).abs().max().item()
+            worst_s, worst_p = (max(worst_s, diff), worst_p) if "running" in k else (worst_s, max(worst_p, diff))
+    res |= {"param_max_abs_err": worst_p, "running_stat_max_abs_err": worst_s,
+            "output_max_abs_err": (got - ref["x_hat"]).abs().max().item(),
+            "grad_gate": {net: grad_gate(r0["grads"][net], ref["grads"][net]) for net in "gd"},
+            "k3_halo_checked": [rk["k3_check"].get("calls") for rk in rks]}
+    ok = (loss_err <= 1e-4 and worst_p <= 2 * LR + 1e-6 and worst_s <= 1e-5
+          and torch.allclose(got, ref["x_hat"], **GEN_TOL)
+          and all(rel < SP_GRAD_GATE["rel"] and cos > SP_GRAD_GATE["cos"] for rel, cos in res["grad_gate"].values())
+          and all({k: rk["per_step"][k] for k in SP_CX_PER_STEP} == SP_CX_PER_STEP and rk["k3_check"].get("calls") == 3
+                  for rk in rks))
+    # CX alone: every spatial group (the ranks of one data index) against the whole maps
+    b, h, w, c = SP_CX_FEATURES
+    n = h * w
+    alone = ref["alone"]
+    groups = collections.defaultdict(list)
+    for rk in rks:
+        groups[rk["coordinate"][0]].append(rk)
+    sums, rels, rows = [], [], []
+    for members in groups.values():
+        members.sort(key=lambda rk: rk["coordinate"][1])
+        sums.append(sum(rk["cx_alone"]["share"] for rk in members))
+        for key in ("di", "dt"):
+            part = torch.cat([rk["cx_alone"][key] for rk in members], dim=1)
+            rels.append(((part - alone[key]).norm() / alone[key].norm()).item())
+        for rk in members:
+            a, z = rk["cx_alone"]["rows"]
+            spanning = [sv for sv in rk["cx_alone"]["saved"] if sv[-1] == n]
+            rows.append({"band_rows": (z - a) * w, "widest_rows": max(sv[-2] for sv in spanning),
+                         "largest_numel": max(int(np.prod(sv)) for sv in rk["cx_alone"]["saved"]),
+                         "peak_gib": rk["cx_alone"]["peak_gib"],
+                         "n_by_n": any(sv[-2:] == [n, n] for sv in rk["cx_alone"]["saved"])})
+    res["cx_alone"] = {"shares_sum": sums, "whole": alone["loss"], "grad_rel_l2": rels, "ranks": rows,
+                       "whole_peak_gib": alone["peak_gib"]}
+    ok &= (all(abs(x - alone["loss"]) <= SP_CX_ALONE_REL * abs(alone["loss"]) for x in sums)
+           and all(r <= SP_CX_ALONE_REL for r in rels)
+           and all(r["widest_rows"] == r["band_rows"] and r["largest_numel"] == b * r["band_rows"] * n
+                   and not r["n_by_n"] for r in rows))
+    if not ok:
+        raise AssertionError(f"sp {r0['name']}: {res}; per step expected {SP_CX_PER_STEP}")
+    return res
+
+
+def sp_cx_memory_one_card() -> dict:
+    """``--sp-ranks`` on one card: the SP_RANKS_CX_IMAGE cell (bf16, the
+    contextual term on a seed-0 VGG16, no remat) as 2 and then 4 gloo ranks
+    of the card, each rank's peak memory over its step (times not claimed:
+    the ranks share the card and gloo stages through the host), against one
+    process's step on the whole image (ms, peak, peak above the state), and
+    that step without the term. Every rank's kernels' launches, gathers and
+    max reductions exact. Raises on a failure; returns the numbers."""
+    import os
+    import shutil
+
+    import torch
+
+    from fdgan_tpu_torch.models.vgg16 import VGG16
+    from fdgan_tpu_torch.tools import sp_step
+
+    b, size = SP_RANKS_CX_IMAGE
+    haze, gt = train_batch(b, size, 24, device="cpu")
+    cell = {}
+    for cx in (False, True):
+        state, tx_g, tx_d = sp_step._state("cuda")
+        vgg = VGG16(device="cuda", generator=torch.Generator().manual_seed(0)) if cx else None
+        step = sp_step._stepper(tx_g, tx_d, torch.bfloat16, False, None, vgg)
+        step(state, haze.cuda(), gt.cuda())  # warm: cuDNN's choices, the allocator
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        metrics, _ = step(state, haze.cuda(), gt.cuda())
+        torch.cuda.synchronize()
+        cell["one_process" + ("_cx" if cx else "")] = {
+            "ms": 1000 * (time.perf_counter() - t), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_above_state_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "g_contextual": metrics["g_contextual"].item() if cx else None}
+        del state, step, vgg
+        torch.cuda.empty_cache()
+    want = SP_CX_PER_STEP | {"channel_stats": 54}
+    for n in (2, 4):
+        name = f"1x{n}_bf16_{size}_contextual"
+        root = os.path.join("build", f"sp_cx_{n}")
+        shutil.rmtree(root, ignore_errors=True)
+        runs = [{"name": name, "mesh": [1, n], "precision": "bf16", "remat": False, "haze": haze, "gt": gt,
+                 "contextual": 0}]
+        rks = run_sp_ranks({"haze": haze, "gt": gt, "runs": runs}, n, "gloo", root)[name]
+        shutil.rmtree(root, ignore_errors=True)
+        cell[name] = {"peak_gib": [rk["peak_gib"] for rk in rks], "g_contextual": rks[0]["metrics"]["g_contextual"],
+                      "per_step": [{k: rk["per_step"][k] for k in want} for rk in rks]}
+        if not (all(p == want for p in cell[name]["per_step"]) and np.isfinite(list(rks[0]["metrics"].values())).all()):
+            raise AssertionError(f"sp {name}: {cell[name]}; expected per step {want}")
+    log(f"sp contextual term at {b}x{size}^2 bf16 on one card: {json.dumps(cell)}")
+    return cell
 
 
 def sp_ranks_main() -> int:
@@ -2866,7 +3188,10 @@ def sp_ranks_main() -> int:
     1×N mesh: each rank's launches and collectives, its peak memory and ms
     per step against one card's step on the whole image, in turns
     (SP_TIMED steps a turn), rank 0's step under torch.profiler (device
-    busy, idle share, NCCL). With one card it prints that and skips. Prints
+    busy, idle share, NCCL); then one SP_RANKS_CX_IMAGE bf16 image with the
+    contextual term (a seed-0 VGG16, no remat) the same way, its gathers and
+    max reductions exact. With one card: the contextual cell's memory as
+    gloo ranks of the card (:func:`sp_cx_memory_one_card`). With one card it prints that and skips. Prints
     one JSON line, then the last line as the full run does."""
     import os
     import shutil
@@ -2875,7 +3200,9 @@ def sp_ranks_main() -> int:
 
     n = torch.cuda.device_count()
     if n < 2:
-        print(json.dumps({"sp_ranks": {"skipped": f"one card: --sp-ranks needs two or more, found {n}"}}))
+        phase_device()
+        cell = sp_cx_memory_one_card()
+        print(json.dumps({"sp_ranks": {"ranks": n, "one_card_cx_memory": cell}}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
         return 0
     phase_device()
@@ -2884,17 +3211,27 @@ def sp_ranks_main() -> int:
     b, size = SP_RANKS_IMAGE
     haze, gt = train_batch(b, size, 22, device="cpu")
     name = f"1x{n}_bf16_{size}_rematStages"
-    runs = [{"name": name, "mesh": [1, n], "precision": "bf16", "remat": "stages", "time": SP_TIMED, "profile": True}]
-    rks = run_sp_ranks({"haze": haze, "gt": gt, "runs": runs}, n, "nccl", root)[name]
+    cx_b, cx_size = SP_RANKS_CX_IMAGE
+    cx_haze, cx_gt = train_batch(cx_b, cx_size, 24, device="cpu")
+    cx_name = f"1x{n}_bf16_{cx_size}_contextual"
+    runs = [{"name": name, "mesh": [1, n], "precision": "bf16", "remat": "stages", "time": SP_TIMED, "profile": True},
+            {"name": cx_name, "mesh": [1, n], "precision": "bf16", "remat": False, "haze": cx_haze, "gt": cx_gt,
+             "contextual": 0, "time": SP_TIMED}]
+    res = run_sp_ranks({"haze": haze, "gt": gt, "runs": runs}, n, "nccl", root)
     shutil.rmtree(root, ignore_errors=True)
-    want = SP_PER_STEP_STAGES
-    cell = {"per_step": [rk["per_step"] for rk in rks], "peak_gib": [rk["peak_gib"] for rk in rks],
-            "turns": [rk["turns"] for rk in rks], "profile": rks[0]["profile"], "rows": [rk["rows"] for rk in rks],
-            "metrics": rks[0]["metrics"]}
-    log(f"sp {name} ({n} NCCL ranks, one a card): {json.dumps(cell)}")
-    if not (all(rk["per_step"] == want for rk in rks) and np.isfinite(list(rks[0]["metrics"].values())).all()):
-        raise AssertionError(f"sp {name}: {cell}")
-    print(json.dumps({"sp_ranks": {"ranks": n, "cells": {name: cell}}}))
+    cells = {}
+    for run_name, want in ((name, SP_PER_STEP_STAGES), (cx_name, SP_CX_PER_STEP | {"channel_stats": 54})):
+        rks = res[run_name]
+        cell = {"per_step": [rk["per_step"] for rk in rks], "peak_gib": [rk["peak_gib"] for rk in rks],
+                "turns": [rk["turns"] for rk in rks], "rows": [rk["rows"] for rk in rks], "metrics": rks[0]["metrics"]}
+        if "profile" in rks[0]:
+            cell["profile"] = rks[0]["profile"]
+        log(f"sp {run_name} ({n} NCCL ranks, one a card): {json.dumps(cell)}")
+        if not (all({k: rk["per_step"][k] for k in want} == want for rk in rks)
+                and np.isfinite(list(rks[0]["metrics"].values())).all()):
+            raise AssertionError(f"sp {run_name}: {cell}; expected per step {want}")
+        cells[run_name] = cell
+    print(json.dumps({"sp_ranks": {"ranks": n, "cells": cells}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
     return 0
 
@@ -3282,6 +3619,280 @@ def phase_export():
     return out, launches
 
 
+# phase 14: the device-resident loop at phase 5's cell (4×256² bf16, no perceptual term), K steps a chunk over
+# DEVICE_LOOP_BATCHES staged batches; the pool loop over DEVICE_POOL's chunks; the device eval on DEVICE_EVAL's
+# fp32 val images; cli/train --deviceSteps at DEVICE_CLI
+DEVICE_LOOP = (4, 256, 10)
+DEVICE_LOOP_BATCHES = 5
+DEVICE_POOL = (50, 3)
+DEVICE_EVAL = (4, 256)
+DEVICE_EVAL_RTOL = 1e-4  # the device eval against the host eval: JAX's tests/test_train.py:232 gate
+DEVICE_CLI = dict(batch=4, size=256, batches=5, epochs=2, k=10)
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block: an
+    operation that makes the host wait on the device raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def host_state(state) -> dict:
+    """Copies on the host of every tensor a checkpoint file holds of
+    ``state``, and its counts."""
+    out = {net: {k: v.detach().cpu().clone() for k, v in getattr(state, net).state_dict().items()} for net in "gd"}
+    for net in ("g_opt", "d_opt"):
+        out[net] = {i: {k: v.detach().cpu().clone() for k, v in e.items()}
+                    for i, e in getattr(state, net).state_dict()["state"].items()}
+    out["step"], out["d_updates"] = state.step, state.d_updates
+    return out
+
+
+def file_is(path, want: dict) -> bool:
+    """The checkpoint file at ``path`` holds exactly ``want`` (host_state's)."""
+    import torch
+
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    same = (blob["step"], blob["d_updates"]) == (want["step"], want["d_updates"])
+    for net in ("g", "d"):
+        same &= blob[net].keys() == want[net].keys() and all(torch.equal(blob[net][k], v) for k, v in want[net].items())
+    for net in ("g_opt", "d_opt"):
+        saved = blob[net]["state"]
+        same &= saved.keys() == want[net].keys() and all(
+            torch.equal(saved[i][k], v) for i, e in want[net].items() for k, v in e.items())
+    return bool(same)
+
+
+def phase_device_loop():
+    """Phase 14: device-resident training (``train/loop.py``'s device loops,
+    ``make_device_eval``, ``io/checkpoint.AsyncCheckpointer``, ``cli/train
+    --deviceSteps``) at phase 5's cell. (1) The path: one chunk of
+    ``make_device_loop`` (K steps) under sync debug mode "error", the
+    counters zeroed just before and read just after (launches per step K1
+    42, K2 42, K3 3, channel_stats 54), against K streaming steps on the same
+    batches (each uploaded from the host as the CLI's loop does) at phase
+    5's criteria, both under torch's deterministic algorithms; (2) the pool
+    loop, DEVICE_POOL's chunks, under "error" too; (3) img/s of a chunk in
+    turns with phase 8's streaming loop (the CLI's loop body: an upload a
+    step, the metrics read every 5 steps); (4) ``make_device_eval`` against
+    the host ``cli.train.evaluate`` on DEVICE_EVAL's fp32 val images; (5) an
+    ``AsyncCheckpointer`` save during a chunk, whose file is the state at
+    ``save()``, the ms the loop loses to it against a blocking save; (6)
+    ``cli.train.train --deviceSteps`` over in-memory loaders. Returns the
+    phase's numbers and the launches of (1)."""
+    import os
+    import shutil
+
+    import torch
+
+    from fdgan_tpu_torch.cli import train as cli
+    from fdgan_tpu_torch.data.h5 import DataLoader
+    from fdgan_tpu_torch.io.checkpoint import AsyncCheckpointer, save_checkpoint
+    from fdgan_tpu_torch.losses.composite import LossWeights
+    from fdgan_tpu_torch.train.loop import (create_train_state, make_device_eval, make_device_loop,
+                                            make_device_pool_loop, make_gd_steps, make_train_step)
+    from fdgan_tpu_torch.train.pool import device_pool_init
+
+    t0 = time.perf_counter()
+    root = os.path.join("build", "device_loop")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    b, size, k = DEVICE_LOOP
+    nb = DEVICE_LOOP_BATCHES
+    data = pairs(b * nb, size, 40)
+    haze_np = np.stack([np.stack([h for h, _ in data[i * b:(i + 1) * b]]) for i in range(nb)])
+    gt_np = np.stack([np.stack([g for _, g in data[i * b:(i + 1) * b]]) for i in range(nb)])
+    # staged as the CLI stages a bf16 run: cast on the host, uploaded once
+    haze_all = torch.from_numpy(haze_np).to(torch.bfloat16).cuda()
+    gt_all = torch.from_numpy(gt_np).to(torch.bfloat16).cuda()
+    seq = torch.from_numpy(cli.index_sequence(nb, 8 * k // nb, k, 0)).cuda()
+    host_seq = seq.cpu().numpy()
+    weights = LossWeights(perceptual=0.0)
+
+    def upload(i):  # the streaming loop's batch: fp32 from the host, as the CLI's loop uploads it
+        return (torch.from_numpy(np.ascontiguousarray(haze_np[i], np.float32)).cuda(),
+                torch.from_numpy(np.ascontiguousarray(gt_np[i], np.float32)).cuda())
+
+    # (1) the path: a chunk with no host sync against K streaming steps, from one state each
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        sides = {}
+        for side in ("device", "stream"):
+            state, tx_g, tx_d = create_train_state(0, device="cuda")
+            step = make_train_step(tx_g, tx_d, weights, compute_dtype=torch.bfloat16)
+            state, _ = step(state, *upload(0))  # one step each first: cuDNN's choices, the allocator
+            sides[side] = [state, step]
+        run = make_device_loop(sides["device"][1], k)
+        reset_all_counts()
+        with no_host_sync():
+            sides["device"][0], ms = run(sides["device"][0], haze_all, gt_all, seq[:k])
+        torch.cuda.synchronize()
+        launches = all_counts()
+        stream = []
+        for i in host_seq[:k]:
+            sides["stream"][0], m = sides["stream"][1](sides["stream"][0], *upload(i))
+            stream.append(m)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = {key: v.float().cpu().numpy() for key, v in ms.items()}
+    want = {key: torch.stack([m[key] for m in stream]).float().cpu().numpy() for key in ms}
+    loss_err = max(float(np.max(np.abs(got[key] - want[key]) / np.maximum(np.abs(want[key]), 1e-6))) for key in got)
+    off, worst_p, worst_s = compare_states(sides["device"][0], sides["stream"][0])
+    per_step = {key: v / k for key, v in launches.items()}
+    out["chunk_vs_stream"] = {"steps": k, "loss_max_rel_err": loss_err,
+                              "bit_equal": all(np.array_equal(got[key], want[key]) for key in got),
+                              "param_share_over_1e-6": off, "param_max_abs_err": worst_p,
+                              "running_stat_max_abs_err": worst_s, "launches_per_step": per_step,
+                              "g_total": got["g_total"].tolist()}
+    log(f"device loop {b}x{size}^2 bf16 K={k}, no host sync: {json.dumps(out['chunk_vs_stream'])}")
+    finite = all(np.isfinite(v).all() for v in got.values())
+    if not (finite and loss_err <= 1e-4 and off < 5e-3 and worst_p <= 2 * LR + 1e-6 and worst_s <= 1e-5
+            and per_step == REMAT_LAUNCHES["none"]):
+        raise AssertionError(f"the device loop's chunk disagrees with the streaming steps: {out['chunk_vs_stream']}")
+
+    # (2) the pool loop: a warm step, then DEVICE_POOL's chunks with no host sync
+    pool_size, chunks = DEVICE_POOL
+    state, tx_g, tx_d = create_train_state(0, device="cuda")
+    g_step, d_step = make_gd_steps(tx_g, tx_d, weights, compute_dtype=torch.bfloat16)
+    buf, n_filled = device_pool_init(pool_size, haze_all.shape[1:], torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state, buf, n_filled, _ = make_device_pool_loop(g_step, d_step, 1)(state, buf, n_filled, haze_all, gt_all,
+                                                                        seq[:1], gen)
+    run_pool = make_device_pool_loop(g_step, d_step, k)
+    reset_all_counts()
+    pool_g = []
+    with no_host_sync():
+        for c in range(chunks):
+            state, buf, n_filled, m = run_pool(state, buf, n_filled, haze_all, gt_all, seq[c * k:(c + 1) * k], gen)
+            pool_g.append(m["g_total"])
+    torch.cuda.synchronize()
+    pool_launches = {key: v / (chunks * k) for key, v in all_counts().items()}
+    out["pool"] = {"pool_size": pool_size, "chunks": chunks, "n_filled": int(n_filled),
+                   "g_total": torch.cat(pool_g).float().cpu().tolist(), "launches_per_step": pool_launches}
+    log(f"device pool loop: {json.dumps(out['pool'])}")
+    if not (int(n_filled) == 1 + chunks * k and np.isfinite(out["pool"]["g_total"]).all()
+            and pool_launches == REMAT_LAUNCHES["none"]):
+        raise AssertionError(f"the device pool loop: {out['pool']}")
+    del state, buf, g_step, d_step
+    torch.cuda.empty_cache()
+
+    # (3) img/s: a chunk against phase 8's streaming loop, in turns (device, stream, stream, device)
+    def device_turn(state, c):
+        state, m = run(state, haze_all, gt_all, seq[c * k:(c + 1) * k])
+        torch.stack([v.float() for v in m.values()]).cpu()  # the chunk's one fetch
+        return state
+
+    def stream_turn(state, c):
+        step = sides["stream"][1]
+        for i in host_seq[c * k:(c + 1) * k]:
+            state, m = step(state, *upload(i))
+            if state.step % 5 == 0:
+                _ = {key: float(v) for key, v in m.items()}
+        return state
+
+    spent = {"device": [], "stream": []}
+    for c, side in enumerate(("device", "stream", "stream", "device"), start=1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sides[side][0] = (device_turn if side == "device" else stream_turn)(sides[side][0], c)
+        torch.cuda.synchronize()
+        spent[side].append(time.perf_counter() - t)
+    out["img_s"] = {side: [b * k / sec for sec in secs] for side, secs in spent.items()}
+    out["device_over_stream"] = sum(spent["stream"]) / sum(spent["device"])
+    log(f"device loop img/s in turns against the streaming loop: {json.dumps(out['img_s'])}, "
+        f"{out['device_over_stream']:.3f}x")
+
+    # (4) the device eval against the host eval
+    val = pairs(DEVICE_EVAL[0], DEVICE_EVAL[1], 41)
+    g = sides["device"][0].g
+    evaluate = make_device_eval(np.stack([h[None] for h, _ in val]), np.stack([y[None] for _, y in val]), "cuda")
+    reset_all_counts()
+    t = time.perf_counter()
+    dev = evaluate(g)
+    dev_ms = 1000 * (time.perf_counter() - t)
+    eval_launches = {key: v / len(val) for key, v in all_counts().items()}
+    t = time.perf_counter()
+    host = cli.evaluate(g, DataLoader(val, batch_size=1), "cuda")
+    host_ms = 1000 * (time.perf_counter() - t)
+    rel = [abs(a - h) / abs(h) for a, h in zip(dev, host)]
+    out["eval"] = {"images": len(val), "device": list(dev), "host": list(host), "rel_err": rel, "device_ms": dev_ms,
+                   "host_ms": host_ms, "launches_per_image": eval_launches}
+    log(f"device eval {DEVICE_EVAL[0]}x{DEVICE_EVAL[1]}^2 fp32 against the host eval: {json.dumps(out['eval'])}")
+    if not (max(rel) <= DEVICE_EVAL_RTOL and eval_launches == {"k1": 42, "k2": 42, "k3": 0, "channel_stats": 0}):
+        raise AssertionError(f"the device eval: {out['eval']}")
+
+    # (5) an async save during a chunk: the file is the state at save(); the loop's loss against a blocking save
+    state = sides["device"][0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = device_turn(state, 5)
+    alone = time.perf_counter() - t
+    want = host_state(state)
+    saver = AsyncCheckpointer()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    saver.save(os.path.join(root, "async"), state, step=state.step)
+    call = time.perf_counter() - t
+    state = device_turn(state, 6)
+    with_save = time.perf_counter() - t
+    t = time.perf_counter()
+    saver.wait()
+    tail = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    save_checkpoint(os.path.join(root, "blocking"), state, step=state.step)
+    torch.cuda.synchronize()
+    blocking = time.perf_counter() - t
+    same = file_is(os.path.join(root, "async", f"ckpt_{want['step']}.pt"), want)
+    out["async_ckpt"] = {"file_is_state_at_save": same, "save_call_ms": 1000 * call, "chunk_ms": 1000 * alone,
+                         "chunk_with_save_ms": 1000 * with_save, "stall_ms": 1000 * (with_save - alone),
+                         "wait_after_ms": 1000 * tail, "blocking_save_ms": 1000 * blocking,
+                         "mb": os.path.getsize(os.path.join(root, "blocking", f"ckpt_{state.step}.pt")) / 1e6}
+    log(f"async checkpoint during a chunk: {json.dumps(out['async_ckpt'])}")
+    if not same:
+        raise AssertionError("the async checkpoint's file is not the state at save()")
+    del sides, state, run
+    torch.cuda.empty_cache()
+
+    # (6) cli/train --deviceSteps over in-memory loaders
+    c = DEVICE_CLI
+    exp = os.path.join(root, "cli")
+    train_pairs, val_pairs = pairs(c["batch"] * c["batches"], c["size"], 42), pairs(2, c["size"], 43)
+    args = ["--exp", exp, "--precision", "bf16", "--lambdaPerceptual", "0", "--deviceSteps", str(c["k"]),
+            "--poolSize", "50", "--epochs", str(c["epochs"]), "--batchSize", str(c["batch"]), "--imageSize",
+            str(c["size"]), "--logEvery", "5", "--evalIter", str(c["k"])]
+    state, stdout, records = run_cli(args, DataLoader(train_pairs, batch_size=c["batch"], shuffle=True, seed=0),
+                                     DataLoader(val_pairs, batch_size=1))
+    steps = c["batches"] * c["epochs"]
+    logged = [(r["step"], r["g_total"]) for r in records if "g_total" in r]
+    val_steps = [r["step"] for r in records if "val_psnr" in r]
+    out["cli"] = {"steps": state.step, "logged": logged, "val_steps": val_steps,
+                  "img_s": [r["imgs_per_sec"] for r in records if "imgs_per_sec" in r], "files": sorted(os.listdir(exp))}
+    log(f"cli.train --deviceSteps {c['k']}: {json.dumps(out['cli'])}")
+    checks = {"steps": state.step == steps and [s for s, _ in logged] == list(range(5, steps + 1, 5)),
+              "finite": bool(np.isfinite([v for _, v in logged]).all()),
+              "staged": f"staging {c['batches']} batches" in stdout and "snapshot queued" in stdout,
+              "evals": val_steps == [0, steps],
+              "checkpoint": out["cli"]["files"] == [f"ckpt_{steps}.pt", "train_log.jsonl"]
+              and same_as_file(state, os.path.join(exp, f"ckpt_{steps}.pt"))}
+    if not all(checks.values()):
+        raise AssertionError(f"cli.train --deviceSteps: failed checks {[n for n, v in checks.items() if not v]}")
+    del state
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 14: {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -3304,6 +3915,7 @@ def main() -> int:
     model, gen = phase_generator()
     log(json.dumps({"generator": gen}))
     launches, serving = phase_serving(model)
+    serving["warm"], warm_launches = phase_warmup(model)
     log(json.dumps({"serving": serving}))
     del model
     torch.cuda.empty_cache()
@@ -3335,6 +3947,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     export_out, export_launches = phase_export()
     log(json.dumps({"export": export_out}))
+    torch.cuda.empty_cache()
+    device_out, device_launches = phase_device_loop()
+    log(json.dumps({"device_loop": device_out}))
     ragged_c = {f"c{r['shape'][-1]}": {k: r[k] for k in r if k.startswith(("k1_", "k2_"))} | {"shape": r["shape"]}
                 for r in zoo["kernels_ragged_c"] if r["dtype"] == "bfloat16"}
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
@@ -3353,7 +3968,10 @@ def main() -> int:
                 "mesh": mesh_launches["bf16"][k],
                 "sp": sp_launches["bf16"][k] + (sp_launches["fp32"][k] if k == "k3" else 0),
                 # a forward of the exported programs: K1 in running BN, K2 and channel_stats in bf16 batch BN
-                "export": export_launches["bf16_batch"][k]}
+                "export": export_launches["bf16_batch"][k],
+                "warmup": warm_launches.get(k, 0),  # phase 4's warmup: K1 42 a rung and shape
+                "sp_cx": sp_launches["cx"][k],  # phase 12's contextual-term steps (fp32: no channel_stats)
+                "device_loop": device_launches[k]}  # phase 14's chunk of K steps
 
     kernels = [
         {"name": "fused_dense_layer (K1)", "route": "cuda",
@@ -3372,7 +3990,7 @@ def main() -> int:
          "replaces": "fdgan_tpu/ops/pallas_dense.py:172", "launches": demo32["k1"],
          "launches_by_path": {"demo_fp32": demo32["k1"], "dp": dp_launches["fp32"]["k1"],
                               "mesh": mesh_launches["fp32"]["k1"], "sp": sp_launches["fp32"]["k1"],
-                              "export": export_launches["fp32_batch"]["k1"]},
+                              "sp_cx": sp_launches["cx"]["k1"], "export": export_launches["fp32_batch"]["k1"]},
          "max_abs_err": worst["float32"]["k1"], "ms": timed32["k1_ms"], "plain_ms": timed32["k1_plain_ms"],
          "bound_ms": timed32["k1_bound_ms"], "bound_by": timed32["k1_bound_by"],
          "cuda_core_bound_ms": timed32["k1_cuda_core_bound_ms"], "library_ms": None,
@@ -3396,7 +4014,7 @@ def main() -> int:
          "replaces": "fdgan_tpu/ops/pallas_dense.py:323", "launches": demo32["k2"],
          "launches_by_path": {"demo_fp32": demo32["k2"], "dp": dp_launches["fp32"]["k2"],
                               "mesh": mesh_launches["fp32"]["k2"], "sp": sp_launches["fp32"]["k2"],
-                              "export": export_launches["fp32_batch"]["k2"]},
+                              "sp_cx": sp_launches["cx"]["k2"], "export": export_launches["fp32_batch"]["k2"]},
          "max_abs_err": worst["float32"]["k2"], "ms": timed32["k2_ms"], "plain_ms": timed32["k2_plain_ms"],
          "bound_ms": timed32["k2_bound_ms"], "bound_by": timed32["k2_bound_by"],
          "cuda_core_bound_ms": timed32["k2_cuda_core_bound_ms"], "library_ms": None,
@@ -3428,7 +4046,7 @@ def main() -> int:
             "launches": probe_launches[name],
             "launches_by_path": {"serving": 0, "training": 0, "probes": probe_launches[name],
                                  "demo": demo_probe_launches[name], "train_cli": 0, "zoo": 0, "dp": 0, "mesh": 0,
-                                 "sp": 0, "export": 0},
+                                 "sp": 0, "export": 0, "warmup": 0, "sp_cx": 0, "device_loop": 0},
             "max_abs_err": probe_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call

@@ -17,6 +17,16 @@ normalize=True protocol (demo.py:151).
 inside, no model code), as the JAX CLI serves a ``.shlo``; its device is
 the program's, and it runs with TF32 off (the fp32 programs' contract).
 
+``--warmup 384x512,720x1280`` runs every batch-ladder rung at each shape's
+bucket once before serving starts, and ``--http`` does so at the bucket
+shape unless ``--noWarmup``; ``--autoWarm`` (on by default with ``--http``,
+off with ``--noAutoWarm``) runs a new bucket's other rungs in the background
+after its first batch (``InferenceEngine.warmup``, ``auto_warm``), as the
+JAX CLI's flags do. Eager PyTorch compiles no program per shape; what a
+shape's first batch pays here is the kernels' library and CUDA's lazy
+loading of its modules, cuDNN's choice of algorithms for the shape and the
+caching allocator's growth.
+
 A data × spatial mesh runs one process a card, started as the training
 CLI's ranks are (``FDGAN_TPU_DIST`` with its coordinates, or torchrun),
 with world size dataShards × spatialShards; rank 0 reads, serves and
@@ -62,6 +72,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "/dehaze, GET /healthz, GET /stats, POST /reload")
     p.add_argument("--httpHost", default="127.0.0.1",
                    help="bind address for --http (default loopback)")
+    p.add_argument("--warmup", default="",
+                   help="comma-separated HxW input shapes (e.g. '384x512,720x1280') to run once, every batch "
+                        "ladder rung per shape, before serving starts: a shape's first batch pays for cuDNN's "
+                        "choice of algorithms, CUDA's lazy loading of the kernels and the allocator's growth. "
+                        "--http defaults to warming the bucket shape's full ladder even without this flag")
+    p.add_argument("--noWarmup", action="store_true",
+                   help="skip the default --http startup warmup (the first requests then pay it)")
+    p.add_argument("--autoWarm", action="store_true",
+                   help="when a NEW shape bucket runs its first batch on the request path, run its other batch "
+                        "ladder rungs on a background thread (shapes not known at --warmup time). Default ON "
+                        "for --http: the startup warmup covers only the bucket shape, and real photos bucket "
+                        "larger")
+    p.add_argument("--noAutoWarm", action="store_true", help="disable the --http default auto-warm")
     p.add_argument("--artifact", default="",
                    help="serve the folder from an exported program (.pt2 from cli/convert; weights inside, "
                         "no model code) instead of the engine")
@@ -95,6 +118,7 @@ def main(argv=None):
             raise SystemExit("--artifact runs one program in one process: drop --dataShards/--spatialShards")
         return _serve_artifact(opt)
 
+    shapes = warmup_shapes(opt)
     import torch
 
     from fdgan_tpu_torch.cli._common import load_generator
@@ -155,15 +179,40 @@ def main(argv=None):
         input=opt.inputDtype,
         mesh=mesh,
         spatial=opt.spatialShards > 1,
+        auto_warm=(opt.autoWarm or bool(opt.http)) and not opt.noAutoWarm,
     )
     del model
     if rank != 0:  # rank 0 reads, serves and writes
         engine.serve_worker()
         return
     try:
+        if shapes:
+            t0 = time.time()
+            engine.warmup(shapes)
+            print(f"warmed {len(shapes)} shape(s) x {len(engine.batch_sizes)} ladder rungs in "
+                  f"{time.time() - t0:.1f}s ({engine.stats['compiles']} compiles)")
         _serve(opt, engine, names if not opt.http else None, out_names if not opt.http else None)
     finally:
         engine.close()
+
+
+def warmup_shapes(opt) -> list:
+    """The (H, W) shapes to warm before serving: ``--warmup``'s, else the
+    bucket shape for ``--http`` (unless ``--noWarmup``), else none. Stops on
+    a ``--warmup`` that does not parse, with the JAX CLI's message."""
+    if opt.warmup:
+        try:
+            shapes = [tuple(int(d) for d in s.lower().split("x")) for s in opt.warmup.split(",") if s.strip()]
+            if any(len(s) != 2 for s in shapes):
+                raise ValueError
+        except ValueError:
+            raise SystemExit(f"--warmup must look like '384x512,720x1280', got {opt.warmup!r}")
+        return shapes
+    if opt.http and not opt.noWarmup:
+        # before the port is bound: a server reachable on the network would otherwise make its first
+        # requests at each rung pay the cold start
+        return [(opt.bucket, opt.bucket)]
+    return []
 
 
 def _folder(opt):

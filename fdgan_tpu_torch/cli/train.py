@@ -20,11 +20,25 @@ loadable by ``cli/demo --netG`` and ``cli/serve``) with a
 
 ``--impl {kernels,plain}`` replaces the JAX CLI's ``xla``/``pallas``: the
 port's step always runs ``fdgan_fast``. ``--device`` (default ``cuda``) says
-where the loop runs; with no card and no ``--device cpu`` it stops. Flags of
-the TPU's workarounds and of what is not ported yet are accepted and refused
-with the ROADMAP item that holds them. A run also resumes from the JAX CLI's
-``ckpt_{step}.msgpack`` (a whole ``TrainState``), the newest of both kinds
-by step.
+where the loop runs; with no card and no ``--device cpu`` it stops. A run
+also resumes from the JAX CLI's ``ckpt_{step}.msgpack`` (a whole
+``TrainState``), the newest of both kinds by step.
+
+With ``--valDataroot`` in one process, a val set whose images stack is
+staged on the device once and evaluated there (``train/loop.py::
+make_device_eval``; two scalars cross to the host an eval), as the JAX CLI
+does (``:378-402``); a ragged or too large val set takes the host loop
+(:func:`evaluate`).
+
+``--deviceSteps K`` is the JAX CLI's device-resident loop (``:474-614``):
+the whole dataset staged on the device, K steps a chunk
+(``make_device_loop``, or ``make_device_pool_loop`` with ``--poolSize > 0``)
+over a shuffled index sequence (:func:`index_sequence`), the metrics fetched
+once a chunk, and checkpoints at epoch boundaries written from a background
+thread (``io/checkpoint.AsyncCheckpointer``) unless ``--noAsyncCkpt``:
+
+    python -m fdgan_tpu_torch.cli.train --dataroot ds/ --exp exp/ --imageSize 256 --batchSize 4 \
+        --deviceSteps 64 --poolSize 50 --ckptEvery 8 --precision bf16
 
 Multi-process data parallelism is the JAX CLI's (``:162-215``, ``:616-660``):
 ``FDGAN_TPU_DIST=1`` with ``FDGAN_TPU_DIST_COORD`` / ``_NPROCS`` / ``_PID``,
@@ -46,12 +60,13 @@ is n_data × N processes in ``dist.mesh.make_mesh``'s ("data", "spatial")
 layout, the ranks of a data group load the same images (the loader's shard
 is the data index, rank // N, and the batch ``batchSize // n_data``) and
 each keeps its band of rows (``dist.mesh.mesh_block``), and the step is
-``train/loop.py``'s with the mesh. JAX's refusal of the flag under
-``FDGAN_TPU_DIST`` (each process loading whole images) does not apply here:
-the ranks of a data group load the same images with the same seed. One
-process holds one card, so a single process refuses the flag; so does the
-contextual term (ROADMAP.md, Queue 1 item 11c), and an ``--imageSize`` whose
-bands are too thin for the discriminator's tail:
+``train/loop.py``'s with the mesh (the contextual term too:
+``losses/contextual.py`` gathers the target over the bands). JAX's refusal
+of the flag under ``FDGAN_TPU_DIST`` (each process loading whole images)
+does not apply here: the ranks of a data group load the same images with the
+same seed. One process holds one card, so a single process refuses the
+flag; so does an ``--imageSize`` whose bands are too thin for the
+discriminator's tail:
 
     FDGAN_TPU_DIST=1 torchrun --nproc-per-node 4 -m fdgan_tpu_torch.cli.train ... --imageSize 2048 \
         --batchSize 1 --spatialShards 4 --rematStages --precision bf16
@@ -73,14 +88,19 @@ from fdgan_tpu_torch.cli._common import fp32_exact, load_discriminator, load_gen
 from fdgan_tpu_torch.dist import mesh
 from fdgan_tpu_torch.io.checkpoint import latest_checkpoint, load_checkpoint, load_jax_checkpoint, save_checkpoint
 
-ROADMAP_NOT_PORTED = "ROADMAP.md, Queue 1 item 4: not ported unless the card shows a need"
+# what the device-resident loop may stage, as shares of the device's free memory when the loop starts: JAX's
+# guards, 6 GB for the dataset and 2 GB for the val set (cli/train.py:389, :506), of a TPU v5e's 16 GB
+DATASET_SHARE, VAL_SHARE = 3 / 8, 1 / 8
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--dataset", default="pix2pix")
     p.add_argument("--dataroot", default="", help="path to train dataset")
-    p.add_argument("--valDataroot", default="")
+    p.add_argument("--valDataroot", default="",
+                   help="val dataset: PSNR/SSIM every --evalIter steps. In one process a val set whose images stack "
+                        "and that takes at most 1/8 of the device's free memory is staged on the device once and "
+                        "evaluated there (two scalars fetched an eval); else the host loop")
     p.add_argument("--batchSize", type=int, default=8)
     p.add_argument("--originalSize", type=int, default=286)
     p.add_argument("--imageSize", type=int, default=256)
@@ -129,9 +149,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keepBest", action="store_true",
                    help="keep the generator at the best val PSNR and save it as netG_best.pth at exit")
     p.add_argument("--ckptEvery", type=int, default=1,
-                   help="save a checkpoint every N epochs (a final one is always written)")
-    p.add_argument("--noAsyncCkpt", action="store_true", help="refused: saves are always blocking here")
-    p.add_argument("--deviceSteps", type=int, default=0, help="refused: the TPU's device-resident loop")
+                   help="save a checkpoint every N epochs (a final one is always written). --deviceSteps runs "
+                        "write it from a background thread while the next chunk trains "
+                        "(io/checkpoint.AsyncCheckpointer) unless --noAsyncCkpt")
+    p.add_argument("--noAsyncCkpt", action="store_true",
+                   help="block training during checkpoint saves instead of writing them from a background thread "
+                        "(--deviceSteps runs only; an async save's copy of the state on the device briefly "
+                        "doubles the state's device memory)")
+    p.add_argument("--deviceSteps", type=int, default=0,
+                   help="device-resident training: stage the WHOLE dataset on the device once (in bf16 with "
+                        "--precision bf16) and run this many train steps a chunk, each batch read by a "
+                        "device-side index and the metrics fetched once a chunk, so that the host never waits "
+                        "on the device inside a chunk. The stacked dataset may take at most 3/8 of the device's "
+                        "free memory when the loop starts (JAX's 6 GB of a 16 GB TPU). With --poolSize > 0 the "
+                        "ImagePool rides along as a buffer on the device. One process only")
     p.add_argument("--spatialShards", type=int, default=1,
                    help="split each image's H axis into bands over this many processes (FDGAN_TPU_DIST); the "
                         "memory lever for large images, with --rematStages")
@@ -140,26 +171,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse(opt: argparse.Namespace) -> None:
-    """Stop on flags the port accepts for compatibility but does not run."""
-    if opt.deviceSteps > 0:
-        raise SystemExit("--deviceSteps: the device-resident lax.scan loop is a workaround for the TPU's host "
-                         f"link ({ROADMAP_NOT_PORTED}); drop the flag to run the streaming loop")
-    if opt.noAsyncCkpt:
-        raise SystemExit("--noAsyncCkpt: the port's checkpoint saves are always blocking; AsyncCheckpointer is "
-                         f"not ported ({ROADMAP_NOT_PORTED}); drop the flag")
+    """Stop on a combination of flags that cannot run, before a process
+    group is joined."""
+    if opt.deviceSteps > 0 and os.environ.get("FDGAN_TPU_DIST"):
+        raise SystemExit(DEVICE_STEPS_SINGLE)
     if opt.spatialShards > 1:
         if not os.environ.get("FDGAN_TPU_DIST"):
             raise SystemExit(f"--spatialShards {opt.spatialShards}: each band of an image is one process with its "
                              "own card; launch N x n_data processes under FDGAN_TPU_DIST, e.g. FDGAN_TPU_DIST=1 "
                              f"torchrun --nproc-per-node {opt.spatialShards} -m fdgan_tpu_torch.cli.train ... "
                              f"--spatialShards {opt.spatialShards}")
-        if opt.lambdaCX > 0:
-            raise SystemExit("--lambdaCX with --spatialShards > 1: the contextual term meets every position with "
-                             "every target position, across the bands; not ported (ROADMAP.md, Queue 1 item 11c)")
         check_bands(opt.imageSize, opt.spatialShards)
     if opt.poolSize > 0 and opt.accumSteps > 1:
         raise SystemExit("--accumSteps > 1 requires --poolSize 0 (the ImagePool G/D split does not "
                          "accumulate; it would silently ignore the flag)")
+
+
+DEVICE_STEPS_SINGLE = ("--deviceSteps stages the dataset on locally-addressable devices and is single-process for now; "
+                       "drop it under FDGAN_TPU_DIST")
 
 
 def check_bands(image_size: int, n_spatial: int) -> None:
@@ -195,6 +224,124 @@ def evaluate(g, val_loader: Iterable, device, impl: str = "kernels"):
             psnrs.append(psnr(x01.cpu().numpy(), gt))
             ssims.append(float(ssim(x01, torch.from_numpy(gt).to(device))))
     return float(np.mean(psnrs)), float(np.mean(ssims))
+
+
+def index_sequence(n_batches: int, epochs: int, chunk: int, seed: int) -> np.ndarray:
+    """The batch indices of a ``--deviceSteps`` run in order, the JAX CLI's
+    (``:535-540``): a permutation of the staged batches per epoch from
+    ``np.random.default_rng(seed + 2)``, concatenated, and padded to a whole
+    chunk with further epochs' permutations (a few surplus steps)."""
+    rng = np.random.default_rng(seed + 2)
+    return np.concatenate([rng.permutation(n_batches) for _ in range(epochs + chunk // n_batches + 1)]).astype(np.int64)
+
+
+def free_memory(device) -> int:
+    """The bytes free on ``device`` now: the card's, or the host's available
+    physical memory for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def device_eval(val_loader: Iterable, device, impl: str = "kernels"):
+    """``train/loop.py::make_device_eval`` over ``val_loader``'s pairs, staged
+    on ``device``; None (the host loop then) when the images do not stack or
+    the stacked set would take more than VAL_SHARE of the device's free
+    memory, as the JAX CLI's guard (``:384-402``)."""
+    from fdgan_tpu_torch.train.loop import make_device_eval
+
+    try:
+        vh = np.stack([np.asarray(b[0], np.float32) for b in val_loader])
+        vg = np.stack([np.asarray(b[1], np.float32) for b in val_loader])
+    except ValueError:  # ragged val shapes: the host loop
+        return None
+    if vh.nbytes + vg.nbytes > VAL_SHARE * free_memory(device):
+        print(f"val set is {(vh.nbytes + vg.nbytes) / 1e9:.1f} GB stacked — using the streaming host eval loop "
+              "instead of staging it")
+        return None
+    return make_device_eval(vh, vg, device, impl)
+
+
+def _device_steps(opt, loader, state, device, compute_dtype, logger, meter, g_step_d_step, train_step, run_eval):
+    """The ``--deviceSteps`` loop (the module's docstring; JAX's
+    ``cli/train.py:474-614``): stage, run the chunks, log, evaluate, save.
+    Returns the state; the caller saves the best and closes the log."""
+    from fdgan_tpu_torch.io.checkpoint import AsyncCheckpointer
+    from fdgan_tpu_torch.train.loop import make_device_loop, make_device_pool_loop
+    from fdgan_tpu_torch.train.pool import device_pool_init
+
+    batches = [(np.asarray(h, np.float32), np.asarray(g, np.float32)) for h, g in loader
+               if h.shape[0] == opt.batchSize]
+    if not batches:
+        raise SystemExit("no full batches to stage for --deviceSteps")
+    # the step casts both inputs to compute_dtype anyway (the same rounding on the host), so a bf16 run stages
+    # them cast: half the memory and half the upload
+    haze_all = torch.from_numpy(np.stack([h for h, _ in batches])).to(compute_dtype)
+    gt_all = torch.from_numpy(np.stack([g for _, g in batches])).to(compute_dtype)
+    del batches
+    nbytes = haze_all.nbytes + gt_all.nbytes
+    budget = DATASET_SHARE * free_memory(device)
+    if nbytes > budget:
+        raise SystemExit(f"--deviceSteps dataset is {nbytes / 1e9:.1f} GB stacked — too large to stage next to "
+                         f"the model (at most 3/8 of the device's free memory, {budget / 1e9:.1f} GB); use the "
+                         "streaming path (omit --deviceSteps)")
+    K = opt.deviceSteps
+    print(f"staging {haze_all.shape[0]} batches ({nbytes / 1e6:.0f} MB) on device; {K} steps/dispatch")
+    haze_all, gt_all = haze_all.to(device), gt_all.to(device)
+    nb = haze_all.shape[0]
+    if g_step_d_step is not None:
+        pool_buf, n_filled = device_pool_init(opt.poolSize, haze_all.shape[1:], compute_dtype, device)
+        pool_rng = torch.Generator(device=device)
+        pool_rng.manual_seed(opt.seed + 3)  # JAX's data_rng, PRNGKey(seed + 3)
+        run_pool = make_device_pool_loop(*g_step_d_step, K)
+    else:
+        run = make_device_loop(train_step, K)
+    n_chunks = (opt.epochs * nb + K - 1) // K
+    # uploaded once: each chunk's indices are a slice of it on the device, not a copy from the host
+    seq = torch.from_numpy(index_sequence(nb, opt.epochs, K, opt.seed)).to(device)
+    saver = None if opt.noAsyncCkpt else AsyncCheckpointer()
+    last_saved = -1
+    for c in range(n_chunks):
+        before = state.step
+        t_chunk = time.time()
+        idx = seq[c * K:(c + 1) * K]
+        if g_step_d_step is not None:
+            state, pool_buf, n_filled, ms = run_pool(state, pool_buf, n_filled, haze_all, gt_all, idx, pool_rng)
+        else:
+            state, ms = run(state, haze_all, gt_all, idx)
+        names = list(ms)
+        values = torch.stack([ms[k].float() for k in names]).cpu().numpy()  # the chunk's one fetch
+        # the wall covers the chunk and its fetch; eval and checkpoint I/O below are reported apart
+        wall = time.time() - t_chunk
+        for j in range(K):
+            s = before + j + 1
+            if s % opt.logEvery == 0:
+                entry = {k: float(values[n, j]) for n, k in enumerate(names)}
+                entry["imgs_per_sec"] = K * opt.batchSize / wall
+                logger.log(s, entry)
+        meter.update(float(values[names.index("g_total")].mean()))
+        after = before + K
+        if run_eval is not None and after // opt.evalIter > before // opt.evalIter:
+            run_eval()
+        if after // nb > before // nb:  # crossed an epoch boundary
+            if (after // nb) % max(opt.ckptEvery, 1) == 0:
+                t_save = time.time()
+                if saver is not None:
+                    # a copy on the device now; its fetch and write overlap the next chunk
+                    saver.save(opt.exp, state, step=after)
+                    print(f"ckpt step {after}: snapshot queued in {time.time() - t_save:.1f}s (background write)")
+                else:
+                    save_checkpoint(opt.exp, state, step=after)
+                    print(f"ckpt step {after}: saved in {time.time() - t_save:.1f}s (blocking)")
+                last_saved = after
+            print(f"epoch {min(after // nb, opt.epochs) - 1} done ({K * opt.batchSize / wall:.1f} img/s "
+                  f"device-resident); avg g_loss {meter.avg:.4f}")
+    if saver is not None:
+        saver.wait()  # a writer's error surfaces before the final save
+    if last_saved != state.step:  # an epoch boundary's save of this very step has landed already
+        save_checkpoint(opt.exp, state, step=state.step)
+    return state
 
 
 class _NullLogger:
@@ -240,6 +387,8 @@ def _train(opt, loader, val_loader, device):
     n_data = nprocs // n_sp
     local_batch = opt.batchSize // n_data  # == batchSize single-process
     if nprocs > 1:
+        if opt.deviceSteps > 0:
+            raise SystemExit(DEVICE_STEPS_SINGLE)
         if opt.batchSize % n_data:
             raise SystemExit(f"--batchSize {opt.batchSize} (global) must divide by the {n_data} data shards")
         print(f"multi-process: {nprocs} processes x 1 local devices = {nprocs} global; this is process {pid}")
@@ -315,8 +464,14 @@ def _train(opt, loader, val_loader, device):
         best.update(psnr=prev["psnr"], step=prev["step"])
         print(f"existing best kept as the bar: {prev['psnr']:.2f} dB @ {prev['step']}")
 
+    evaluating = is_main and val_loader is not None and opt.evalIter  # no collective: rank 0 alone
+    evaluate_fn = device_eval(val_loader, device, opt.impl) if evaluating and nprocs == 1 else None
+    if evaluate_fn is None:
+        def evaluate_fn(g):
+            return evaluate(g, val_loader, device, opt.impl)
+
     def run_eval():
-        v_psnr, v_ssim = evaluate(state.g, val_loader, device, opt.impl)
+        v_psnr, v_ssim = evaluate_fn(state.g)
         logger.log(state.step, {"val_psnr": v_psnr, "val_ssim": v_ssim})
         if opt.keepBest and v_psnr > best["psnr"]:
             # the step updates G in place: keep copies, not the live tensors
@@ -342,9 +497,18 @@ def _train(opt, loader, val_loader, device):
 
     if opt.keepBest:
         atexit.register(save_best_at_exit)
-    evaluating = is_main and val_loader is not None and opt.evalIter  # no collective: rank 0 alone
     if evaluating:
         run_eval()  # step-0 baseline, so that the logged val trend stands alone
+    if opt.deviceSteps > 0:
+        state = _device_steps(opt, loader, state, device, compute_dtype, logger, meter,
+                              g_step_d_step=(g_step, d_step) if use_pool else None,
+                              train_step=None if use_pool else train_step,
+                              run_eval=run_eval if evaluating else None)
+        save_best()
+        if opt.keepBest:
+            atexit.unregister(save_best_at_exit)
+        logger.close()
+        return state
 
     t_log = time.time()
     for epoch in range(opt.epochs):

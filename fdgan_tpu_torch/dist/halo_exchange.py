@@ -22,6 +22,16 @@ is a conv's zero padding.
   keeps only the rows of the global output it owns.
 - :func:`global_mean`: a loss term's mean over the whole image, as each
   rank's share of it.
+- :func:`gather_rows` and :func:`group_amax`: the two collectives of the
+  contextual term (``losses/contextual.py``), where every image position
+  meets every target position across the bands. :func:`gather_rows` is the
+  whole image's rows of a band on every rank (an all-gather along H, whose
+  backward sums the cotangents over the group and keeps this rank's rows:
+  a reduce-scatter); :func:`group_amax` the max over a dim that the group's
+  ranks hold in slices (an all-reduce MAX, whose backward sums the
+  cotangents over the group and routes them to the positions that hold the
+  max, ties split evenly over the whole group, as ``torch.amax`` and JAX's
+  ``max`` split them).
 - :func:`spatial_sharding`: the context in which the models and the losses
   run sharded. Inside it ``nn.layers.Conv2d`` takes its halo here, the dense
   blocks give K1 their neighbours' rows (``ops/dense.py``), K3 and SSIM take
@@ -38,8 +48,11 @@ counts those exchanges).
 
 ``counts`` holds the exchanges this process made (``exchanges``: one per
 call with a neighbour, forward or backward), the bytes it sent, the
-exchanges staged through the host, and the all-reduces of
-:func:`global_mean`'s counts (``counts``).
+exchanges staged through the host, the all-reduces of
+:func:`global_mean`'s counts (``counts``), and the calls of
+:func:`gather_rows` (``gathers``, forward or backward) and of
+:func:`group_amax` (``max_reduces``: its all-reduce MAX forward and its
+all-reduce SUM backward, one each).
 """
 
 from __future__ import annotations
@@ -54,13 +67,13 @@ import torch.nn.functional as F
 
 from fdgan_tpu_torch.dist.stats import global_batch_stats
 
-counts = {"exchanges": 0, "bytes": 0, "host_staged": 0, "counts": 0}
+counts = {"exchanges": 0, "bytes": 0, "host_staged": 0, "counts": 0, "gathers": 0, "max_reduces": 0}
 
 _TAG_DOWN, _TAG_UP = 1, 2  # a message to the next rank, to the previous one
 
 
 def reset_counts() -> None:
-    counts.update(exchanges=0, bytes=0, host_staged=0, counts=0)
+    counts.update(exchanges=0, bytes=0, host_staged=0, counts=0, gathers=0, max_reduces=0)
 
 
 def halo_sizes(kernel: int, padding: int, stride: int) -> Tuple[int, int]:
@@ -337,3 +350,89 @@ def exchange_rows(src: torch.Tensor, top: torch.Tensor, bottom: torch.Tensor, sh
     ((B, 1, W, C) tensors, written in place, channel slices of the dense
     block's halo rows; not written at the ends of the ring). No autograd."""
     _swap(shard, src[:, :1], src[:, -1:], top, bottom)
+
+
+def _band_sizes(n: int, shard: SpatialShard, device) -> list:
+    """Every rank's extent along the gathered dim, in the group's order (the
+    bands may be uneven: ``dist.mesh.spatial_rows``). One small all-gather,
+    read on the host."""
+    mine = torch.full((1,), n, dtype=torch.int64, device=device)
+    sizes = [torch.empty_like(mine) for _ in range(shard.size)]
+    dist.all_gather(sizes, mine, group=shard.group)
+    return [int(t) for t in torch.cat(sizes).tolist()]
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard: SpatialShard, dim: int):
+        # gloo reads a CUDA tensor's all-gather through host memory, as its point-to-point ops
+        home = torch.device("cpu") if x.device.type != "cpu" and dist.get_backend(shard.group) == "gloo" \
+            else x.device
+        sizes = _band_sizes(x.shape[dim], shard, home)
+        most = max(sizes)
+        mine = x.detach().to(home)
+        if x.shape[dim] < most:  # all-gather takes equal shapes: pad to the longest band, cut after
+            pad = list(x.shape)
+            pad[dim] = most - x.shape[dim]
+            mine = torch.cat([mine, mine.new_zeros(pad)], dim)
+        parts = [torch.empty_like(mine) for _ in range(shard.size)]
+        dist.all_gather(parts, mine.contiguous(), group=shard.group)
+        counts["gathers"] += 1
+        ctx.meta = (shard, dim, sizes)
+        return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)], dim).to(x.device)
+
+    @staticmethod
+    def backward(ctx, ct):
+        shard, dim, sizes = ctx.meta
+        # the reduce-scatter of the cotangents, as one all-reduce (sum) and this rank's rows: gloo has no
+        # reduce-scatter, and the contextual term's gather is of the target, whose rows need no gradient
+        total = ct.contiguous().clone()
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=shard.group)
+        counts["gathers"] += 1
+        return total.narrow(dim, sum(sizes[:shard.index]), sizes[shard.index]), None, None
+
+
+def gather_rows(x: torch.Tensor, dim: int = 1, shard: Optional[SpatialShard] = None) -> torch.Tensor:
+    """The whole image along ``dim`` on every rank of the spatial group of
+    ``shard`` (default: :func:`current`'s), from each rank's band of it, in
+    the group's order (bands may be uneven). Differentiable: the gradient of
+    a band is the sum over the group of the cotangents of its rows."""
+    shard = shard if shard is not None else current()
+    if shard is None:
+        raise RuntimeError("gather_rows runs inside spatial_sharding, over a spatial group of more than one rank")
+    return _GatherRows.apply(x, shard, dim)
+
+
+class _GroupAmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, shard: SpatialShard):
+        m = x.amax(dim)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=shard.group)
+        counts["max_reduces"] += 1
+        ctx.save_for_backward(x, m)
+        ctx.meta = (dim, shard)
+        return m
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, m = ctx.saved_tensors
+        dim, shard = ctx.meta
+        hit = x == m.unsqueeze(dim)
+        # one all-reduce (sum): the group's cotangents of the max, and its count of positions that hold it
+        both = torch.stack([ct.float(), hit.sum(dim).float()])
+        dist.all_reduce(both, op=dist.ReduceOp.SUM, group=shard.group)
+        counts["max_reduces"] += 1
+        share = (both[0] / both[1]).to(x.dtype).unsqueeze(dim)
+        return torch.where(hit, share, torch.zeros((), dtype=x.dtype, device=x.device)), None, None
+
+
+def group_amax(x: torch.Tensor, dim: int, shard: Optional[SpatialShard] = None) -> torch.Tensor:
+    """The max of x over ``dim``, where each rank of the spatial group of
+    ``shard`` (default: :func:`current`'s) holds a slice of that dim and the
+    same extent elsewhere: the same result on every rank. Differentiable:
+    the cotangents of the group are summed and shared evenly by the
+    positions, on any rank, that hold the max."""
+    shard = shard if shard is not None else current()
+    if shard is None:
+        raise RuntimeError("group_amax runs inside spatial_sharding, over a spatial group of more than one rank")
+    return _GroupAmax.apply(x, dim, shard)

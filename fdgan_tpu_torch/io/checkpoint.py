@@ -13,7 +13,16 @@ Counterpart of ``fdgan_tpu/io/checkpoint.py`` (``save_checkpoint``,
 Files are written atomically (``path + ".tmp"``, then ``os.replace``) and
 read with ``weights_only=True``. A load checks every tensor's name, shape and
 dtype against the live state first, as the JAX ``load_checkpoint`` checks
-its leaves (``:97-126``). Not ported: ``AsyncCheckpointer`` (ROADMAP.md).
+its leaves (``:97-126``).
+
+:class:`AsyncCheckpointer` (JAX's, ``:37-94``) writes a checkpoint from a
+background thread while training goes on: one write in flight, the
+writer's errors raised on the next ``wait()`` or ``save()``, an atomic
+``os.replace``. Where JAX's hazard is the next dispatch donating the
+state's buffers, here it is Adam updating the live parameters in place:
+``save()`` first takes a copy of every tensor of the state on the device,
+on the current stream, and only that copy crosses to the host, on a stream
+of the writer's own, after the copy's event.
 
 :func:`save_params` and :func:`load_params` write and read one model in the
 JAX package's own params file, a ``.msgpack`` (``fdgan_tpu/io/checkpoint.py
@@ -44,6 +53,7 @@ from __future__ import annotations
 import glob
 import os
 import re
+import threading
 from typing import List, Mapping, Optional, Tuple
 
 import torch
@@ -56,20 +66,156 @@ _CKPT = re.compile(r"ckpt_(\d+)\.(pt|msgpack)$")
 _TRANSPOSED = {"g": FDGAN_TRANSPOSED, "d": frozenset()}  # G's and D's ConvTranspose2d paths
 
 
+def _blob(state) -> dict:
+    """What a checkpoint file holds of ``state`` (the module's docstring):
+    the live tensors, not copies."""
+    return {"g": state.g.state_dict(), "d": state.d.state_dict(),
+            "g_opt": state.g_opt.state_dict(), "d_opt": state.d_opt.state_dict(),
+            "step": int(state.step), "d_updates": int(state.d_updates)}
+
+
 def save_checkpoint(path: str, state, step: Optional[int] = None) -> str:
-    """Write ``state`` (a ``train.loop.TrainState``) to ``path``, or to
-    ``path/ckpt_{step}.pt`` when ``step`` is given and ``path`` is not a
-    ``.pt`` file. Returns the file's path."""
+    """Write ``state`` (a ``train.loop.TrainState``, or the dict of a
+    checkpoint file that :class:`AsyncCheckpointer` snapshots) to ``path``,
+    or to ``path/ckpt_{step}.pt`` when ``step`` is given and ``path`` is not
+    a ``.pt`` file. Returns the file's path."""
     if step is not None and not path.endswith(".pt"):
         os.makedirs(path, exist_ok=True)
         path = os.path.join(path, f"ckpt_{step}.pt")
-    blob = {"g": state.g.state_dict(), "d": state.d.state_dict(),
-            "g_opt": state.g_opt.state_dict(), "d_opt": state.d_opt.state_dict(),
-            "step": int(state.step), "d_updates": int(state.d_updates)}
+    blob = state if isinstance(state, dict) else _blob(state)
     tmp = path + ".tmp"
-    torch.save(blob, tmp)
+    with open(tmp, "wb") as f:  # a file object: its writes release the GIL, which a writer thread needs
+        torch.save(blob, f)
     os.replace(tmp, path)
     return path
+
+
+class _Slot:
+    """Where a tensor of the flat snapshot goes back: its buffer (device and
+    dtype), shape and element count, in the order the tree is walked."""
+
+    __slots__ = ("key", "shape", "numel")
+
+    def __init__(self, t: torch.Tensor):
+        self.key, self.shape, self.numel = (t.device, t.dtype), tuple(t.shape), t.numel()
+
+
+def _tree(v, fn, leaf=torch.Tensor):
+    """``fn`` applied to every ``leaf`` of a nest of dicts, lists and tuples,
+    in a fixed order."""
+    if isinstance(v, leaf):
+        return fn(v)
+    if isinstance(v, dict):
+        return {k: _tree(x, fn, leaf) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_tree(x, fn, leaf) for x in v)
+    return v
+
+
+def _snapshot(blob: dict):
+    """(skeleton, flat, event): the checkpoint dict with every tensor
+    replaced by a :class:`_Slot`; the tensors copied, on their device and
+    on its current stream, into one flat buffer per device and dtype (one
+    ``torch.cat`` each: a copy of the state costs the host a few calls, not
+    one per tensor); and an event recorded after the device's copies (None
+    when every tensor is on the CPU)."""
+    parts: dict = {}
+
+    def take(t):
+        slot = _Slot(t)
+        parts.setdefault(slot.key, []).append(t.detach().reshape(-1))
+        return slot
+
+    skeleton = _tree(blob, take)
+    flat = {key: torch.cat(ts) for key, ts in parts.items()}
+    event = None
+    cuda = [device for device, _ in flat if device.type == "cuda"]
+    if cuda:
+        with torch.cuda.device(cuda[0]):
+            event = torch.cuda.Event()
+            event.record()
+    return skeleton, flat, event
+
+
+def _to_host(skeleton, flat: dict, event: Optional["torch.cuda.Event"]) -> dict:
+    """The checkpoint dict in host memory, every slot a view of its flat
+    buffer. Once ``event`` has passed, the device's buffers are copied into
+    pinned memory on a stream of their own (the training stream is left
+    alone; the thread waits on an event, which synchronises neither a
+    stream nor the device)."""
+    host = {key: f for key, f in flat.items() if not f.is_cuda}
+    on_card = {key: f for key, f in flat.items() if f.is_cuda}
+    if on_card:
+        device = next(iter(on_card.values())).device
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_event(event)
+            with torch.cuda.stream(side):
+                host |= {key: torch.empty(f.shape, dtype=f.dtype, pin_memory=True).copy_(f, non_blocking=True)
+                         for key, f in on_card.items()}
+            done = torch.cuda.Event()
+            done.record(side)
+            done.synchronize()
+    offsets = dict.fromkeys(host, 0)
+
+    def place(slot: _Slot):
+        at = offsets[slot.key]
+        offsets[slot.key] = at + slot.numel
+        return host[slot.key][at:at + slot.numel].view(slot.shape)
+
+    return _tree(skeleton, place, _Slot)
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes that overlap training (JAX's ``AsyncCheckpointer``).
+
+    ``save(path, state, step)`` copies every tensor of ``state`` (a
+    ``train.loop.TrainState``) on its device, on the current stream, into
+    one buffer per device and dtype, and records an event: the training
+    that follows updates the live tensors in place, never the copy. A
+    background thread then waits for the event, brings the copy to the host
+    on a stream of its own and writes it with :func:`save_checkpoint`
+    (``.tmp`` and an atomic ``os.replace``, so that a crash mid-write never
+    spoils a checkpoint; in the file the tensors of one dtype share one
+    storage, with the values a blocking save writes). The copy holds a
+    second state's worth of device memory until the write has fetched it.
+    The writer holds Python's GIL only between its copies and writes, which
+    release it; a host-bound loop still loses that time.
+
+    One write is in flight at a time: ``save()`` first waits for the
+    previous one. ``wait()`` before reading the file back or exiting; a
+    writer's exception is raised there, or by the next ``save()``."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._err: list = []
+
+    def save(self, path: str, state, step: Optional[int] = None) -> None:
+        self.wait()
+        skeleton, flat, event = _snapshot(_blob(state))
+
+        def write():
+            try:
+                save_checkpoint(path, _to_host(skeleton, flat, event), step)
+            except BaseException as e:  # raised by the next wait() or save()
+                self._err.append(e)
+
+        self._thread = threading.Thread(target=write, name="ckpt-writer", daemon=True)
+        self._thread.start()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Join the write in flight. True when none is left. A join that
+        times out keeps the thread's handle (dropping it would let the next
+        ``save()`` start a second writer, whose file an older, slower
+        ``os.replace`` could overwrite), and returns False: call again."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                return False
+            self._thread = None
+        if self._err:
+            raise self._err.pop(0)
+        return True
 
 
 def _check(what: str, saved: Mapping[str, torch.Tensor], live: Mapping[str, torch.Tensor]) -> None:

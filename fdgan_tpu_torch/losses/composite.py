@@ -19,7 +19,9 @@ perceptual MSEs, SSIM, the logged ``d_real`` / ``d_fake``) is this rank's
 share of the whole image's: its band's sum over the global count
 (``halo_exchange.global_mean``), so that the shares of a spatial group add
 up to the mean. The contextual term, where every position meets every
-target position, is not sharded (ROADMAP.md, Queue 1 item 11c): it raises.
+target position, gathers the target's features over the spatial group and
+takes its max over image positions there; it too is this rank's share
+(``losses/contextual.py``).
 """
 
 from __future__ import annotations
@@ -78,9 +80,6 @@ def generator_loss(
         # with H sharded each rank's share of the 1, so that the shares add up to 1 − SSIM
         total = total + weights.ssim * (1.0 / halo_exchange.spatial_size() - terms["ssim"])
     if weights.contextual > 0 and vgg is not None:
-        if halo_exchange.current() is not None:
-            raise ValueError("the contextual loss with H sharded is not ported (ROADMAP.md, Queue 1 item 11c): "
-                             "every position meets every target position, across the bands")
         # relu3_3, downsampled enough for CX's cost, quadratic in H·W
         terms["contextual"] = contextual_loss(vgg(x01)[2], vgg(gt)[2])
         total = total + weights.contextual * terms["contextual"]

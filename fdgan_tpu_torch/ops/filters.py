@@ -18,6 +18,8 @@ and autograd differentiates it as it stands.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -43,10 +45,21 @@ def blur_taps() -> np.ndarray:
     return (t / t.sum()).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(dtype: torch.dtype, device: torch.device):
+    """IMAGENET_MEAN and IMAGENET_STD as tensors of ``dtype`` on ``device``,
+    copied there once: a copy from the host at every call would make the
+    host wait for the device (K3's backward runs this plain version). Made
+    outside inference mode, whichever mode the first call runs in, so that
+    autograd may save them."""
+    with torch.inference_mode(False):
+        return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+                torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def normalise(x: torch.Tensor) -> torch.Tensor:
     """(x − mean) / std per channel of NHWC x, in x's dtype."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    mean, std = _mean_std(x.dtype, x.device)
     return (x - mean) / std
 
 

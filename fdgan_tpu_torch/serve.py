@@ -15,6 +15,16 @@ serving mechanics:
   batch's CUDA event.
 * **Running-stats BN by default** — each image's result is independent of
   its batch-mates; batch-stats mode is opt-in.
+* **Warmup** — eager PyTorch compiles no program per shape, as XLA does, but
+  a shape's first batch still pays for what the card does once: the
+  kernels' library loaded and its modules loaded lazily by CUDA, cuDNN's
+  choice of algorithms for each conv shape, and the caching allocator's
+  growth. :meth:`InferenceEngine.warmup` pays it ahead for every ladder rung
+  of given shapes, and ``auto_warm`` for a new shape bucket's other rungs
+  in the background after its first batch, as the JAX engine's
+  ``warmup`` and ``_spawn_auto_warm`` compile theirs. ``stats["compiles"]``
+  counts the first batches of a (batch, H, W) shape, the counterpart of
+  JAX's compiles.
 
 The forward is ``models.fdgan_fast.apply`` (as the JAX engine's is
 ``fdgan_fast.apply``): the encoder's 42 dense layers run through the
@@ -49,7 +59,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import sys
 import threading
+import traceback
 from typing import Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -66,8 +78,8 @@ from fdgan_tpu_torch.ops import dense, stats
 __all__ = ["InferenceEngine"]
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-# the mesh's header: command, B, H, W, staging dtype (0 float32, 1 uint8)
-_CLOSE, _FORWARD, _RELOAD = 0, 1, 2
+# the mesh's header: command, B, H, W, staging dtype (0 float32, 1 uint8); a warmup's forward is _WARM
+_CLOSE, _FORWARD, _RELOAD, _WARM = 0, 1, 2, 3
 _STAGING = (torch.float32, torch.uint8)
 
 
@@ -125,6 +137,10 @@ class InferenceEngine:
         ``spatial`` size, and a bucketed H splits into whole blocks of 8
         rows (``dist.mesh.spatial_rows``). Without it a spatial group's
         ranks each run their data block whole.
+    auto_warm : after the first batch of a new (H, W) bucket, run its other
+        ladder rungs once on a background thread (each under the dispatch
+        lock, so on a mesh the ranks hear of them in order); the dedup is
+        permanent and a failed warm never stops serving.
     """
 
     def __init__(
@@ -142,6 +158,7 @@ class InferenceEngine:
         input: str = "float32",
         mesh=None,
         spatial: bool = False,
+        auto_warm: bool = False,
     ):
         if precision not in _DTYPES:
             raise ValueError(f"precision must be 'bf16' or 'fp32', got {precision!r}")
@@ -192,6 +209,7 @@ class InferenceEngine:
         self.stats = {
             "images": 0,
             "batches": 0,
+            "compiles": 0,
             "reloads": 0,
             "padded_frac": 0.0,
             "k1_launches": 0,
@@ -200,6 +218,10 @@ class InferenceEngine:
         }
         self._pix_real = 0
         self._pix_padded = 0
+        self._seen: set = set()     # (batch, H, W) shapes that have run: their first run is a "compile"
+        self._auto_warm = bool(auto_warm)
+        self._warmed: set = set()   # (H, W) buckets ever auto-warmed (dedup)
+        self._warming: set = set()  # (H, W) buckets with a warm thread live
         if mesh is not None:  # every rank serves rank 0's weights
             self._broadcast_weights(self._model)
 
@@ -291,33 +313,100 @@ class InferenceEngine:
             return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
         return contextlib.nullcontext()
 
+    def _run(self, x: torch.Tensor, tiled: bool, cmd: int = _FORWARD) -> _Pending:
+        """Under the lock: upload, enqueue the forward (tile by tile when
+        ``tiled``; on the mesh, its header ``cmd`` to the ranks first) and
+        start the result copy; no wait."""
+        meshed = self.mesh is not None and not tiled
+        forward = self._forward_tiled if tiled else self._forward_mesh if meshed else self._forward
+        with torch.inference_mode(), self._exact():
+            if meshed:  # a shape the mesh cannot split raises here, before the ranks hear of it
+                dmesh.mesh_block(x.shape, self.mesh, self.spatial)
+                self._broadcast_header(cmd, x)
+            if self.device.type != "cuda":
+                return _Pending(forward(self._model, x), None)
+            x = x.pin_memory().to(self.device, non_blocking=True)
+            y = forward(self._model, x)
+            host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+            host.copy_(y, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            return _Pending(host, event)
+
     def _dispatch(self, batch: np.ndarray, tiled: bool = False) -> _Pending:
         """Upload, enqueue the forward (tile by tile when ``tiled``) and
         start the result copy; no wait."""
         x = torch.from_numpy(batch)
-        cuda = self.device.type == "cuda"
         self._check_rank0("dispatch")
-        meshed = self.mesh is not None and not tiled
-        forward = self._forward_tiled if tiled else self._forward_mesh if meshed else self._forward
-        with self._lock, torch.inference_mode(), self._exact():
+        with self._lock:
             k1, k2, ks = dense.k1_launches, dense.k2_launches, stats.launches
-            if meshed:  # a shape the mesh cannot split raises here, before the ranks hear of it
-                dmesh.mesh_block(x.shape, self.mesh, self.spatial)
-                self._broadcast_header(_FORWARD, x)
-            if cuda:
-                x = x.pin_memory().to(self.device, non_blocking=True)
-                y = forward(self._model, x)
-                host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-                host.copy_(y, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-            else:
-                host, event = forward(self._model, x), None
+            pending = self._run(x, tiled)
+            shape = (x.shape[0], x.shape[1], x.shape[2], tiled)
+            fresh = shape not in self._seen
+            self._seen.add(shape)
+            self.stats["compiles"] += int(fresh)
             self.stats["batches"] += 1
             self.stats["k1_launches"] += dense.k1_launches - k1
             self.stats["k2_launches"] += dense.k2_launches - k2
             self.stats["channel_stats_launches"] += stats.launches - ks
-        return _Pending(host, event)
+        if fresh and self._auto_warm and not tiled:
+            self._spawn_auto_warm(int(x.shape[1]), int(x.shape[2]), int(x.shape[0]))
+        return pending
+
+    # --- warmup ---------------------------------------------------------------
+
+    def _warm_one(self, b: int, h: int, w: int) -> None:
+        """One forward of a zero batch of (b, h, w), waited for, outside
+        the dispatch statistics (a header of its own on the mesh, which the
+        ranks do not count either)."""
+        x = torch.from_numpy(np.zeros((b, h, w, 3), self._stage_dtype))
+        with self._lock:
+            pending = self._run(x, False, _WARM)
+            self._seen.add((b, h, w, False))
+        pending.fetch()
+
+    def warmup(self, shapes: Iterable[Tuple[int, int]], batch: Optional[int] = None) -> None:
+        """Run every rung of the batch ladder (``batch``: that rung only) at
+        the bucket of each (H, W) of ``shapes`` once, as the JAX engine's
+        ``warmup`` compiles them: a batch of a shape the engine has not run
+        yet counts in ``stats["compiles"]``; the other statistics do not
+        move. On a mesh the ranks run them too."""
+        self._check_rank0("warmup")
+        rungs = self.batch_sizes if batch is None else (batch,)
+        for h, w in shapes:
+            H, W = self._bucket_hw(h, w)
+            for rung in rungs:
+                b = self._batch_bucket(rung)
+                with self._lock:
+                    self.stats["compiles"] += int((b, H, W, False) not in self._seen)
+                self._warm_one(b, H, W)
+
+    def _spawn_auto_warm(self, H: int, W: int, done_rung: int) -> None:
+        """The bucket (H, W) just ran its first batch at ``done_rung``: run
+        its other rungs on a background thread, each under the lock (a
+        request waits for at most one warm forward). Once per bucket ever;
+        a failure is reported on stderr and serving goes on; these runs do
+        not count in ``stats["compiles"]``, as JAX's do not."""
+        with self._lock:
+            if (H, W) in self._warmed:
+                return
+            self._warmed.add((H, W))
+            self._warming.add((H, W))
+
+        def warm():
+            try:
+                for rung in self.batch_sizes:
+                    b = self._batch_bucket(rung)
+                    if b != done_rung:
+                        self._warm_one(b, H, W)
+            except Exception:  # a warm failure must never stop serving: report it and go on
+                print(f"auto-warm of bucket {H}x{W} failed; serving goes on", file=sys.stderr)
+                traceback.print_exc()
+            finally:
+                with self._lock:
+                    self._warming.discard((H, W))
+
+        threading.Thread(target=warm, name=f"fdgan-warm-{H}x{W}", daemon=True).start()
 
     # --- the mesh ------------------------------------------------------------------
 
@@ -372,6 +461,8 @@ class InferenceEngine:
                 torch.distributed.broadcast(x, src=0)
                 y = self._forward_block(self._model, x)
                 dmesh.gather_batch(y, (b, h, w) + y.shape[3:], self.mesh, self.spatial)
+                if cmd == _WARM:  # outside the statistics, as on rank 0
+                    continue
                 self.stats["batches"] += 1
                 self.stats["k1_launches"] += dense.k1_launches - k1
                 self.stats["k2_launches"] += dense.k2_launches - k2

@@ -9,8 +9,14 @@ step over a data × spatial mesh gives, and what it costs.
 ``torch.save`` file holding the global batch (``haze``, ``gt``: NHWC fp32 in
 [0, 1]) and a list of runs (``runs``), each a dict: ``name``, ``mesh``
 [n_data, n_spatial], ``precision`` (fp32 | bf16), ``remat`` (False | True |
-"stages"), and optionally ``check_k3`` (a tolerance dict: every K3 launch
-with halo rows held against its twin on its own input), ``time`` (steps a
+"stages"), and optionally ``haze`` and ``gt`` (the run's own global batch),
+``contextual`` (the seed of a VGG16: the step with the contextual term at
+weight 1 on it), ``control`` ("band_local_cx": each band's contextual term
+on the band alone, its negative control), ``cx_features`` ([B, H, W, C]:
+before the step, ``losses.contextual.contextual_loss`` alone on this rank's
+band of two seeded feature maps, its gradients, its peak memory and the
+shapes of what it saves for the backward), ``check_k3`` (a tolerance dict:
+every K3 launch with halo rows held against its twin on its own input), ``time`` (steps a
 turn: the step over the mesh on this rank's block against the step of one
 card on the whole batch, in turns, one card, mesh, mesh, one card, the ranks
 meeting at a barrier before each turn) and ``profile`` (one step of the
@@ -21,8 +27,9 @@ G update and D update (``make_train_step``'s order) on its block
 (``dist.mesh.shard_batch(spatial=True)``), fp32 with TF32 off on the card.
 Each rank writes ``<out>/rank<r>.pt``: per run, the metrics, the generator's
 output on its block, the kernels' launches, the halo exchanges (and those
-staged through the host), the global means' count all-reduces and the
-statistics' all-reduces of the step, its peak memory (GiB,
+staged through the host), the global means' count all-reduces, the
+contextual term's gathers and max reductions, and the statistics'
+all-reduces of the step, its peak memory (GiB,
 ``max_memory_allocated`` over the step), the K3 checks; rank 0 also the
 gradients handed to Adam and G's and D's state dicts after the step, the
 turns and the profile. Two ranks of one card need ``--backend gloo``: NCCL
@@ -44,6 +51,8 @@ from fdgan_tpu_torch.dist import halo_exchange
 from fdgan_tpu_torch.dist import mesh as dmesh
 from fdgan_tpu_torch.dist import stats as dist_stats
 from fdgan_tpu_torch.losses.composite import LossWeights
+from fdgan_tpu_torch.losses.contextual import contextual_loss
+from fdgan_tpu_torch.models.vgg16 import VGG16
 from fdgan_tpu_torch.ops import dense, filters, freq
 from fdgan_tpu_torch.ops import stats as ops_stats
 from fdgan_tpu_torch.train.loop import create_train_state, make_gd_steps
@@ -53,6 +62,7 @@ def _counters() -> dict:
     return {"k1": dense.k1_launches, "k2": dense.k2_launches, "k3": freq.k3_launches,
             "channel_stats": ops_stats.launches, "exchanges": halo_exchange.counts["exchanges"],
             "host_staged": halo_exchange.counts["host_staged"], "counts": halo_exchange.counts["counts"],
+            "gathers": halo_exchange.counts["gathers"], "max_reduces": halo_exchange.counts["max_reduces"],
             "stats_forward": dist_stats.collectives["forward"], "stats_backward": dist_stats.collectives["backward"],
             "grads": dmesh.counts["grads"], "metrics": dmesh.counts["metrics"]}
 
@@ -91,6 +101,57 @@ def _checked_k3(tol: dict, record: dict):
         freq._launch_k3 = orig
 
 
+@contextlib.contextmanager
+def band_local_cx():
+    """The contextual term's negative control: each band's term on the band
+    alone, the target not gathered and the max over the band's rows."""
+    gather, amax = halo_exchange.gather_rows, halo_exchange.group_amax
+    halo_exchange.gather_rows = lambda x, dim=1, shard=None: x
+    halo_exchange.group_amax = lambda x, dim, shard=None: x.amax(dim)
+    try:
+        yield
+    finally:
+        halo_exchange.gather_rows, halo_exchange.group_amax = gather, amax
+
+
+def cx_features(shape, device):
+    """Image and target feature maps of ``shape`` (NHWC, non-negative as
+    relu3_3's), from a seed of their own."""
+    gen = torch.Generator().manual_seed(11)
+    return tuple(torch.rand(shape, generator=gen).to(device) for _ in range(2))
+
+
+def cx_alone(shape, mesh, device) -> dict:
+    """``contextual_loss`` on this rank's band of :func:`cx_features` with
+    H sharded over the mesh's spatial group: the share, the two gradients,
+    the shapes of every tensor saved for the backward, the collectives and
+    the peak memory above what was allocated before (GiB)."""
+    img, tgt = cx_features(shape, device)
+    r0, r1 = dmesh.spatial_rows(shape[1], dmesh.mesh_dims(mesh)[1])[mesh.get_coordinate()[1]]
+    il, tl = (t[:, r0:r1].clone().requires_grad_(True) for t in (img, tgt))
+    saved = []
+
+    def pack(t):
+        saved.append(list(t.shape))
+        return t
+
+    _synchronize(device)
+    base = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    before = _counters()
+    with halo_exchange.spatial_sharding(mesh.get_group("spatial"), None), \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        share = contextual_loss(il, tl)
+    share.backward()
+    _synchronize(device)
+    out = {"share": float(share), "di": il.grad.cpu(), "dt": tl.grad.cpu(), "saved": saved, "rows": [r0, r1],
+           "collectives": {k: v - before[k] for k, v in _counters().items() if k in ("gathers", "max_reduces")}}
+    if device.type == "cuda":
+        out["peak_gib"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    return out
+
+
 def _state(device, grads: Optional[dict] = None):
     """The seed-0 train state on ``device``, the same on every rank; with
     ``grads``, each Adam keeps the gradients it is handed there, by name."""
@@ -108,11 +169,12 @@ def _state(device, grads: Optional[dict] = None):
     return state, tx_g, tx_d
 
 
-def _stepper(tx_g, tx_d, dtype, remat, mesh):
+def _stepper(tx_g, tx_d, dtype, remat, mesh, vgg: Optional[VGG16] = None):
     """One train step (G update, then D update on its output), as a function
-    of (state, haze, gt) returning (metrics, generator output)."""
-    g_step, d_step = make_gd_steps(tx_g, tx_d, LossWeights(perceptual=0.0), compute_dtype=dtype, remat=remat,
-                                   mesh=mesh)
+    of (state, haze, gt) returning (metrics, generator output); with
+    ``vgg``, the contextual term at weight 1 on it."""
+    weights = LossWeights(perceptual=0.0, contextual=1.0 if vgg is not None else 0.0)
+    g_step, d_step = make_gd_steps(tx_g, tx_d, weights, vgg, compute_dtype=dtype, remat=remat, mesh=mesh)
 
     def step(state, haze, gt):
         _, metrics, x_hat = g_step(state, haze, gt)
@@ -159,12 +221,20 @@ def run_one(run: dict, blob: dict, device) -> dict:
     grads = {} if dmesh.rank() == 0 else None
     state, tx_g, tx_d = _state(device, grads)
     dmesh.broadcast_state(state)
-    step = _stepper(tx_g, tx_d, dtype, remat, mesh)
-    haze, gt = dmesh.shard_batch((blob["haze"].to(device), blob["gt"].to(device)), mesh, spatial=True)
+    vgg = None
+    if run.get("contextual") is not None:
+        vgg = VGG16(device=device, generator=torch.Generator().manual_seed(run["contextual"]))
+    step = _stepper(tx_g, tx_d, dtype, remat, mesh, vgg)
+    whole = (run.get("haze", blob["haze"]).to(device), run.get("gt", blob["gt"]).to(device))
+    haze, gt = dmesh.shard_batch(whole, mesh, spatial=True)
     out = {"name": run["name"], "mesh": [n_data, n_spatial], "coordinate": list(mesh.get_coordinate()),
            "rows": [int(haze.shape[0]), int(haze.shape[1])]}
     k3_check: dict = {}
-    with fp32_exact(run["precision"], device):
+    if run.get("cx_features"):
+        with fp32_exact("fp32", device):
+            out["cx_alone"] = cx_alone(run["cx_features"], mesh, device)
+    with fp32_exact(run["precision"], device), \
+            band_local_cx() if run.get("control") == "band_local_cx" else contextlib.nullcontext():
         _synchronize(device)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
@@ -182,8 +252,7 @@ def run_one(run: dict, blob: dict, device) -> dict:
                     "d": {k: v.cpu() for k, v in state.d.state_dict().items()}}
         if run.get("time"):
             single_state, sg, sd = _state(device)
-            single = _stepper(sg, sd, dtype, remat, None)
-            whole = (blob["haze"].to(device), blob["gt"].to(device))
+            single = _stepper(sg, sd, dtype, remat, None, vgg)
             out["turns"] = _turns({"single": lambda: single(single_state, *whole),
                                    "mesh": lambda: step(state, haze, gt)}, run["time"], device)
             del single_state

@@ -52,9 +52,19 @@ each loss is the rank's share of the whole image's mean. The gradients are
 summed over each spatial group and averaged over the data groups
 (``dist.mesh.average_gradients``' convention), as are the metrics. With a
 spatial axis of 1 the step is the data-parallel step above. The state is updated in place: a step
-returns the same ``TrainState``. Not ported (ROADMAP.md): the
-device-resident ``lax.scan`` loops and ``make_device_eval``, workarounds for
-the TPU's host link.
+returns the same ``TrainState``.
+
+The device-resident loop (JAX's ``make_device_loop``, ``make_device_pool_loop``
+and ``make_device_eval``, ``loop.py:228-341``; ``cli/train --deviceSteps``):
+the dataset staged on the device as ``(n_batches, b, H, W, 3)`` tensors, and
+a chunk of K steps that reads each batch by a device-side index and stacks
+its metrics on the device, so that the host enqueues K steps without
+waiting on the device once and fetches the metrics once a chunk. Where JAX
+runs the chunk as one ``lax.scan`` dispatch, the port enqueues the same
+steps eagerly; a chunk without a host synchronisation is what lets the
+host run ahead of the device, and what a CUDA graph of a chunk would need.
+``make_device_eval`` runs the val set staged on the device and fetches two
+scalars.
 """
 
 from __future__ import annotations
@@ -307,3 +317,93 @@ def make_gd_steps(
         return state, d_update(state, fake, gt)
 
     return g_step, d_step
+
+
+def _stacked(metrics: list) -> Metrics:
+    """Per-step metric dicts → each name's (K,) tensor of the chunk, on the
+    device."""
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def make_device_loop(step, chunk_steps: int):
+    """A ``make_train_step`` step as a device-resident chunk of
+    ``chunk_steps`` steps (JAX ``make_device_loop``, ``loop.py:228``).
+
+    Returns ``run(state, haze_all, gt_all, idx) -> (state, metrics)``:
+    ``haze_all`` and ``gt_all`` are the staged dataset, ``(n_batches, b, H,
+    W, 3)`` on the device (in bf16 where the step computes in bf16: its cast
+    is then the identity), ``idx`` the chunk's ``(chunk_steps,)`` int64 batch
+    indices on the device, and ``metrics`` maps each name to its
+    ``(chunk_steps,)`` tensor on the device. Step j runs on batch ``idx[j]``,
+    read by ``index_select`` with a device index: the chunk reads no value
+    on the host. The state is updated in place and returned."""
+
+    def run(state: TrainState, haze_all: torch.Tensor, gt_all: torch.Tensor, idx: torch.Tensor):
+        metrics = []
+        for j in range(chunk_steps):
+            i = idx[j:j + 1]
+            state, m = step(state, haze_all.index_select(0, i)[0], gt_all.index_select(0, i)[0])
+            metrics.append(m)
+        return state, _stacked(metrics)
+
+    return run
+
+
+def make_device_pool_loop(g_step, d_step, chunk_steps: int):
+    """The device-resident chunk with the ImagePool (misc.py:140-161; JAX
+    ``make_device_pool_loop``, ``loop.py:263``): ``make_gd_steps``' G step,
+    the pool query on the detached fakes (``train/pool.py::
+    device_pool_query``, its draws from a ``torch.Generator`` on the
+    device), then the D step on the (possibly older) fake batch.
+
+    Returns ``run(state, pool_buf, n_filled, haze_all, gt_all, idx,
+    generator) -> (state, pool_buf, n_filled, metrics)``, with
+    :func:`make_device_loop`'s arguments; allocate ``pool_buf, n_filled``
+    with ``train/pool.py::device_pool_init``. The pool is updated in place."""
+    from fdgan_tpu_torch.train.pool import device_pool_query
+
+    def run(state: TrainState, pool_buf: torch.Tensor, n_filled: torch.Tensor, haze_all: torch.Tensor,
+            gt_all: torch.Tensor, idx: torch.Tensor, generator: Optional[torch.Generator] = None):
+        metrics = []
+        for j in range(chunk_steps):
+            i = idx[j:j + 1]
+            gt = gt_all.index_select(0, i)[0]
+            state, g_metrics, x_hat = g_step(state, haze_all.index_select(0, i)[0], gt)
+            pool_buf, n_filled, fake = device_pool_query(pool_buf, n_filled, x_hat.detach(), generator)
+            state, d_metrics = d_step(state, fake, gt)
+            metrics.append({**g_metrics, **d_metrics})
+        return state, pool_buf, n_filled, _stacked(metrics)
+
+    return run
+
+
+def make_device_eval(val_haze, val_gt, device="cuda", impl: str = "kernels"):
+    """The val evaluation on the device (JAX ``make_device_eval``,
+    ``loop.py:309``): ``evaluate(g) -> (psnr, ssim)``, floats.
+
+    ``val_haze`` and ``val_gt`` are the val set as ``(n, 1, H, W, 3)`` arrays
+    in [0, 1] (the val loader's batch-1 layout), staged on ``device`` once,
+    in fp32. Each image goes through ``fdgan_fast.apply`` in batch BN, fp32
+    with TF32 off (as the host eval, ``cli/train.py::evaluate``); its PSNR is
+    10·log10(1/MSE) of clip((x̂ + 1)/2) against gt (PSNRSSIM.py:201-205, the
+    MSE accumulated in float64) and its SSIM
+    ``ops.ssim.ssim`` of the same. The means over the val set are the only
+    values that cross to the host."""
+    from fdgan_tpu_torch.cli._common import fp32_exact
+    from fdgan_tpu_torch.ops.ssim import ssim
+
+    device = torch.device(device)
+    haze = torch.as_tensor(val_haze, dtype=torch.float32).to(device)
+    gt = torch.as_tensor(val_gt, dtype=torch.float32).to(device)
+
+    def evaluate(g: FDGAN):
+        psnrs, ssims = [], []
+        with torch.inference_mode(), fp32_exact("fp32", device):
+            for h, y in zip(haze, gt):
+                x01 = ((fdgan_fast.apply(g, h, impl=impl).float() + 1.0) * 0.5).clamp(0, 1)
+                psnrs.append(10.0 * torch.log10(1.0 / (x01 - y).double().square().mean()))
+                ssims.append(ssim(x01, y).double())
+            both = torch.stack([torch.stack(psnrs).mean(), torch.stack(ssims).mean()]).cpu()
+        return float(both[0]), float(both[1])
+
+    return evaluate

@@ -535,13 +535,29 @@ def test_k3_matches_plain(cuda, shape, dtype):
 
 
 def test_k3_rejects_bad_inputs(cuda):
+    """The launcher refuses what K3 cannot read. ``frequency_fuse`` itself
+    takes any layout: it passes x on contiguous (a band of a batch's rows is
+    a strided view), so the layout's refusal is the launcher's."""
     x = torch.zeros(1, 16, 16, 3, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        freq.frequency_fuse(x.transpose(1, 2))
+        freq._launch_k3(x.transpose(1, 2))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         freq.frequency_fuse(x.half())
     with pytest.raises(ValueError, match="reflect pad"):
         freq.frequency_fuse(x[:, :7].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_on_a_strided_band_is_its_contiguous_copy(cuda, dtype):
+    """A band of rows of a batch (``x[:, r0:r1]``, a strided view, as a rank
+    with H sharded holds it) through ``frequency_fuse``: the same bits as its
+    contiguous copy, with and without halo rows."""
+    x = torch.tensor(np.random.default_rng(16).uniform(size=(3, 64, 40, 3)), dtype=dtype, device=cuda)
+    band = x[:, 16:40]
+    assert not band.is_contiguous()
+    halo = (x[:, 9:16], x[:, 40:47])
+    for h in (None, halo):
+        assert torch.equal(freq.frequency_fuse(band, halo=h), freq.frequency_fuse(band.contiguous(), halo=h))
 
 
 def test_gradients_through_the_kernels_match_plain(cuda, exact):
@@ -866,3 +882,106 @@ def test_k1_k2_at_channels_that_are_not_multiples_of_32(cuda, exact, c, dtype):
     torch.testing.assert_close(m, mr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(v, vr, atol=1e-4, rtol=1e-3)
     assert torch.equal(out, f) and torch.equal(mv, m) and torch.equal(vv, v)
+
+
+
+# --- the device-resident loop -------------------------------------------------------
+
+@pytest.fixture
+def sync_errors():
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block: any
+    operation that makes the host wait on the device raises."""
+    from contextlib import contextmanager
+
+    @contextmanager
+    def block():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    return block
+
+
+@pytest.mark.parametrize("pool", [0, 4])
+def test_device_chunk_makes_no_host_sync(cuda, sync_errors, pool):
+    """A chunk of 3 bf16 steps (with pool: the G step, the device pool's
+    query, the D step) over 2 staged 2×64² batches runs under sync debug
+    mode "error": the host never waits on the device inside it. One step
+    first outside it builds the kernels and lets cuDNN and the allocator
+    settle. Then the chunk's metrics are finite."""
+    from fdgan_tpu_torch.train.loop import make_device_loop, make_device_pool_loop, make_gd_steps
+    from fdgan_tpu_torch.train.pool import device_pool_init
+
+    batches = [_train_batch(cuda, 2, 64, 30 + i) for i in range(2)]
+    haze_all = torch.stack([h for h, _ in batches]).bfloat16()
+    gt_all = torch.stack([g for _, g in batches]).bfloat16()
+    idx = torch.tensor([1, 0, 1], device=cuda)
+    state, tx_g, tx_d = create_train_state(0, device=cuda)
+    weights = LossWeights(perceptual=0.0)
+    if pool:
+        g_step, d_step = make_gd_steps(tx_g, tx_d, weights, compute_dtype=torch.bfloat16)
+        buf, n = device_pool_init(pool, haze_all.shape[1:], torch.bfloat16, cuda)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        run = make_device_pool_loop(g_step, d_step, 3)
+        state, buf, n, _ = make_device_pool_loop(g_step, d_step, 1)(state, buf, n, haze_all, gt_all, idx[:1], gen)
+        with sync_errors():
+            state, buf, n, ms = run(state, buf, n, haze_all, gt_all, idx, gen)
+        assert int(n) == 4
+    else:
+        step = make_train_step(tx_g, tx_d, weights, compute_dtype=torch.bfloat16)
+        state, _ = step(state, haze_all[0], gt_all[0])
+        with sync_errors():
+            state, ms = make_device_loop(step, 3)(state, haze_all, gt_all, idx)
+    assert state.step == 4 and all(bool(torch.isfinite(v).all()) for v in ms.values())
+
+
+def test_device_pool_query_with_a_card_generator(cuda):
+    """``device_pool_query`` on the card, its draws from a CUDA generator: the
+    same as ``pool_update`` with those draws taken from a twin generator
+    (uniform, then randint, each query), and the pool's semantics: the fill
+    phase stores and passes, the count saturates, a swap hands back a stored
+    batch."""
+    from fdgan_tpu_torch.train.pool import device_pool_init, device_pool_query, pool_update
+
+    gen, twin = (torch.Generator(device=cuda).manual_seed(5) for _ in range(2))
+    a, na = device_pool_init(2, (1, 4, 4, 3), torch.bfloat16, cuda)
+    b, nb = device_pool_init(2, (1, 4, 4, 3), torch.bfloat16, cuda)
+    outs = set()
+    for k in range(12):
+        img = torch.full((1, 4, 4, 3), float(k), dtype=torch.bfloat16, device=cuda)
+        a, na, out = device_pool_query(a, na, img, gen)
+        swap = torch.rand((), generator=twin, device=cuda) > 0.5
+        slot = torch.randint(2, (), generator=twin, device=cuda)
+        b, nb, want = pool_update(b, nb, img, swap, slot)
+        assert torch.equal(a, b) and torch.equal(out, want) and int(na) == int(nb) == min(k + 1, 2)
+        outs.add("pass" if float(out[0, 0, 0, 0]) == k else "swap")
+    assert outs == {"pass", "swap"}
+
+
+def test_async_checkpoint_of_card_state_is_the_state_at_save(cuda, tmp_path):
+    """``AsyncCheckpointer`` on a train state on the card: a bf16 step right
+    after ``save()`` updates the parameters and Adam's moments in place
+    while the writer fetches the copy; the file holds the state at
+    ``save()``, bit for bit."""
+    from fdgan_tpu_torch.io.checkpoint import AsyncCheckpointer
+
+    haze, gt = _train_batch(cuda, 2, 64, 17)
+    state, tx_g, tx_d = create_train_state(0, device=cuda)
+    step = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), compute_dtype=torch.bfloat16)
+    state, _ = step(state, haze, gt)
+    want = {net: {k: v.detach().cpu().clone() for k, v in getattr(state, net).state_dict().items()}
+            for net in ("g", "d")}
+    moments = {i: e["exp_avg"].cpu().clone() for i, e in state.g_opt.state_dict()["state"].items()}
+    saver = AsyncCheckpointer()
+    saver.save(str(tmp_path), state, step=state.step)
+    state, _ = step(state, haze, gt)
+    assert saver.wait() is True
+    blob = torch.load(tmp_path / "ckpt_1.pt", weights_only=True)
+    assert blob["step"] == 1
+    for net in ("g", "d"):
+        assert all(torch.equal(blob[net][k].cpu(), v) for k, v in want[net].items()), net
+    assert all(torch.equal(blob["g_opt"]["state"][i]["exp_avg"].cpu(), v) for i, v in moments.items())
+    assert not torch.equal(state.g.conv_refin1.weight.cpu(), want["g"]["conv_refin1.weight"])

@@ -17,6 +17,17 @@ from fdgan_tpu_torch.serve import InferenceEngine
 from fdgan_tpu_torch.serve_http import BatchingFrontend
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread (tests/test_torch_remat.py's fixture): beside the
+    suite's other workers, torch's default threads make these CPU forwards
+    far slower than one thread does."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def model():
     return FDGAN(generator=torch.Generator().manual_seed(0))
@@ -234,3 +245,168 @@ def test_http_dehaze_stats_and_health(engine, np_rng, tmp_path):
         server.frontend.close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+# --- warmup and auto-warm ------------------------------------------------------
+
+def test_warmup_runs_every_rung_outside_the_statistics(model, np_rng):
+    """As tests/test_serve.py's warmup cases: ``warmup`` of one shape runs
+    each ladder rung once (``stats["compiles"]`` 2, one per rung) and moves
+    no other statistic; later requests of that bucket at either rung count
+    no compile, and their outputs are the unwarmed engine's, bit for bit."""
+    eng = InferenceEngine(model, device="cpu", precision="fp32", bucket=8, batch_sizes=(1, 2))
+    cold = InferenceEngine(model, device="cpu", precision="fp32", bucket=8, batch_sizes=(1, 2))
+    eng.warmup([(16, 14)])  # the bucket (16, 16)
+    assert eng.stats["compiles"] == 2
+    assert (eng.stats["batches"], eng.stats["images"], eng.stats["padded_frac"]) == (0, 0, 0.0)
+    imgs = [np_rng.uniform(size=(16, 16, 3)).astype(np.float32) for _ in range(3)]
+    got = [eng.predict(imgs[0])] + eng.predict_batch(imgs[1:])
+    assert eng.stats["compiles"] == 2 and eng.stats["batches"] == 2
+    want = [cold.predict(imgs[0])] + cold.predict_batch(imgs[1:])
+    assert cold.stats["compiles"] == 2  # each rung's first batch counts as a compile
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_warmup_of_one_rung(model):
+    eng, seen = _identity_engine(model, batch_sizes=(1, 2, 4))
+    eng.warmup([(8, 8), (16, 8)], batch=2)
+    assert [tuple(x.shape) for x in seen] == [(2, 8, 8, 3), (2, 16, 8, 3)]
+    assert eng.stats["compiles"] == 2 and eng.stats["batches"] == 0
+    eng.warmup([(8, 8)], batch=2)  # already run: no compile
+    assert eng.stats["compiles"] == 2
+
+
+def _settled(eng, key, timeout=60.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        with eng._lock:
+            if key in eng._warmed and not eng._warming:
+                return True
+        time.sleep(0.05)
+    return False
+
+
+def test_auto_warm_backfills_the_ladder(model, np_rng):
+    """tests/test_serve.py::test_auto_warm_backfills_ladder: a new bucket's
+    first request starts a background run of its other rungs; once it is
+    done, a request at the other rung counts no compile (the background
+    runs are not counted), and the dedup is permanent."""
+    eng, seen = _identity_engine(model, batch_sizes=(1, 2), auto_warm=True)
+    img = np_rng.uniform(size=(16, 16, 3)).astype(np.float32)
+    assert eng.predict(img).shape == img.shape
+    assert eng.stats["compiles"] == 1
+    assert _settled(eng, (16, 16)), "the warm never finished"
+    assert [tuple(x.shape) for x in seen] == [(1, 16, 16, 3), (2, 16, 16, 3)]  # the request, then rung 2
+    assert len(eng.predict_batch([img, img])) == 2
+    assert eng.stats["compiles"] == 1 and eng.stats["batches"] == 2
+    spawned = []
+    eng._spawn_auto_warm = lambda *a: spawned.append(a)
+    eng.predict(np_rng.uniform(size=(16, 16, 3)).astype(np.float32))
+    assert spawned == []  # not a new shape: nothing to warm
+
+
+def test_auto_warm_failure_never_stops_serving(model, np_rng):
+    """A warm that raises is swallowed: the bucket counts as warmed (never
+    retried) and requests go on being served."""
+    eng, _ = _identity_engine(model, batch_sizes=(1, 2), auto_warm=True)
+
+    def broken(*args):
+        raise RuntimeError("a warm that fails")
+
+    eng._warm_one = broken
+    img = np_rng.uniform(size=(8, 8, 3)).astype(np.float32)
+    assert eng.predict(img).shape == img.shape
+    assert _settled(eng, (8, 8))
+    assert len(eng.predict_batch([img, img])) == 2 and eng.stats["batches"] == 2
+
+
+def test_auto_warm_under_concurrent_requests(model, np_rng):
+    """Eight threads (more than the cores the suite gives a worker) send
+    requests of three new buckets at both rungs while the auto-warm threads
+    run, with a short switch interval: every bucket is warmed once, and
+    ``stats["compiles"]`` counts each (batch, H, W) shape the request path
+    met first exactly once, which a lost update under the lock would
+    break. The engine's bookkeeping is under test, so the forward is the
+    identity."""
+    import sys
+
+    eng, _ = _identity_engine(model, batch_sizes=(1, 2), auto_warm=True)
+    warmed = []  # each background run of a rung: (batch, H, W)
+    warm_one = eng._warm_one
+    eng._warm_one = lambda *a: (warmed.append(a), warm_one(*a))
+    sizes = [(8, 8), (8, 16), (16, 8)]
+    imgs = {s: np_rng.uniform(size=s + (3,)).astype(np.float32) for s in sizes}
+    errors = []
+
+    def client(k):
+        try:
+            for j in range(3):
+                s = sizes[(k + j) % 3]
+                if (k + j) % 2:
+                    eng.predict(imgs[s])
+                else:
+                    eng.predict_batch([imgs[s], imgs[s]])
+        except Exception as e:  # read below: a failed request fails the test
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert all(_settled(eng, s) for s in sizes)
+    finally:
+        sys.setswitchinterval(interval)
+    assert errors == []
+    assert len(warmed) == len(set(warmed)) == len(sizes)  # a bucket's other rung, once, ever
+    assert eng._warmed == set(sizes) and eng.stats["batches"] == 8 * 3
+    assert eng.stats["compiles"] <= 2 * len(sizes) and eng._seen == {(b, h, w, False) for b in (1, 2) for h, w in sizes}
+
+
+def test_cli_serve_warmup_flags_parse_as_jax():
+    """--warmup/--noWarmup/--autoWarm/--noAutoWarm: the JAX CLI's flags and
+    defaults, its parse of the shapes and its message for a bad one, and
+    --http's default warmup of the bucket shape."""
+    from fdgan_tpu.cli import serve as jserve
+    from fdgan_tpu_torch.cli import serve as cli
+
+    flags = ("warmup", "noWarmup", "autoWarm", "noAutoWarm")
+    port, ref = vars(cli.build_parser().parse_args([])), vars(jserve.build_parser().parse_args([]))
+    assert {k: port[k] for k in flags} == {k: ref[k] for k in flags}
+
+    def shapes(*argv):
+        return cli.warmup_shapes(cli.build_parser().parse_args(list(argv)))
+
+    assert shapes("--warmup", "384x512, 720X1280") == [(384, 512), (720, 1280)]
+    assert shapes("--http", "8731") == [(64, 64)] and shapes("--http", "8731", "--bucket", "32") == [(32, 32)]
+    assert shapes("--http", "8731", "--noWarmup") == [] and shapes() == []
+    for bad in ("384-512", "384x512x3", "axb"):
+        with pytest.raises(SystemExit, match="--warmup must look like '384x512,720x1280', got "):
+            shapes("--warmup", bad)
+
+
+def test_cli_serve_warms_before_the_folder_pass(model, tmp_path, np_rng, capsys):
+    """``--warmup 16x24 --autoWarm`` on a folder: every rung of the ladder at
+    the shape's bucket before the pass (2 compiles, then the first request's
+    bucket is new: auto-warm on), and the PNGs of the pass without it."""
+    from PIL import Image
+
+    from fdgan_tpu_torch.cli import serve as cli
+
+    src = tmp_path / "hazy"
+    src.mkdir()
+    _png(src / "a.png", np_rng, 16, 24)
+    ckpt = tmp_path / "netG.pth"
+    torch.save(model.state_dict(), ckpt)
+    common = ["--inDir", str(src), "--netG", str(ckpt), "--device", "cpu", "--bucket", "8", "--maxBatch", "2",
+              "--precision", "fp32"]
+    cli.main(common + ["--outDir", str(tmp_path / "warm"), "--warmup", "16x24", "--autoWarm"])
+    assert "warmed 1 shape(s) x 2 ladder rungs in " in capsys.readouterr().out
+    cli.main(common + ["--outDir", str(tmp_path / "cold")])
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "warm" / "a.png")),
+                                  np.asarray(Image.open(tmp_path / "cold" / "a.png")))

@@ -271,6 +271,14 @@ def test_cli_serve_http_on_two_ranks_answers_a_request(cli):
     assert "serving on http://" in cli["logs"][0]
 
 
+def test_cli_serve_http_on_two_ranks_warms_first(cli):
+    """--http warms the bucket shape's ladder (--maxBatch 2: rungs 1 and 2)
+    on the mesh before it binds the port, the ranks running each rung."""
+    log = cli["logs"][0]
+    assert "warmed 1 shape(s) x 2 ladder rungs in " in log and "(2 compiles)" in log
+    assert log.index("warmed 1 shape(s)") < log.index("serving on http://")
+
+
 def test_cli_serve_stops_without_the_ranks_it_needs(tmp_path):
     from fdgan_tpu_torch.cli import serve
 

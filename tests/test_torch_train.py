@@ -535,7 +535,8 @@ def test_gd_steps_with_image_pool():
 def test_contextual_raises_until_ported():
     """Ported now, so a step with ``contextual > 0`` and a VGG16 runs: its
     ``g_contextual`` is ``contextual_loss`` of relu3_3 on the step's own G
-    output (rtol 1e-6), the total counts it, and G and D move."""
+    output (rtol 1e-6), the total counts it, and G and D move. (With H
+    sharded it runs too: tests/test_torch_train_spatial.py.)"""
     from fdgan_tpu_torch.losses.contextual import contextual_loss
     from fdgan_tpu_torch.models.vgg16 import VGG16
 

@@ -11,6 +11,8 @@ cheap it is the reference: ``dcgan_init`` over ``jax.eval_shape`` trees,
 through a jitted ``fdgan_fast.apply``, each computed once.
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -190,14 +192,12 @@ def test_best_snapshot_is_a_copy(tmp_path):
 
 
 @pytest.mark.parametrize("flags, dist, message", [
-    (["--deviceSteps", "4"], False, "Queue 1 item 4"),
-    (["--noAsyncCkpt"], False, "Queue 1 item 4"),
     # a single process has one card: the bands need a process each, and the message says how to start them
     (["--spatialShards", "2"], False, "launch N x n_data processes under FDGAN_TPU_DIST"),
     (["--accumSteps", "2"], False, "requires --poolSize 0"),
-    # under FDGAN_TPU_DIST, before any rendezvous: the contextual term is not sharded (its ROADMAP item)
-    (["--spatialShards", "2", "--lambdaCX", "1"], True, "Queue 1 item 11c"),
+    # under FDGAN_TPU_DIST, before any rendezvous
     (["--spatialShards", "2", "--imageSize", "32"], True, "too thin for the discriminator's tail"),
+    (["--deviceSteps", "2"], True, "is single-process for now; drop it under FDGAN_TPU_DIST"),  # the JAX CLI's words
 ])
 def test_refused_flags_exit_with_their_messages(monkeypatch, flags, dist, message):
     if dist:
@@ -205,6 +205,20 @@ def test_refused_flags_exit_with_their_messages(monkeypatch, flags, dist, messag
         monkeypatch.setattr(torch.distributed, "init_process_group", None)  # a rendezvous attempt would raise
     with pytest.raises(SystemExit, match=message):
         cli.main(flags + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags, dist", [
+    (["--deviceSteps", "4"], False),
+    (["--noAsyncCkpt"], False),
+    (["--spatialShards", "2", "--lambdaCX", "1"], True),
+])
+def test_once_refused_flags_pass_the_checks(monkeypatch, flags, dist):
+    """Flags this CLI refused until their paths were ported pass its checks
+    now (their runs: the --deviceSteps tests below, and cli/train
+    --spatialShards 2 --lambdaCX 1 on 2 ranks in tests/test_torch_train_spatial.py)."""
+    if dist:
+        monkeypatch.setenv("FDGAN_TPU_DIST", "1")
+    assert cli.refuse(cli.build_parser().parse_args(flags + ["--device", "cpu"])) is None
 
 
 def test_lambda_cx_trains_and_its_first_step_is_the_port_step(runs, tmp_path):
@@ -226,6 +240,80 @@ def test_lambda_cx_trains_and_its_first_step_is_the_port_step(runs, tmp_path):
     for k in METRICS + ["g_perceptual", "g_contextual"]:
         np.testing.assert_allclose(logged[k], float(metrics[k]), rtol=1e-6, err_msg=k)
     assert np.isfinite(logged["g_contextual"]) and logged["g_contextual"] > 0
+
+
+# --- --deviceSteps -------------------------------------------------------------
+
+K = 2  # --deviceSteps: the tiny set's 2 batches in one chunk
+
+
+@pytest.fixture(scope="module")
+def device_runs(runs):
+    """``--deviceSteps 2`` on the tiny set for one epoch: with ``--poolSize
+    0``, an eval every step and the default async checkpoints; with
+    ``--poolSize 50`` and ``--noAsyncCkpt``. Each run's state, log, stdout
+    and exp dir."""
+    out = {}
+    for pool, extra in ((0, ["--valDataroot", runs["val"], "--evalIter", "1"]), (50, ["--noAsyncCkpt"])):
+        exp = str(runs["tmp"] / f"device_steps_pool{pool}")
+        args = ["--dataroot", runs["ds"], "--exp", exp, "--imageSize", str(SIZE), "--batchSize", str(BATCH),
+                "--epochs", "1", "--logEvery", "1", "--device", "cpu", "--deviceSteps", str(K),
+                "--poolSize", str(pool)] + extra
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            state = cli.main(args)
+        out[pool] = {"state": state, "log": _log(exp), "stdout": buf.getvalue(), "exp": exp}
+    return out
+
+
+def test_index_sequence_is_the_jax_formula():
+    """The batch order of a --deviceSteps run is the JAX CLI's
+    (cli/train.py:535-540), written out here from its lines."""
+    for nb, epochs, k, seed in ((2, 1, 2, 0), (3, 2, 4, 7), (5, 1, 16, 1)):
+        host_rng = np.random.default_rng(seed + 2)
+        want = np.concatenate([host_rng.permutation(nb) for _ in range(epochs + k // nb + 1)]).astype(np.int32)
+        got = cli.index_sequence(nb, epochs, k, seed)
+        assert got.dtype == np.int64 and np.array_equal(got, want)
+        assert len(got) >= -(-epochs * nb // k) * k  # every chunk's indices
+
+
+@pytest.mark.parametrize("pool", [0, 50])
+def test_device_steps_first_logged_step_is_the_port_step(runs, device_runs, pool):
+    """The first step of the chunk is ``make_train_step`` (with the pool: the
+    fill phase hands D the batch itself) on the seed-0 state and the staged
+    batch the index sequence names first (the loader's one pass, in order),
+    rtol 1e-6; both steps are logged."""
+    batches = [b for b in get_loader("pix2pix", runs["ds"], 286, SIZE, batch_size=BATCH, workers=0, seed=0)
+               if b[0].shape[0] == BATCH]
+    haze, gt = batches[int(cli.index_sequence(len(batches), 1, K, 0)[0])]
+    state, tx_g, tx_d = create_train_state(0, device="cpu")
+    _, metrics = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0))(
+        state, torch.from_numpy(haze), torch.from_numpy(gt))
+    run = device_runs[pool]
+    logged = [r for r in run["log"] if "g_total" in r]
+    assert [r["step"] for r in logged] == [1, 2] and logged[0]["imgs_per_sec"] > 0
+    for k in METRICS:
+        np.testing.assert_allclose(logged[0][k], float(metrics[k]), rtol=1e-6, err_msg=k)
+    assert f"staging 2 batches (0 MB) on device; {K} steps/dispatch" in run["stdout"]
+    assert run["state"].step == run["state"].d_updates == K
+
+
+def test_device_steps_checkpoints_and_evals(device_runs):
+    """The epoch boundary's checkpoint is written from the background thread
+    (and no second one at the end, as it holds the last step), or blocking
+    with --noAsyncCkpt; either file is the final state bit for bit. The
+    evals (on the device: the val set stacks) are the step-0 baseline and,
+    as JAX's loop runs them, one after each chunk that crosses --evalIter,
+    logged at the chunk's last step."""
+    for pool, how in ((0, "snapshot queued"), (50, "(blocking)")):
+        run = device_runs[pool]
+        assert f"ckpt step {K}: " in run["stdout"] and how in run["stdout"]
+        assert sorted(os.listdir(run["exp"])) == [f"ckpt_{K}.pt", "train_log.jsonl"]
+        blob = torch.load(os.path.join(run["exp"], f"ckpt_{K}.pt"), weights_only=True)
+        live = run["state"].g.state_dict()
+        assert blob["step"] == K and all(torch.equal(live[k], v) for k, v in blob["g"].items())
+    val = [r for r in device_runs[0]["log"] if "val_psnr" in r]
+    assert [r["step"] for r in val] == [0, K] and all(np.isfinite(r["val_psnr"]) for r in val)
 
 
 def test_no_card_and_no_cpu_flag_stops(monkeypatch):

@@ -22,8 +22,15 @@ and ``ssim`` on the whole image; on 1×2, one fp32 train step at full width
 trees over ``jax.eval_shape``, ``tests/zoo_params.py``) at that test's gate,
 and against the port's step on the whole batch at a tighter one; the same
 step with the halo rows' backward sends dropped, which must fail the gate;
-and ``cli/train --spatialShards 2`` on 2 ranks, whose first logged step is
-the port's step on the whole batch.
+the same 1×2 step with the contextual term (weight 1, a VGG16 of random
+weights over ``jax.eval_shape`` of JAX's ``vgg16.init``, no remat) against
+JAX's ``both`` with the term on one device and the port's step on the whole
+batch, at the same gates, and with each band's term taken alone (no gather,
+a local max), which must fail them; the term's collectives alone
+(``halo_exchange.gather_rows`` and ``group_amax`` on 2 and 3 uneven bands,
+ties included) against the whole tensor's and its gradients; and
+``cli/train --spatialShards 2 --lambdaCX 1`` on 2 ranks, whose first logged
+step is the port's step on the whole batch.
 """
 
 import concurrent.futures
@@ -45,6 +52,7 @@ from fdgan_tpu.losses.composite import discriminator_loss as jdiscriminator_loss
 from fdgan_tpu.losses.composite import generator_loss as jgenerator_loss
 from fdgan_tpu.models import fdgan as jfdgan
 from fdgan_tpu.models import fdgan_fast as jfast
+from fdgan_tpu.models import vgg16 as jvgg16
 from fdgan_tpu.models.discriminators import nlayer_init
 from fdgan_tpu.ops import filters as jfilters
 from fdgan_tpu.ops.pallas_filters import frequency_fuse_pallas
@@ -52,12 +60,14 @@ from fdgan_tpu_torch.data import get_loader
 from fdgan_tpu_torch.dist import mesh
 from fdgan_tpu_torch.io.torch_import import state_dict_from_jax
 from fdgan_tpu_torch.losses.composite import LossWeights
+from fdgan_tpu_torch.losses.contextual import contextual_loss
+from fdgan_tpu_torch.models.vgg16 import VGG16
 from fdgan_tpu_torch.ops import dense, filters
 from fdgan_tpu_torch.ops.ssim import ssim
 from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_spatial_worker import ssim_inputs, tail_conv, tail_inputs  # noqa: E402
+from torch_spatial_worker import CX_FEATURES, collective_inputs, cx_inputs, ssim_inputs, tail_conv, tail_inputs  # noqa: E402,E501
 from zoo_params import random_params  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,6 +76,8 @@ RANK_ENV = {"PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""), 
 STEP = (2, 64)     # the train step's batch and image size
 CLI = (2, 48)      # cli/train's: the smallest image whose two bands the discriminator's tail takes
 F32_TOL = dict(atol=2e-4, rtol=0)  # tests/test_torch_filters.py
+NO_VGG = dict(perceptual=0.0)
+CX = dict(perceptual=0.0, contextual=1.0)  # the contextual term alone beside the step's other terms
 K3_H, K3_W = 40, 24
 
 
@@ -105,17 +117,22 @@ def _workers(tmp, world, extra):
 
 
 def _cli(tmp):
-    """cli/train --spatialShards 2 on 2 ranks: rank 0's log, the ranks'
-    output, the data and what rank 1 wrote."""
+    """cli/train --spatialShards 2 --lambdaCX 1 (a seed-0 VGG16 .pth) on 2
+    ranks: rank 0's log, the ranks' output, the data, the VGG16 and what
+    rank 1 wrote."""
     ds = _write_h5(str(tmp / "ds"), 4, CLI[1], 0)
+    vgg = str(tmp / "vgg16.pth")
+    torch.save(VGG16(generator=torch.Generator().manual_seed(0)).state_dict(), vgg)
     exps = [tmp / "exp0", tmp / "exp1"]
     logs = mesh.run_local_ranks(lambda pid: [
         sys.executable, "-m", "fdgan_tpu_torch.cli.train", "--dataroot", ds, "--imageSize", str(CLI[1]),
         "--batchSize", str(CLI[0]), "--epochs", "1", "--exp", str(exps[pid]), "--logEvery", "1",
-        "--lambdaPerceptual", "0", "--workers", "0", "--device", "cpu", "--spatialShards", "2"],
+        "--lambdaPerceptual", "0", "--lambdaCX", "1", "--vggWeights", vgg, "--workers", "0", "--device", "cpu",
+        "--spatialShards", "2"],
         2, WORKER_TIMEOUT, env=RANK_ENV, cwd=ROOT)
     with open(exps[0] / "train_log.jsonl") as f:
-        return {"log": [json.loads(line) for line in f], "stdout": logs, "ds": ds, "exp1": sorted(os.listdir(exps[1]))}
+        return {"log": [json.loads(line) for line in f], "stdout": logs, "ds": ds, "vgg": vgg,
+                "exp1": sorted(os.listdir(exps[1]))}
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +141,9 @@ def trees():
     the inits) and as the port's state dicts."""
     gp = random_params(lambda: jfdgan.init(jax.random.PRNGKey(0)), 0)
     dp = random_params(lambda: nlayer_init(jax.random.PRNGKey(1), input_nc=9), 1)
-    return {"gp": gp, "dp": dp, "g": state_dict_from_jax(gp), "d": state_dict_from_jax(dp)}
+    vp = random_params(lambda: jvgg16.init(jax.random.PRNGKey(2)), 2)
+    return {"gp": gp, "dp": dp, "vp": vp, "g": state_dict_from_jax(gp), "d": state_dict_from_jax(dp),
+            "vgg": state_dict_from_jax(vp)}
 
 
 @pytest.fixture(scope="module")
@@ -133,8 +152,8 @@ def ranks(trees, tmp_path_factory):
     beside this process's JAX reference."""
     tmp = tmp_path_factory.mktemp("spatial")
     haze, gt = _batch(*STEP)
-    torch.save({"g": trees["g"], "d": trees["d"], "haze": torch.from_numpy(haze), "gt": torch.from_numpy(gt)},
-               tmp / "in.pt")
+    torch.save({"g": trees["g"], "d": trees["d"], "vgg": trees["vgg"], "haze": torch.from_numpy(haze),
+                "gt": torch.from_numpy(gt)}, tmp / "in.pt")
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         yield {2: pool.submit(_workers, tmp, 2, ["--step"]), 3: pool.submit(_workers, tmp, 3, []),
                "cli": pool.submit(_cli, tmp)}
@@ -142,34 +161,44 @@ def ranks(trees, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def launched(ranks, jax_both, port_whole):
+def launched(ranks, jax_both, port_whole, jax_both_cx, port_whole_cx):
     """The ranks' results, waited for after this process's references."""
     return {k: f.result() for k, f in ranks.items()}
 
 
-@pytest.fixture(scope="module")
-def jax_both(trees, ranks):
+def _jax_both(trees, weights, vgg=None):
     """JAX's G and D losses and gradients on one device, as
     tests/test_dist.py::test_train_step_sp_grad_parity computes them, but
     without JAX's remat, which changes no value there (its note: remat exact
     to 6e-8) and would add ~10 s of compilation to this file's critical path."""
     haze, gt = _batch(*STEP)
 
-    def g_loss_fn(gp, dp, h, g):
+    def g_loss_fn(gp, dp, vp, h, g):
         x_hat = jfast.apply(gp, h, stats_out={})
-        loss, _ = jgenerator_loss(dp, x_hat, g, JLossWeights(perceptual=0.0))
+        loss, _ = jgenerator_loss(dp, x_hat, g, JLossWeights(**weights), vp)
         return loss, x_hat
 
-    def both(gp, dp, h, g):
-        (g_loss, x_hat), g_grads = jax.value_and_grad(g_loss_fn, has_aux=True)(gp, dp, h, g)
+    def both(gp, dp, vp, h, g):
+        (g_loss, x_hat), g_grads = jax.value_and_grad(g_loss_fn, has_aux=True)(gp, dp, vp, h, g)
         d_loss_v, d_grads = jax.value_and_grad(
             lambda d: jdiscriminator_loss(d, jax.lax.stop_gradient(x_hat), g)[0])(dp)
         return g_loss, d_loss_v, g_grads, d_grads
 
-    gl, dl, gg, dg = jax.jit(both)(trees["gp"], trees["dp"], jnp.asarray(haze), jnp.asarray(gt))
+    gl, dl, gg, dg = jax.jit(both)(trees["gp"], trees["dp"], vgg, jnp.asarray(haze), jnp.asarray(gt))
     return {"g_total": float(gl), "d_total": float(dl),
             "grads": {"g": state_dict_from_jax(jax.tree.map(np.asarray, gg)),
                       "d": state_dict_from_jax(jax.tree.map(np.asarray, dg))}}
+
+
+@pytest.fixture(scope="module")
+def jax_both(trees, ranks):
+    return _jax_both(trees, NO_VGG)
+
+
+@pytest.fixture(scope="module")
+def jax_both_cx(trees, ranks):
+    """:func:`_jax_both` with the contextual term on JAX's VGG16 tree."""
+    return _jax_both(trees, CX, trees["vp"])
 
 
 @pytest.fixture(scope="module")
@@ -178,7 +207,22 @@ def port_whole(trees, ranks):
     return _port_step(trees, *_batch(*STEP))
 
 
+@pytest.fixture(scope="module")
+def port_whole_cx(trees, ranks):
+    """The port's step with the contextual term on the whole batch, as the
+    ranks run theirs (no remat)."""
+    return _port_step(trees, *_batch(*STEP), remat=False, weights=CX)
+
+
+def _vgg(state_dict):
+    vgg = VGG16()
+    vgg.load_state_dict(state_dict, strict=True)
+    return vgg
+
+
 def _port_step(trees, haze, gt, **kwargs):
+    """One port step; ``kwargs``: ``remat`` ("stages"), ``weights``
+    (:data:`NO_VGG`) and ``vgg`` (a state dict; default the trees')."""
     state, tx_g, tx_d = create_train_state(0, device="cpu")
     if trees is not None:
         state.g.load_state_dict(trees["g"], strict=True)
@@ -192,7 +236,11 @@ def _port_step(trees, haze, gt, **kwargs):
                          if p.grad is not None})
 
         getattr(state, f"{net}_opt").register_step_pre_hook(keep)
-    step = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), remat=kwargs.get("remat", "stages"))
+    weights = kwargs.get("weights", NO_VGG)
+    vgg = None
+    if weights.get("contextual"):
+        vgg = _vgg(kwargs["vgg"] if "vgg" in kwargs else trees["vgg"])
+    step = make_train_step(tx_g, tx_d, LossWeights(**weights), vgg, remat=kwargs.get("remat", "stages"))
     _, metrics = step(state, torch.from_numpy(haze), torch.from_numpy(gt))
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads}
 
@@ -417,16 +465,124 @@ def test_spatial_step_collectives_and_d_rows(launched):
 
 
 def test_cli_spatial_shards_first_step_is_the_port_step(launched):
-    """cli/train --spatialShards 2 on 2 gloo ranks: rank 0 logs the global
-    values, and its first logged step equals one port step (the same
-    seed-0 state) on the loader's first whole batch, rtol 1e-5; rank 1
-    writes nothing."""
+    """cli/train --spatialShards 2 --lambdaCX 1 on 2 gloo ranks (the
+    contextual term, once refused with H sharded, now runs): rank 0 logs the
+    global values, and its first logged step equals one port step with the
+    term (the same seed-0 state and VGG16) on the loader's first whole
+    batch, rtol 1e-5; rank 1 writes nothing."""
     cli = launched["cli"]
     assert "spatial sharding: H axis over 2 processes (mesh 1x2); this process holds rows 24:48" in cli["stdout"][1]
     haze, gt = next(iter(get_loader("pix2pix", cli["ds"], 286, CLI[1], batch_size=CLI[0], workers=0, seed=0)))
-    want = _port_step(None, np.asarray(haze), np.asarray(gt), remat=False)["metrics"]
+    want = _port_step(None, np.asarray(haze), np.asarray(gt), remat=False, weights=CX,
+                      vgg=torch.load(cli["vgg"], weights_only=True))["metrics"]
     logged = next(r for r in cli["log"] if "g_total" in r)
     assert logged["step"] == 1
-    for k in ("g_total", "g_adv", "g_pixel", "g_ssim", "d_total", "d_real", "d_fake"):
+    for k in ("g_total", "g_adv", "g_pixel", "g_ssim", "g_contextual", "d_total", "d_real", "d_fake"):
         assert logged[k] == pytest.approx(want[k], rel=1e-5), k
     assert cli["exp1"] == []
+
+
+# --- the contextual term with H sharded ------------------------------------------
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_cx_collectives_match_the_whole_tensor(launched, world):
+    """``gather_rows`` of uneven bands is the whole tensor on every rank, and
+    a band's gradient the sum of every rank's cotangent on its rows;
+    ``group_amax`` over bands is ``torch.amax`` of the whole on every rank,
+    and its gradient ``torch.amax``'s VJP of the ranks' summed cotangents,
+    ties (values on 4 levels) split evenly across bands, exactly. Two
+    gathers (forward and backward) and two max reductions a rank."""
+    res = [r["collectives"] for r in launched[world]]
+    g, a, ct_g, ct_a = collective_inputs(world)
+    g, a = torch.from_numpy(g), torch.from_numpy(a)
+    ct_g, ct_a = [torch.from_numpy(c) for c in ct_g], [torch.from_numpy(c) for c in ct_a]
+    aw = a.clone().requires_grad_(True)
+    (torch.amax(aw, dim=1) * sum(ct_a)).sum().backward()
+    assert aw.grad.count_nonzero() > a.shape[0] * a.shape[2]  # more positions than columns: ties are split
+    for r in res:
+        torch.testing.assert_close(r["gathered"], g, rtol=0, atol=0)
+        torch.testing.assert_close(r["amax"], torch.amax(a, dim=1), rtol=0, atol=0)
+        assert r["counts"]["gathers"] == 2 and r["counts"]["max_reduces"] == 2
+    torch.testing.assert_close(torch.cat([r["dg"] for r in res], dim=1), sum(ct_g), atol=1e-6, rtol=0)
+    torch.testing.assert_close(torch.cat([r["da"] for r in res], dim=1), aw.grad, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_cx_on_bands_adds_up_to_the_whole_image(launched, world):
+    """``contextual_loss`` on bands of two feature maps (N = 240 positions,
+    C = 8): the ranks' shares add up to the term on the whole maps, the
+    image's and the target's gradients stitched are the whole term's, and
+    no tensor the term saves for the backward spans more than its band's
+    image positions by the N target positions (the (B, N, N) matrix of the
+    whole image is never built; the widest it saves holds N/world of its
+    rows, for uneven bands the band's own)."""
+    res = [r["cx_alone"] for r in launched[world]]
+    img, tgt = (torch.from_numpy(f).requires_grad_(True) for f in cx_inputs())
+    whole = contextual_loss(img, tgt)
+    whole.backward()
+    torch.testing.assert_close(sum(r["share"] for r in res), whole.detach(), atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(torch.cat([r["di"] for r in res], dim=1), img.grad, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(torch.cat([r["dt"] for r in res], dim=1), tgt.grad, atol=1e-6, rtol=1e-5)
+    b, h, w, c = CX_FEATURES
+    n = h * w
+    for (r0, r1), r in zip(mesh.spatial_rows(h, world), res):
+        spanning = [s for s in r["saved"] if s[-1] == n]
+        assert spanning and max(s[-2] for s in spanning) == (r1 - r0) * w, r["saved"]
+        assert max(np.prod(s) for s in r["saved"]) == b * (r1 - r0) * w * n
+        assert r["counts"]["gathers"] == 2 and r["counts"]["max_reduces"] == 2
+
+
+def _cx_step_ok(step, want, trees, gate):
+    """(losses within rel 1e-5 of ``want``'s, G's and D's gradient gates):
+    ``gate`` (rel, cos) for both nets."""
+    ref = want.get("metrics", want)
+    losses = all(step["metrics"][k] == pytest.approx(ref[k], rel=1e-5, abs=1e-5) for k in ("g_total", "d_total"))
+    grads = [_gate(step["grads"][net], want["grads"][net], net, trees) for net in ("g", "d")]
+    return losses, all(rel < gate[0] and cos > gate[1] for rel, cos in grads), grads
+
+
+@pytest.mark.parametrize("net", ["g", "d"])
+def test_spatial_cx_step_matches_jax(launched, jax_both_cx, trees, net):
+    """The 1×2 step with the contextual term against JAX's ``both`` with the
+    term on one device: losses at rel 1e-5 on both ranks, the gradients at
+    relative L2 < 1e-2 and cosine > 0.9999, JAX's own sharded-step gate."""
+    for r in launched[2]:
+        for k in ("g_total", "d_total"):
+            assert r["cx"]["metrics"][k] == pytest.approx(jax_both_cx[k], rel=1e-5, abs=1e-5), k
+    rel, cos = _gate(launched[2][0]["cx"]["grads"][net], jax_both_cx["grads"][net], net, trees)
+    assert rel < 1e-2 and cos > 0.9999, (rel, cos)
+
+
+@pytest.mark.parametrize("net", ["g", "d"])
+def test_spatial_cx_step_matches_the_port_step_on_the_whole_batch(launched, port_whole_cx, trees, net):
+    """Against the port's step with the term on the whole batch: every loss
+    term (the contextual one too: the shares of the two bands add up to the
+    whole image's CX) at rel 1e-5; D's gradient at relative L2 1e-5, G's at
+    5e-3 and cosine 0.99999 (the gates of the step without the term)."""
+    step = launched[2][0]["cx"]
+    for k in ("g_total", "g_adv", "g_pixel", "g_ssim", "g_contextual", "d_total", "d_real", "d_fake"):
+        assert step["metrics"][k] == pytest.approx(port_whole_cx["metrics"][k], rel=1e-5, abs=1e-6), k
+    rel, cos = _gate(step["grads"][net], port_whole_cx["grads"][net], net, trees)
+    if net == "d":
+        assert rel < 1e-5, rel
+    else:
+        assert rel < 5e-3 and cos > 0.99999, (rel, cos)
+
+
+def test_band_local_cx_fails_the_gates(launched, jax_both_cx, port_whole_cx, trees):
+    """The negative control: each band's contextual term on the band alone
+    (its own target rows, its own max) fails both references' gates."""
+    control = launched[2][0]["cx_control"]
+    assert control["metrics"]["g_contextual"] != pytest.approx(port_whole_cx["metrics"]["g_contextual"], rel=1e-3)
+    for want in (jax_both_cx, port_whole_cx):
+        losses, grads, _ = _cx_step_ok(control, want, trees, (1e-2, 0.9999))
+        assert not (losses and grads)
+
+
+def test_spatial_cx_step_collectives(launched):
+    """In the step each rank gathers the target's relu3_3 once (it needs no
+    gradient: no backward gather) and reduces the max twice (forward and
+    backward), and both ranks issue the same collectives."""
+    colls = [r["cx"]["collectives"] for r in launched[2]]
+    assert (colls[0]["gathers"], colls[0]["max_reduces"]) == (1, 2), colls[0]
+    assert colls[0] == colls[1]

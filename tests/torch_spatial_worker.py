@@ -11,11 +11,21 @@ uneven where they do not divide). It runs, on its band:
   global output at each), and the gradient of sum(y · ct) through them;
 - :data:`SSIM`: ``ops.ssim.ssim`` (this rank's share of the mean) and its
   gradient with respect to the first image;
+- :data:`GATHER` and :data:`AMAX`: the contextual term's collectives alone,
+  ``halo_exchange.gather_rows`` of a band and ``halo_exchange.group_amax``
+  over a dim held in bands (values on a few levels: ties within a band and
+  across bands), and their gradients, each rank with a cotangent of its own;
+- :data:`CX_FEATURES`: ``losses.contextual.contextual_loss`` on a band of
+  two feature maps (this rank's share), its gradients with respect to both,
+  and the shapes of every tensor it saves for the backward;
 - with ``--step`` (the input file's batch and G and D): one fp32 train step
   of ``make_train_step(mesh=)`` with ``remat="stages"``, as JAX's
   ``tests/test_dist.py::test_train_step_sp_grad_parity`` runs its sharded
   step; the same step with the halo rows' backward sends dropped, the
-  negative control; D's output rows on this band.
+  negative control; D's output rows on this band; then one step with the
+  contextual term (weight 1, the input file's VGG16, no remat) and the same
+  step with each band's term taken on the band alone (no gather, a local
+  max), its negative control.
 
 Everything goes to ``<out_dir>/rank<r>.pt``, beside the exchanges and the
 collectives counted.
@@ -33,6 +43,9 @@ import torch
 # (name, shape NHWC, channels out): the discriminator's two 4x4 stride-1 tail convs over H = 40
 TAIL = ((2, 40, 12, 5), 4)
 SSIM = (2, 40, 24, 3)
+GATHER = (2, 40, 3, 4)  # NHWC, gathered along H
+AMAX = (2, 40, 6)       # (B, rows, M): the max over the rows
+CX_FEATURES = (2, 24, 10, 8)  # NHWC feature maps: N = 240 positions, C = 8 channels
 
 
 def tail_inputs():
@@ -57,6 +70,23 @@ def ssim_inputs():
     return a, np.clip(a + 0.1 * rng.standard_normal(SSIM), 0, 1).astype(np.float32)
 
 
+def collective_inputs(world):
+    """The gathered tensor, the max's input (integers 0..3: ties), and each
+    rank's cotangents of the gathered tensor and of the max."""
+    rng = np.random.default_rng(9)
+    g = rng.standard_normal(GATHER).astype(np.float32)
+    a = rng.integers(0, 4, AMAX).astype(np.float32)
+    ct_g = [rng.standard_normal(GATHER).astype(np.float32) for _ in range(world)]
+    ct_a = [rng.standard_normal((AMAX[0], AMAX[2])).astype(np.float32) for _ in range(world)]
+    return g, a, ct_g, ct_a
+
+
+def cx_inputs():
+    """Image and target feature maps (non-negative, as relu3_3's)."""
+    rng = np.random.default_rng(10)
+    return tuple(rng.uniform(0, 1, CX_FEATURES).astype(np.float32) for _ in range(2))
+
+
 def tail_conv(x, w1, b1, w2, b2, group=None):
     """The two tail convs over NCHW x (H sharded over ``group``, else whole)."""
     from fdgan_tpu_torch.dist.halo_exchange import conv2d_halo_sharded
@@ -70,6 +100,7 @@ def _collectives() -> dict:
     from fdgan_tpu_torch.dist import stats as dist_stats
 
     return {"exchanges": halo_exchange.counts["exchanges"], "counts": halo_exchange.counts["counts"],
+            "gathers": halo_exchange.counts["gathers"], "max_reduces": halo_exchange.counts["max_reduces"],
             "stats_forward": dist_stats.collectives["forward"], "stats_backward": dist_stats.collectives["backward"],
             "grads": mesh.counts["grads"], "metrics": mesh.counts["metrics"]}
 
@@ -97,12 +128,16 @@ def dropped_halo_cotangents():
         halo_exchange._rows_back = orig
 
 
-def run_step(blob, m, control=False) -> dict:
+def run_step(blob, m, control=False, cx=False) -> dict:
     """One fp32 step with H sharded over ``m`` from ``blob``'s state: the
     metrics, the gradients handed to Adam (G's and D's, by parameter name)
-    and the collectives."""
+    and the collectives. ``cx``: with the contextual term (``blob["vgg"]``)
+    and no remat; ``control`` then takes each band's term alone, else drops
+    the halo rows' cotangents."""
     from fdgan_tpu_torch.dist import mesh
     from fdgan_tpu_torch.losses.composite import LossWeights
+    from fdgan_tpu_torch.models.vgg16 import VGG16
+    from fdgan_tpu_torch.tools.sp_step import band_local_cx
     from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
 
     state, tx_g, tx_d = create_train_state(0, device="cpu")
@@ -117,10 +152,15 @@ def run_step(blob, m, control=False) -> dict:
                          if p.grad is not None})
 
         getattr(state, f"{net}_opt").register_step_pre_hook(keep)
-    step = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), remat="stages", mesh=m)
+    if cx:
+        vgg = VGG16()
+        vgg.load_state_dict(blob["vgg"], strict=True)
+        step = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0, contextual=1.0), vgg, mesh=m)
+    else:
+        step = make_train_step(tx_g, tx_d, LossWeights(perceptual=0.0), remat="stages", mesh=m)
     haze, gt = mesh.shard_batch((blob["haze"], blob["gt"]), m, spatial=True)
     _reset()
-    with dropped_halo_cotangents() if control else contextlib.nullcontext():
+    with (band_local_cx() if cx else dropped_halo_cotangents()) if control else contextlib.nullcontext():
         _, metrics = step(state, haze, gt)
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads, "collectives": _collectives()}
 
@@ -161,6 +201,35 @@ def main():
     share.backward()
     out["ssim"] = {"share": share.detach(), "da": al.grad, "collectives": _collectives()}
 
+    g, a, ct_g, ct_a = collective_inputs(world)
+    r0, r1 = mesh.spatial_rows(g.shape[1], world)[rank]
+    gl = torch.from_numpy(g[:, r0:r1]).requires_grad_(True)
+    al = torch.from_numpy(a[:, r0:r1]).requires_grad_(True)
+    _reset()
+    with halo_exchange.spatial_sharding(group, None):
+        whole = halo_exchange.gather_rows(gl, dim=1)
+        top = halo_exchange.group_amax(al, dim=1)
+    ((whole * torch.from_numpy(ct_g[rank])).sum() + (top * torch.from_numpy(ct_a[rank])).sum()).backward()
+    out["collectives"] = {"gathered": whole.detach(), "amax": top.detach(), "dg": gl.grad, "da": al.grad,
+                          "counts": _collectives()}
+
+    from fdgan_tpu_torch.losses.contextual import contextual_loss
+
+    r0, r1 = mesh.spatial_rows(CX_FEATURES[1], world)[rank]
+    il, tl = (torch.from_numpy(f[:, r0:r1]).requires_grad_(True) for f in cx_inputs())
+    saved = []
+
+    def pack(t):
+        saved.append(list(t.shape))
+        return t
+
+    _reset()
+    with halo_exchange.spatial_sharding(group, None), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        share = contextual_loss(il, tl)
+    share.backward()
+    out["cx_alone"] = {"share": share.detach(), "di": il.grad, "dt": tl.grad, "saved": saved,
+                       "counts": _collectives()}
+
     if "--step" in sys.argv[3:]:
         blob = torch.load(inp, weights_only=True)
         out["step"] = run_step(blob, m)
@@ -172,8 +241,10 @@ def main():
         gt = mesh.shard_batch((blob["gt"],), m, spatial=True)[0]
         with torch.no_grad(), halo_exchange.spatial_sharding(group, torch.distributed.group.WORLD):
             out["d_rows"] = int(fusion_apply(d, gt).shape[1])
+        out["cx"] = run_step(blob, m, cx=True)
+        out["cx_control"] = run_step(blob, m, control=True, cx=True)
         if rank:  # the tests read rank 0's gradients only: after the reduction every rank holds them
-            for run in ("step", "control"):
+            for run in ("step", "control", "cx", "cx_control"):
                 del out[run]["grads"]
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
