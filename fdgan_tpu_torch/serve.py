@@ -25,6 +25,13 @@ serving mechanics:
   ``warmup`` and ``_spawn_auto_warm`` compile theirs. ``stats["compiles"]``
   counts the first batches of a (batch, H, W) shape, the counterpart of
   JAX's compiles.
+* **Spans** — while a ``torch.profiler`` profile runs, each batch records
+  ``engine.stage`` (padding, rung fill, stack; ``items``, the stream
+  indices it carries; ``why`` the flush path: ``full``, ``aged``,
+  ``overflow``, ``end`` or ``tiled``), ``engine.dispatch``,
+  and in ``stream()`` ``engine.held`` (dispatched, not yet asked for) and
+  ``engine.fetch`` (``why``: ``depth``, ``idle`` or ``end``), all under the
+  batch's number (``fdgan_tpu_torch/trace.py``).
 
 The forward is ``models.fdgan_fast.apply`` (as the JAX engine's is
 ``fdgan_fast.apply``): the encoder's 42 dense layers run through the
@@ -59,15 +66,17 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import itertools
 import sys
 import threading
 import traceback
-from typing import Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from fdgan_tpu_torch import trace
 from fdgan_tpu_torch.dist import halo_exchange
 from fdgan_tpu_torch.dist import mesh as dmesh
 from fdgan_tpu_torch.dist.tiling import tiled_apply
@@ -89,13 +98,17 @@ def _round_up(n: int, m: int) -> int:
 
 class _Pending:
     """A dispatched batch: its result (a pinned host tensor on CUDA, being
-    filled by an asynchronous copy) and the event that marks the copy done."""
+    filled by an asynchronous copy), the event that marks the copy done,
+    its number in the spans, and where its dispatch span ended (0 where
+    none was recorded)."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "batch", "dispatched_ns")
 
     def __init__(self, host: torch.Tensor, event: Optional[torch.cuda.Event]):
         self.host = host
         self.event = event
+        self.batch: Optional[int] = None
+        self.dispatched_ns = 0
 
     def fetch(self) -> np.ndarray:
         if self.event is not None:
@@ -219,6 +232,7 @@ class InferenceEngine:
         self._pix_real = 0
         self._pix_padded = 0
         self._seen: set = set()     # (batch, H, W) shapes that have run: their first run is a "compile"
+        self._batch_ids = itertools.count()  # a staged batch's number in the spans
         self._auto_warm = bool(auto_warm)
         self._warmed: set = set()   # (H, W) buckets ever auto-warmed (dedup)
         self._warming: set = set()  # (H, W) buckets with a warm thread live
@@ -333,12 +347,14 @@ class InferenceEngine:
             event.record()
             return _Pending(host, event)
 
-    def _dispatch(self, batch: np.ndarray, tiled: bool = False) -> _Pending:
+    def _dispatch(self, batch: np.ndarray, tiled: bool = False, number: Optional[int] = None) -> _Pending:
         """Upload, enqueue the forward (tile by tile when ``tiled``) and
-        start the result copy; no wait."""
+        start the result copy; no wait. ``number`` is the batch's number in
+        the spans (a new one where None)."""
         x = torch.from_numpy(batch)
         self._check_rank0("dispatch")
-        with self._lock:
+        number = next(self._batch_ids) if number is None else number
+        with trace.span("engine.dispatch", batch=number) as sp, self._lock:
             k1, k2, ks = dense.k1_launches, dense.k2_launches, stats.launches
             pending = self._run(x, tiled)
             shape = (x.shape[0], x.shape[1], x.shape[2], tiled)
@@ -349,6 +365,9 @@ class InferenceEngine:
             self.stats["k1_launches"] += dense.k1_launches - k1
             self.stats["k2_launches"] += dense.k2_launches - k2
             self.stats["channel_stats_launches"] += stats.launches - ks
+        pending.batch = number
+        if sp:
+            pending.dispatched_ns = sp.end
         if fresh and self._auto_warm and not tiled:
             self._spawn_auto_warm(int(x.shape[1]), int(x.shape[2]), int(x.shape[0]))
         return pending
@@ -525,7 +544,11 @@ class InferenceEngine:
         return out  # type: ignore[return-value]
 
     def stream(
-        self, images: Iterable[np.ndarray], depth: int = 2, max_wait: float = 0.0
+        self,
+        images: Iterable[np.ndarray],
+        depth: int = 2,
+        max_wait: float = 0.0,
+        taken: Optional[Callable[[int], None]] = None,
     ) -> Iterator[np.ndarray]:
         """Pipelined streaming inference, yielding results in input order.
 
@@ -534,16 +557,20 @@ class InferenceEngine:
         (seconds, 0 = off) bounds per-image staging latency: a group whose
         oldest image has waited longer is flushed below its ladder rung,
         also while the input iterator is idle (the bound holds as long as
-        the consumer keeps iterating)."""
+        the consumer keeps iterating). ``taken``, where given, is called
+        with an image's index in ``images`` as staging takes it."""
         inflight: collections.deque = collections.deque()
         ready: dict = {}
         next_idx = 0
 
-        def drain_one():
+        def drain_one(why):
             pending, metas = inflight.popleft()
-            y = pending.fetch()  # the per-batch sync point
-            for slot, (idx, h, w) in enumerate(metas):
-                ready[idx] = y[slot, :h, :w].copy()
+            with trace.span("engine.fetch", batch=pending.batch, why=why) as sp:
+                if sp and pending.dispatched_ns:
+                    trace.record("engine.held", pending.dispatched_ns, sp.start, batch=pending.batch)
+                y = pending.fetch()  # the per-batch sync point
+                for slot, (idx, h, w) in enumerate(metas):
+                    ready[idx] = y[slot, :h, :w].copy()
 
         def emit():
             nonlocal next_idx
@@ -551,20 +578,20 @@ class InferenceEngine:
                 yield ready.pop(next_idx)
                 next_idx += 1
 
-        for staged in self._stage(enumerate(images), max_wait=max_wait):
+        for staged in self._stage(enumerate(images), max_wait=max_wait, taken=taken):
             if staged is None:
                 # the producer is idle: drain one batch so finished results
                 # reach the caller within the latency bound
                 if inflight:
-                    drain_one()
+                    drain_one("idle")
                     yield from emit()
                 continue
             inflight.append(staged)
             while len(inflight) > depth:
-                drain_one()
+                drain_one("depth")
             yield from emit()
         while inflight:
-            drain_one()
+            drain_one("end")
             yield from emit()
 
     # --- staging -----------------------------------------------------------------
@@ -620,7 +647,7 @@ class InferenceEngine:
         finally:
             stop.set()
 
-    def _stage(self, indexed_images, max_wait: float = 0.0):
+    def _stage(self, indexed_images, max_wait: float = 0.0, taken: Optional[Callable[[int], None]] = None):
         """Group (index, image) pairs into dispatched batches.
 
         Yields (pending, metas) with metas[slot] = (orig_index, h, w); the
@@ -628,7 +655,8 @@ class InferenceEngine:
         the oldest group is force-flushed once more than 2×top images are
         staged, or (``max_wait`` > 0) once its oldest image has waited
         longer than that, checked on every arrival and on idle ticks; the
-        rest flush at the end of input."""
+        rest flush at the end of input. ``taken(index)``, where given, is
+        called as each pair is taken from the input."""
         import time as _time
 
         groups: dict = collections.defaultdict(list)  # (H, W) -> [(idx, img)]
@@ -636,26 +664,33 @@ class InferenceEngine:
         top = self.batch_sizes[-1]
         max_pending = 2 * top
 
-        def flush(key):
+        def flush(key, why):
+            """Stage and dispatch the group ``key``; ``why`` names the
+            flush path in the spans."""
             H, W = key
             items = groups.pop(key)
-            n = len(items)
-            b = self._batch_bucket(n)
-            padded = [self._pad_hw(img, H, W) for _, img in items]
-            # fill the ladder rung by cycling real images: in batch-BN mode
-            # this keeps the coupled statistics in distribution
-            while len(padded) < b:
-                padded.append(padded[len(padded) % n])
-            metas = [(idx, img.shape[0], img.shape[1]) for idx, img in items]
-            self._account(n, sum(im.shape[0] * im.shape[1] for _, im in items), b * H * W)
-            return self._dispatch(np.stack(padded)), metas
+            number = next(self._batch_ids)
+            with trace.span("engine.stage", batch=number, why=why) as sp:
+                if sp:
+                    sp.attrs["items"] = [idx for idx, _ in items]
+                n = len(items)
+                b = self._batch_bucket(n)
+                padded = [self._pad_hw(img, H, W) for _, img in items]
+                # fill the ladder rung by cycling real images: in batch-BN mode
+                # this keeps the coupled statistics in distribution
+                while len(padded) < b:
+                    padded.append(padded[len(padded) % n])
+                metas = [(idx, img.shape[0], img.shape[1]) for idx, img in items]
+                self._account(n, sum(im.shape[0] * im.shape[1] for _, im in items), b * H * W)
+                staged = np.stack(padded)
+            return self._dispatch(staged, number=number), metas
 
         def flush_aged():
             now = _time.monotonic()
             for k in [k for k, t0 in born.items() if now - t0 > max_wait]:
                 if k in groups:
                     born.pop(k, None)
-                    yield flush(k)
+                    yield flush(k, "aged")
 
         if max_wait > 0:
             indexed_images = self._timed_events(indexed_images, max_wait)
@@ -672,6 +707,8 @@ class InferenceEngine:
                 continue
             idle_ticks = 0
             idx, img = item
+            if taken is not None:
+                taken(idx)
             img = self._ingest(img)
             if img.ndim != 3 or img.shape[-1] != 3:
                 raise ValueError(f"expected HWC RGB image, got shape {img.shape}")
@@ -684,15 +721,15 @@ class InferenceEngine:
             groups[key].append((idx, img))
             if len(groups[key]) == top:
                 born.pop(key, None)
-                yield flush(key)
+                yield flush(key, "full")
             elif sum(len(v) for v in groups.values()) > max_pending:
                 oldest = min(groups, key=lambda k: groups[k][0][0])
                 born.pop(oldest, None)
-                yield flush(oldest)
+                yield flush(oldest, "overflow")
             if max_wait > 0:
                 yield from flush_aged()
         for key in list(groups):
-            yield flush(key)
+            yield flush(key, "end")
 
     def _stage_tiled(self, idx: int, img: np.ndarray):
         """High-res route: one image padded to H, W divisible by 8 and
@@ -700,8 +737,11 @@ class InferenceEngine:
         contract as a staged batch."""
         h, w = img.shape[:2]
         H, W = _round_up(h, 8), _round_up(w, 8)
-        self._account(1, h * w, H * W)
-        return self._dispatch(self._pad_hw(img, H, W)[None], tiled=True), [(idx, h, w)]
+        number = next(self._batch_ids)
+        with trace.span("engine.stage", batch=number, why="tiled", items=[idx]):
+            self._account(1, h * w, H * W)
+            staged = self._pad_hw(img, H, W)[None]
+        return self._dispatch(staged, tiled=True, number=number), [(idx, h, w)]
 
     def _account(self, n: int, real_pix: int, staged_pix: int) -> None:
         """Count ``n`` staged images: ``real_pix`` pixels of theirs in

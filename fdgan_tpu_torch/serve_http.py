@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import collections
 import io
+import itertools
 import json
 import queue
 import threading
@@ -54,6 +55,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+
+from fdgan_tpu_torch import trace
 
 __all__ = ["BatchingFrontend", "make_server", "serve_forever"]
 
@@ -66,7 +69,10 @@ class BatchingFrontend:
     (engine output dtype). Because ``stream()`` yields strictly in input
     order, futures
     are matched FIFO — no per-item bookkeeping crosses the thread
-    boundary beyond the queue itself.
+    boundary beyond the queue itself. While a ``torch.profiler`` profile
+    runs, each request records ``frontend.queue`` from ``submit`` until
+    the engine's staging takes it (both queues: this one and the stream's
+    own ahead of staging), under its index in the stream (``item``).
     """
 
     def __init__(self, engine, *, max_wait: float = 0.05, depth: int = 4):
@@ -79,6 +85,7 @@ class BatchingFrontend:
         self._depth = int(depth)
         self._q: queue.Queue = queue.Queue()
         self._futs: collections.deque = collections.deque()
+        self._queued: dict = {}  # stream index -> submit stamp, while profiled
         self._stop = object()
         self._closed = False
         self._error: Optional[BaseException] = None
@@ -97,18 +104,26 @@ class BatchingFrontend:
         self._thread.start()
 
     def _gen(self):
-        while True:
+        for index in itertools.count():  # the request's index in the engine's stream
             item = self._q.get()
             if item is self._stop:
                 return
-            img, fut, t0 = item
+            img, fut, t0, queued_ns = item
             self._futs.append((fut, t0))
+            if queued_ns:
+                self._queued[index] = queued_ns
             yield img
+
+    def _taken(self, index: int) -> None:
+        """The engine's staging took request ``index``: its queue wait ends."""
+        queued_ns = self._queued.pop(index, 0)
+        if queued_ns:
+            trace.record("frontend.queue", queued_ns, time.time_ns(), item=index)
 
     def _run(self):
         try:
             results = self._engine.stream(
-                self._gen(), depth=self._depth, max_wait=self._max_wait
+                self._gen(), depth=self._depth, max_wait=self._max_wait, taken=self._taken
             )
             for y in results:
                 fut, t0 = self._futs.popleft()
@@ -168,7 +183,7 @@ class BatchingFrontend:
                 raise RuntimeError("serving dispatcher died") from self._error
             if self._closed:
                 raise RuntimeError("frontend is closed")
-            self._q.put((img, fut, time.monotonic()))
+            self._q.put((img, fut, time.monotonic(), trace.stamp()))
         return fut
 
     @property

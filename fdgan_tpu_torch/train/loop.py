@@ -17,6 +17,12 @@ One step, in the JAX step's order (``loop.py:196-223``):
    0.1) under ``no_grad``;
 4. a D step on the G output of step 1, detached.
 
+While a ``torch.profiler`` profile runs, the step records its phases as
+spans (``fdgan_tpu_torch/trace.py``): ``train.g_step`` over
+``train.g_forward``, ``train.g_loss``, ``train.g_backward``, ``train.g_adam``
+and ``train.bn_fold``; ``train.d_step`` over ``train.d_forward``,
+``train.d_backward`` and ``train.d_adam``.
+
 Mixed precision is the JAX package's: ``compute_dtype`` casts the inputs
 only; parameters and Adam state stay fp32, and each conv casts its weight
 where it is used. ``impl='kernels'`` runs G's dense layers through K1/K2,
@@ -76,6 +82,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
+from fdgan_tpu_torch import trace
 from fdgan_tpu_torch.dist.halo_exchange import spatial_sharding
 from fdgan_tpu_torch.dist.mesh import average_gradients, average_metrics, mesh_dims, process_group
 from fdgan_tpu_torch.dist.stats import global_batch_stats
@@ -202,44 +209,54 @@ def _steps(tx_g, tx_d, weights, vgg, compute_dtype, impl, real_label, remat=Fals
     def g_update(state: TrainState, haze, gt) -> Tuple[Metrics, torch.Tensor]:
         if haze.shape[0] % accum_steps:
             raise ValueError(f"batch {haze.shape[0]} not divisible by accum_steps {accum_steps}")
-        micro = haze.shape[0] // accum_steps
-        parts = []  # (terms, stats, x_hat) of each microbatch
-        with _frozen(state.d, vgg), sharded():
-            state.g_opt.zero_grad(set_to_none=True)
-            for h, g in zip(haze.split(micro), gt.split(micro)):
-                stats: dict = {}
-                x_hat = fdgan_fast.apply(state.g, h.to(compute_dtype), bn_mode="batch", impl=impl, stats_out=stats,
-                                         remat=remat)
-                _, terms = generator_loss(state.d, x_hat, g.to(compute_dtype), weights, vgg, impl)
-                terms["total"].backward()
-                parts.append(({k: v.detach() for k, v in terms.items()}, stats, x_hat.detach()))
-        if accum_steps == 1:
-            terms, stats, x_hat = parts[0]
-        else:
-            # JAX's scan (loop.py:162-194): the summed grads times 1/accum_steps, and the
-            # terms and the BN moments (mean, unbiased var) averaged over the microbatches
-            for p in state.g.parameters():
-                if p.grad is not None:
-                    p.grad.mul_(1.0 / accum_steps)
-            terms = {k: torch.stack([t[k] for t, _, _ in parts]).mean(0) for k in parts[0][0]}
-            stats = {k: tuple(torch.stack([s[k][j] for _, s, _ in parts]).mean(0) for j in (0, 1))
-                     for k in parts[0][1]}
-            x_hat = torch.cat([x for _, _, x in parts])
-        average_gradients(state.g, group, n_spatial)
-        tx_g.apply(state.g_opt, state.step)
-        fold_stats(state.g, stats)
-        state.step += 1
-        return average_metrics({f"g_{k}": v for k, v in terms.items()}, group, n_spatial), x_hat
+        with trace.span("train.g_step"):
+            micro = haze.shape[0] // accum_steps
+            parts = []  # (terms, stats, x_hat) of each microbatch
+            with _frozen(state.d, vgg), sharded():
+                state.g_opt.zero_grad(set_to_none=True)
+                for h, g in zip(haze.split(micro), gt.split(micro)):
+                    stats: dict = {}
+                    with trace.span("train.g_forward"):
+                        x_hat = fdgan_fast.apply(state.g, h.to(compute_dtype), bn_mode="batch", impl=impl,
+                                                 stats_out=stats, remat=remat)
+                    with trace.span("train.g_loss"):
+                        _, terms = generator_loss(state.d, x_hat, g.to(compute_dtype), weights, vgg, impl)
+                    with trace.span("train.g_backward"):
+                        terms["total"].backward()
+                    parts.append(({k: v.detach() for k, v in terms.items()}, stats, x_hat.detach()))
+            if accum_steps == 1:
+                terms, stats, x_hat = parts[0]
+            else:
+                # JAX's scan (loop.py:162-194): the summed grads times 1/accum_steps, and the
+                # terms and the BN moments (mean, unbiased var) averaged over the microbatches
+                for p in state.g.parameters():
+                    if p.grad is not None:
+                        p.grad.mul_(1.0 / accum_steps)
+                terms = {k: torch.stack([t[k] for t, _, _ in parts]).mean(0) for k in parts[0][0]}
+                stats = {k: tuple(torch.stack([s[k][j] for _, s, _ in parts]).mean(0) for j in (0, 1))
+                         for k in parts[0][1]}
+                x_hat = torch.cat([x for _, _, x in parts])
+            with trace.span("train.g_adam"):
+                average_gradients(state.g, group, n_spatial)
+                tx_g.apply(state.g_opt, state.step)
+            with trace.span("train.bn_fold"):
+                fold_stats(state.g, stats)
+            state.step += 1
+            return average_metrics({f"g_{k}": v for k, v in terms.items()}, group, n_spatial), x_hat
 
     def d_update(state: TrainState, fake, gt) -> Metrics:
-        with sharded():
-            loss, terms = discriminator_loss(state.d, fake, gt.to(compute_dtype), real_label, impl)
-            state.d_opt.zero_grad(set_to_none=True)
-            loss.backward()
-        average_gradients(state.d, group, n_spatial)
-        tx_d.apply(state.d_opt, state.d_updates)
-        state.d_updates += 1
-        return average_metrics({k: v.detach() for k, v in terms.items()}, group, n_spatial)
+        with trace.span("train.d_step"):
+            with sharded():
+                with trace.span("train.d_forward"):
+                    loss, terms = discriminator_loss(state.d, fake, gt.to(compute_dtype), real_label, impl)
+                with trace.span("train.d_backward"):
+                    state.d_opt.zero_grad(set_to_none=True)
+                    loss.backward()
+            with trace.span("train.d_adam"):
+                average_gradients(state.d, group, n_spatial)
+                tx_d.apply(state.d_opt, state.d_updates)
+            state.d_updates += 1
+            return average_metrics({k: v.detach() for k, v in terms.items()}, group, n_spatial)
 
     return g_update, d_update
 
