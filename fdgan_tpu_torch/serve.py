@@ -10,9 +10,12 @@ serving mechanics:
   ``batch_sizes`` (1, 2, 4, 8) by cycling its real images.
 * **Asynchronous pipeline** — a batch is staged in pinned host memory,
   copied with ``non_blocking=True``, its forward enqueued and its result
-  copy started, all without waiting; ``stream()`` keeps ``depth`` batches
-  in flight. The only per-batch sync is the drain, which waits on the
-  batch's CUDA event.
+  copy started, all without waiting. ``stream()`` asks the oldest batch in
+  flight, without waiting, whether its CUDA event has completed on every
+  image staging takes and every idle tick, and fetches it as soon as it
+  has. It waits on the event only where it must: more than ``depth``
+  batches in flight, about ``max_wait`` of quiet input, or the end of the
+  input.
 * **Running-stats BN by default** — each image's result is independent of
   its batch-mates; batch-stats mode is opt-in.
 * **Warmup** — eager PyTorch compiles no program per shape, as XLA does, but
@@ -30,8 +33,8 @@ serving mechanics:
   indices it carries; ``why`` the flush path: ``full``, ``aged``,
   ``overflow``, ``end`` or ``tiled``), ``engine.dispatch``,
   and in ``stream()`` ``engine.held`` (dispatched, not yet asked for) and
-  ``engine.fetch`` (``why``: ``depth``, ``idle`` or ``end``), all under the
-  batch's number (``fdgan_tpu_torch/trace.py``).
+  ``engine.fetch`` (``why``: ``ready``, ``depth``, ``idle`` or ``end``), all
+  under the batch's number (``fdgan_tpu_torch/trace.py``).
 
 The forward is ``models.fdgan_fast.apply`` (as the JAX engine's is
 ``fdgan_fast.apply``): the encoder's 42 dense layers run through the
@@ -90,6 +93,9 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 # the mesh's header: command, B, H, W, staging dtype (0 float32, 1 uint8); a warmup's forward is _WARM
 _CLOSE, _FORWARD, _RELOAD, _WARM = 0, 1, 2, 3
 _STAGING = (torch.float32, torch.uint8)
+# what _stage yields, besides a staged batch, on an idle tick that ends ~max_wait of quiet input
+# (None on any other turn without a batch)
+_QUIET = "quiet"
 
 
 def _round_up(n: int, m: int) -> int:
@@ -109,6 +115,11 @@ class _Pending:
         self.event = event
         self.batch: Optional[int] = None
         self.dispatched_ns = 0
+
+    def done(self) -> bool:
+        """Whether the result is complete, without waiting: the copy into
+        ``host`` is enqueued before the event is recorded."""
+        return self.event is None or self.event.query()
 
     def fetch(self) -> np.ndarray:
         if self.event is not None:
@@ -537,7 +548,10 @@ class InferenceEngine:
     def predict_batch(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         """Dehaze a list of HWC images of any shapes; results in input order."""
         out: List[Optional[np.ndarray]] = [None] * len(images)
-        for pending, metas in self._stage(enumerate(images)):
+        for staged in self._stage(enumerate(images)):
+            if staged is None:  # no batch this time
+                continue
+            pending, metas = staged
             y = pending.fetch()
             for slot, (idx, h, w) in enumerate(metas):
                 out[idx] = y[slot, :h, :w].copy()  # a view would pin the batch
@@ -552,13 +566,19 @@ class InferenceEngine:
     ) -> Iterator[np.ndarray]:
         """Pipelined streaming inference, yielding results in input order.
 
-        Up to ``depth`` dispatched batches stay in flight, so host staging
-        of later batches overlaps device work on earlier ones. ``max_wait``
-        (seconds, 0 = off) bounds per-image staging latency: a group whose
-        oldest image has waited longer is flushed below its ladder rung,
-        also while the input iterator is idle (the bound holds as long as
-        the consumer keeps iterating). ``taken``, where given, is called
-        with an image's index in ``images`` as staging takes it."""
+        Host staging of later batches overlaps device work on earlier ones.
+        On every image staging takes and every idle tick, the oldest batch
+        in flight is fetched as soon as its result is back (``ready``; the
+        batches run on one stream, so they finish in order). It is waited
+        for only while more than ``depth`` batches are in flight
+        (``depth``), once after about ``max_wait`` of quiet input
+        (``idle``), and at the end of the input (``end``): ``depth`` is the
+        most batches dispatched and not yet fetched. ``max_wait`` (seconds,
+        0 = off) bounds per-image staging latency: a group whose oldest
+        image has waited longer is flushed below its ladder rung, also
+        while the input iterator is idle (the bound holds as long as the
+        consumer keeps iterating). ``taken``, where given, is called with
+        an image's index in ``images`` as staging takes it."""
         inflight: collections.deque = collections.deque()
         ready: dict = {}
         next_idx = 0
@@ -568,7 +588,7 @@ class InferenceEngine:
             with trace.span("engine.fetch", batch=pending.batch, why=why) as sp:
                 if sp and pending.dispatched_ns:
                     trace.record("engine.held", pending.dispatched_ns, sp.start, batch=pending.batch)
-                y = pending.fetch()  # the per-batch sync point
+                y = pending.fetch()  # waits only where the batch is not done
                 for slot, (idx, h, w) in enumerate(metas):
                     ready[idx] = y[slot, :h, :w].copy()
 
@@ -579,16 +599,19 @@ class InferenceEngine:
                 next_idx += 1
 
         for staged in self._stage(enumerate(images), max_wait=max_wait, taken=taken):
-            if staged is None:
-                # the producer is idle: drain one batch so finished results
-                # reach the caller within the latency bound
-                if inflight:
-                    drain_one("idle")
-                    yield from emit()
-                continue
-            inflight.append(staged)
-            while len(inflight) > depth:
-                drain_one("depth")
+            quiet = staged is _QUIET
+            if staged is not None and not quiet:
+                inflight.append(staged)
+            while inflight:
+                if inflight[0][0].done():
+                    why = "ready"
+                elif len(inflight) > depth:
+                    why = "depth"
+                elif quiet:  # the head still runs after ~max_wait of quiet: wait for it once
+                    why, quiet = "idle", False
+                else:
+                    break
+                drain_one(why)
             yield from emit()
         while inflight:
             drain_one("end")
@@ -651,12 +674,15 @@ class InferenceEngine:
         """Group (index, image) pairs into dispatched batches.
 
         Yields (pending, metas) with metas[slot] = (orig_index, h, w); the
-        result is not waited for. A group flushes at the top of the ladder;
-        the oldest group is force-flushed once more than 2×top images are
-        staged, or (``max_wait`` > 0) once its oldest image has waited
-        longer than that, checked on every arrival and on idle ticks; the
-        rest flush at the end of input. ``taken(index)``, where given, is
-        called as each pair is taken from the input."""
+        result is not waited for. Between batches it hands control back
+        after every pair taken and every idle tick: None, or ``_QUIET`` on
+        an idle tick that ends about ``max_wait`` of quiet. A group flushes
+        at the top of the ladder; the oldest group is force-flushed once
+        more than 2×top images are staged, or (``max_wait`` > 0) once its
+        oldest image has waited longer than that, checked on every arrival
+        and on idle ticks; the rest flush at the end of input.
+        ``taken(index)``, where given, is called as each pair is taken from
+        the input."""
         import time as _time
 
         groups: dict = collections.defaultdict(list)  # (H, W) -> [(idx, img)]
@@ -699,11 +725,10 @@ class InferenceEngine:
             if item is None:  # idle tick: deadlines first
                 idle_ticks += 1
                 yield from flush_aged()
-                # tell stream() to drain only after ~max_wait of quiet (4
-                # ticks): a drain blocks on a fetch, and doing it on every
-                # short gap would collapse the pipeline window
-                if idle_ticks >= 4:
-                    yield None
+                # quiet only after ~max_wait (4 ticks): stream() then waits
+                # for a batch still running, and doing that on every short
+                # gap would collapse the pipeline window
+                yield _QUIET if idle_ticks >= 4 else None
                 continue
             idle_ticks = 0
             idx, img = item
@@ -728,6 +753,7 @@ class InferenceEngine:
                 yield flush(oldest, "overflow")
             if max_wait > 0:
                 yield from flush_aged()
+            yield None  # stream() polls the batches in flight
         for key in list(groups):
             yield flush(key, "end")
 

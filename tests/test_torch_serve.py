@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from torch.profiler import ProfilerActivity, profile
+
+from fdgan_tpu_torch import trace
 from fdgan_tpu_torch.models.fdgan import FDGAN
 from fdgan_tpu_torch.serve import InferenceEngine
 from fdgan_tpu_torch.serve_http import BatchingFrontend
@@ -145,6 +148,115 @@ def test_stream_max_wait_flushes_a_lone_image(model, np_rng):
     rest = list(gen)
     assert len(rest) == 1
     np.testing.assert_array_equal(rest[0], imgs[1])
+
+
+class _StubEvent:
+    """A CUDA event's stand-in: not done until ``finished`` is set. It
+    counts the questions asked of it; a wait on it while not done finishes
+    it and keeps that count in ``waited`` (None while never waited on)."""
+
+    def __init__(self):
+        self.finished = False
+        self.queries = 0
+        self.waited = None
+
+    def query(self):
+        self.queries += 1
+        return self.finished
+
+    def synchronize(self):
+        if not self.finished:
+            self.waited, self.finished = self.queries, True
+
+
+def _stub_engine(model, **kw):
+    """An identity engine whose batches each carry a :class:`_StubEvent`,
+    listed in dispatch order."""
+    eng, _ = _identity_engine(model, **kw)
+    events = []
+    run = eng._run
+
+    def stub_run(x, tiled, *args):
+        pending = run(x, tiled, *args)
+        pending.event = _StubEvent()
+        events.append(pending.event)
+        return pending
+
+    eng._run = stub_run
+    return eng, events
+
+
+def _fetch_whys(t0):
+    return [s.attrs["why"] for s in trace.spans(t0, time.time_ns() + 1, "engine.fetch")]
+
+
+def test_stream_emits_the_first_batch_before_depth_more_are_staged(model, np_rng):
+    eng, _ = _identity_engine(model, batch_sizes=(2,))
+    imgs = [np_rng.uniform(size=(8, 8, 3)).astype(np.float32) for _ in range(12)]
+    pulled = []
+
+    def counting():
+        for img in imgs:
+            pulled.append(img)
+            yield img
+
+    # a result is back on the CPU once dispatched: the first batch comes out
+    # at the poll after it, not after depth more batches have pushed it out
+    out = [(y, len(pulled)) for y in eng.stream(counting(), depth=4)]
+    assert [n for _, n in out] == [2, 2, 4, 4, 6, 6, 8, 8, 10, 10, 12, 12]
+    for img, (y, _) in zip(imgs, out):
+        np.testing.assert_array_equal(y, img)
+
+
+def test_stream_fetches_a_running_batch_once_done_or_past_depth(model, np_rng):
+    eng, events = _stub_engine(model, batch_sizes=(1,))
+    imgs = [np_rng.uniform(size=(8, 8, 3)).astype(np.float32) for _ in range(4)]
+    pulled = []
+
+    def script():
+        for k, img in enumerate(imgs):
+            if k == 2:
+                # two batches in flight, at most depth: asked, not waited on
+                assert events[0].queries > 0 and [e.waited for e in events] == [None, None]
+                events[1].finished = True  # done behind a running head: not fetched before it
+            if k == 3:
+                events[2].finished = True
+            pulled.append(k)
+            yield img
+
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = [(y, len(pulled)) for y in eng.stream(script(), depth=2)]
+    # image 2 puts three batches in flight: the head is waited for (depth),
+    # then the done one behind it fetched (ready); batch 2 is fetched at the
+    # first poll after it reports done (ready), batch 3 at the end
+    assert _fetch_whys(t0) == ["depth", "ready", "ready", "end"]
+    assert [n for _, n in out] == [3, 3, 4, 4]
+    assert [e.waited is not None for e in events] == [True, False, False, True]
+    for img, (y, _) in zip(imgs, out):
+        np.testing.assert_array_equal(y, img)
+
+
+def test_stream_waits_for_a_running_batch_after_quiet_input(model, np_rng):
+    eng, events = _stub_engine(model, batch_sizes=(1,))
+    img = np_rng.uniform(size=(8, 8, 3)).astype(np.float32)
+    release = threading.Event()
+
+    def stalling():
+        yield img
+        release.wait(timeout=10.0)  # the producer goes idle; then the input ends
+
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        gen = eng.stream(stalling(), depth=4, max_wait=0.02)
+        first = next(gen)  # the batch never reports done: only the idle wait brings it
+        release.set()
+        assert list(gen) == []
+    np.testing.assert_array_equal(first, img)
+    (event,) = events
+    # asked on the arrival and on each idle tick before ~max_wait of quiet (4 ticks)
+    assert event.waited >= 4
+    assert _fetch_whys(t0) == ["idle"]
 
 
 def test_frontend_submit_from_threads(engine, np_rng):
