@@ -55,14 +55,14 @@ def main(argv=None) -> int:
                           "numbers": numbers, "metrics": r["metrics"]}), flush=True)
     for seed in args.control_seeds:
         t = time.time()
-        with cells.driver(config, mix, seed, torch.device("cuda")) as drv:
+        with cells.driver(config, mix, seed, torch.device("cuda"), specs.family) as drv:
             numbers = drv.control(mix.get("check_images", mix.get("check_requests", 0)))
         for k, (v, _) in numbers.items():
             high.setdefault(k, []).append(float(v))
         print(json.dumps({"seed": seed, "side": "control", "s": time.time() - t,
                           "numbers": numbers}), flush=True)
     for seed in args.fault_seeds:
-        with cells.driver(config, mix, seed, torch.device("cuda")) as drv:
+        with cells.driver(config, mix, seed, torch.device("cuda"), specs.family) as drv:
             numbers = drv.half_batch()
         print(json.dumps({"seed": seed, "side": "half_batch", "numbers": numbers}), flush=True)
     print(json.dumps({"workload": args.workload, "program_max": {k: max(v) for k, v in low.items()},

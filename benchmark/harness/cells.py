@@ -5,8 +5,11 @@ A driver builds the program under test from a configuration and the seed
 program and judges what the window produced against the plain reference
 (:meth:`check`). It talks to the program only through its public entry
 points: ``InferenceEngine.stream`` for a bulk job, ``BatchingFrontend`` for
-online serving, ``DehazePhysical.forward`` for DCPDN, and ``cli/train``'s
-step (``make_gd_steps`` with the ``ImagePool``) for training.
+online serving, a model's own forward (``DehazePhysical.forward`` for DCPDN)
+for a bulk loop of fixed batches, and ``cli/train``'s step (``make_gd_steps``
+with the ``ImagePool``) for training. What a configuration's model gives
+them, and its plain reference, come from its family file,
+``models/<model>.py`` (``harness/specs.py``).
 
 Every driver runs on the CPU too (the port's plain twins stand in for its
 kernels there), which is how the CPU tests drive whole runs at tiny sizes.
@@ -18,7 +21,8 @@ import collections
 import contextlib
 import gc
 import time
-from typing import Dict, List, Optional
+from types import ModuleType
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -26,31 +30,13 @@ import torch
 from harness import check, counts, reference, stats, traffic, weights
 from harness.trace import Spans
 
-_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 ORDER_LEN = 200_000  # images a bulk window's order covers before it repeats (>= 51 s at 3,900 img/s)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _program_template(model: str):
-    """The program's module of configuration family ``model``, on the meta
-    device: its state dict names the weights both sides get."""
-    if model == "fdgan":
-        from fdgan_tpu_torch.models.fdgan import FDGAN
-
-        return FDGAN(device="meta")
-    if model == "dcpdn":
-        from fdgan_tpu_torch.models.dcpdn import DehazePhysical
-
-        return DehazePhysical(device="meta")
-    if model == "fdgan_d":
-        from fdgan_tpu_torch.models.discriminators import NLayerDiscriminator
-
-        return NLayerDiscriminator(input_nc=9, device="meta")
-    raise ValueError(f"unknown model {model!r}")
 
 
 class Reservoir:
@@ -73,14 +59,18 @@ class Reservoir:
 
 class Driver:
     """What every kind shares: the configuration, the traffic mix, the seed,
-    the device, the harness's host spans."""
+    the device, the model families (``families(name)``, as
+    ``Specs.family``) and the configuration's own, the harness's host
+    spans."""
 
-    def __init__(self, config: dict, mix: dict, seed: int, device, spans: Optional[Spans] = None):
+    def __init__(self, config: dict, mix: dict, seed: int, device, families: Callable[[str], ModuleType],
+                 spans: Optional[Spans] = None):
         self.config, self.mix, self.seed = config, mix, int(seed)
         self.device = torch.device(device)
         self.spans = spans or Spans(False)
-        self.model = config["model"]
-        self.layout = weights.spec(_program_template(self.model),
+        self.families = families
+        self.family = families(config["model"])
+        self.layout = weights.spec(self.family.template(),
                                    {k: tuple(v) for k, v in config.get("init", {}).items()})
 
     def weights(self, dtype) -> Dict[str, torch.Tensor]:
@@ -89,7 +79,7 @@ class Driver:
     def reference_weights(self) -> Dict[str, torch.Tensor]:
         """The weights as the reference reads them: the program's served
         values (made in the served dtype) in float32."""
-        dtype = _DTYPES[self.mix.get("precision", "fp32")]
+        dtype = DTYPES[self.mix.get("precision", "fp32")]
         return {k: v.float() for k, v in weights.make(self.layout, self.seed, self.device, dtype).items()}
 
     def free(self) -> None:
@@ -114,7 +104,7 @@ class _Images(Driver):
         self.images = traffic.images_uint8(self.seed, m["distinct_images"], self.h, self.w, self.device)
         mult = self.config["multiple"]
         self.count_hw = (-(-self.h // mult) * mult, -(-self.w // mult) * mult)
-        self.flops_per_image = counts.forward_flops(self.model, self.layout, 1, *self.count_hw)
+        self.flops_per_image = counts.forward_flops(self.family, self.layout, 1, *self.count_hw)
 
     def reference_levels(self, img_ids, q=reference.identity, block: int = 4) -> List[torch.Tensor]:
         """The reference's unrounded levels for each image id, cropped, on
@@ -126,7 +116,7 @@ class _Images(Driver):
             for i in range(0, len(img_ids), block):
                 ids = list(img_ids[i:i + block])
                 x = torch.from_numpy(self.images[ids]).to(self.device).float() / 255.0
-                y = reference.forward(self.model, p, reference.padded(x, pad), "running", q)
+                y = self.family.reference(p, reference.padded(x, pad), "running", q)
                 out += list(reference.to_levels(y[:, :self.h, :self.w]).cpu())
         return out
 
@@ -178,9 +168,9 @@ class BulkEngine(_Images):
         m = self.mix
         self._images()
         self.prog_engine = InferenceEngine(
-            self.weights(_DTYPES[m["precision"]]), device=self.device, precision=m["precision"],
-            bn_mode=m["bn_mode"], bucket=m["bucket"], batch_sizes=tuple(m["batch_sizes"]), input=m["input"],
-            output=m["output"])
+            self.family.program(self.weights(DTYPES[m["precision"]]), self.device, m), device=self.device,
+            precision=m["precision"], bn_mode=m["bn_mode"], bucket=m["bucket"], batch_sizes=tuple(m["batch_sizes"]),
+            input=m["input"], output=m["output"])
         top = max(m["batch_sizes"])
         self.prog_engine.warmup([(self.h, self.w)], batch=top)
         for _ in self.prog_engine.stream((self.images[i % len(self.images)] for i in range(2 * top * m["depth"])),
@@ -217,21 +207,16 @@ class BulkEngine(_Images):
 
 
 class BulkForward(_Images):
-    """A closed bulk loop of fixed batches through a model's forward, staged
-    as the engine stages: uint8 batches gathered into pinned host memory, a
-    ``non_blocking`` copy up, the forward, the image quantised to uint8 on
-    the device and copied back into pinned memory, ``in_flight`` batches in
-    flight."""
+    """A closed bulk loop of fixed batches through a model's forward (its
+    family's ``forward``), staged as the engine stages: uint8 batches
+    gathered into pinned host memory, a ``non_blocking`` copy up, the
+    forward, the image quantised to uint8 on the device and copied back into
+    pinned memory, ``in_flight`` batches in flight."""
 
     def setup(self) -> None:
-        from fdgan_tpu_torch.models.dcpdn import DehazePhysical
-
         m = self.mix
         self._images()
-        dtype = _DTYPES[m["precision"]]
-        model = DehazePhysical(device="meta")
-        model.load_state_dict(self.weights(dtype), assign=True)
-        self.prog_model = model.eval()
+        self.prog_model = self.family.program(self.weights(DTYPES[m["precision"]]), self.device, m)
         b = m["batch"]
         pin = self.device.type == "cuda"
         self.prog_stage = [torch.empty((b, self.h, self.w, 3), dtype=torch.uint8, pin_memory=pin)
@@ -245,9 +230,7 @@ class BulkForward(_Images):
         self.launch_shape = (b, self.h, self.w)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = _DTYPES[self.mix["precision"]]
-        y = self.prog_model(x.float().div_(255.0).to(dtype), bn_mode=self.mix["bn_mode"], impl="kernels")[0]
-        return check.quantise(y)
+        return check.quantise(self.family.forward(self.prog_model, x, self.mix))
 
     def _dispatch(self, k: int, ids: np.ndarray):
         """Batch ``k`` of images ``ids``: staged, uploaded, run, its result
@@ -316,9 +299,9 @@ class OpenLoop(_Images):
         m = self.mix
         self._images()
         self.prog_engine = InferenceEngine(
-            self.weights(_DTYPES[m["precision"]]), device=self.device, precision=m["precision"],
-            bn_mode=m["bn_mode"], bucket=m["bucket"], batch_sizes=tuple(m["batch_sizes"]), input=m["input"],
-            output=m["output"])
+            self.family.program(self.weights(DTYPES[m["precision"]]), self.device, m), device=self.device,
+            precision=m["precision"], bn_mode=m["bn_mode"], bucket=m["bucket"], batch_sizes=tuple(m["batch_sizes"]),
+            input=m["input"], output=m["output"])
         self.prog_engine.warmup([(self.h, self.w)])
         self.prog_frontend = BatchingFrontend(self.prog_engine, max_wait=m["max_wait"], depth=m["depth"])
         for f in [self.prog_frontend.submit(self.images[i % len(self.images)]) for i in range(16)]:
@@ -403,7 +386,7 @@ class Train(Driver):
         state.d.load_state_dict(weights.make(self.d_layout, self.seed, self.device, salt=1))
         lw = m["loss_weights"]
         self.prog_steps = make_gd_steps(tx_g, tx_d, LossWeights(adv=lw["adv"], pixel=lw["pixel"], ssim=lw["ssim"]),
-                                        None, _DTYPES[m["precision"]], impl="kernels")
+                                        None, DTYPES[m["precision"]], impl="kernels")
         self.prog_state, self.prog_pool = state, ImagePool(m["pool_size"], seed=self.seed)
         self.flops_per_step = counts.train_step_flops(self.layout, self.d_layout, m["batch"], m["image"], m["image"],
                                                       lw)
@@ -416,7 +399,7 @@ class Train(Driver):
     def _inputs(self) -> None:
         """D's weight layout and the host batches."""
         m = self.mix
-        self.d_layout = weights.spec(_program_template("fdgan_d"))
+        self.d_layout = weights.spec(self.families("fdgan_d").template())
         self.haze, self.gt = traffic.train_batches(self.seed, m["distinct_batches"], m["batch"], m["image"],
                                                    self.device)
 
@@ -516,9 +499,11 @@ KINDS = {"bulk_engine": BulkEngine, "bulk_forward": BulkForward, "open_loop": Op
 
 
 @contextlib.contextmanager
-def driver(config: dict, mix: dict, seed: int, device, spans: Optional[Spans] = None):
-    """The driver of ``mix``'s kind, closed on exit."""
-    d = KINDS[mix["kind"]](config, mix, seed, device, spans)
+def driver(config: dict, mix: dict, seed: int, device, families: Callable[[str], ModuleType],
+           spans: Optional[Spans] = None):
+    """The driver of ``mix``'s kind, closed on exit; ``families`` gives a
+    model's family module by name (``Specs.family``)."""
+    d = KINDS[mix["kind"]](config, mix, seed, device, families, spans)
     try:
         yield d
     finally:

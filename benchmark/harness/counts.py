@@ -34,11 +34,12 @@ def _count(fn) -> int:
     return int(counter.get_total_flops())
 
 
-def forward_flops(model: str, layout, batch: int, h: int, w: int) -> int:
-    """FLOPs of one forward of the served model at (batch, h, w)."""
+def forward_flops(family, layout, batch: int, h: int, w: int) -> int:
+    """FLOPs of one forward of model ``family``'s served output (its
+    ``reference``) at (batch, h, w)."""
     p = _meta_params(layout)
     x = torch.empty((batch, h, w, 3), device="meta")
-    return _count(lambda: reference.forward(model, p, x, "running"))
+    return _count(lambda: family.reference(p, x, "running", reference.identity))
 
 
 def train_step_flops(g_layout, d_layout, batch: int, h: int, w: int, loss_weights) -> int:

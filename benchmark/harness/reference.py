@@ -7,7 +7,9 @@ them (``dense_block1.denselayer1.norm1.weight``, ``model.3.running_var``,
 FD-GAN (Dong et al., AAAI 2020, arXiv:2001.06968; the reference repository's
 ``models/dehaze1113.py``) and DCPDN (Zhang & Patel, CVPR 2018,
 arXiv:1803.08396; ``models/dehaze22.py``). Nothing here imports the program
-under test: it is held against it.
+under test: it is held against it. A model family's file
+(``benchmark/models/<model>.py``) names its served output here, or brings
+its own built on :class:`Net`.
 
 Activations are NCHW float32 inside; the entry points take and return NHWC
 images. Every convolution goes through :class:`Net` with an operand
@@ -405,14 +407,6 @@ def dehaze_physical(p: Params, x: torch.Tensor, bn_mode: str = "running", q: Cal
     r = F.leaky_relu(net.conv(torch.cat([j, x], dim=1), "refine1", padding=1), 0.2)
     r = F.leaky_relu(net.conv(r, "refine2", padding=1), 0.2)
     return _nhwc(torch.tanh(net.conv(_pyramid(net, r, "", (32, 16, 8, 4)), "refine3", padding=1)))
-
-
-MODELS = {"fdgan": fdgan_generator, "dcpdn": dehaze_physical}
-
-
-def forward(model: str, p: Params, x: torch.Tensor, bn_mode: str = "running", q: Callable = identity):
-    """The served output of configuration family ``model`` over NHWC x."""
-    return MODELS[model](p, x, bn_mode, q)
 
 
 def padded(x: torch.Tensor, multiple: int) -> torch.Tensor:

@@ -50,7 +50,7 @@ def run_cell(specs: Specs, workload: str, seed: int, seconds: float, trace: bool
     config, mix = specs.config(cell["config"]), specs.traffic(cell["traffic"])
     spans = Spans(trace)
     dev = torch.device(device)
-    with cells.driver(config, mix, seed, dev, spans) as drv:
+    with cells.driver(config, mix, seed, dev, specs.family, spans) as drv:
         drv.setup()
         cells._sync(dev)
         # the harness's own set-up garbage (the FLOP count's meta graphs,
@@ -81,7 +81,7 @@ def run_cell(specs: Specs, workload: str, seed: int, seconds: float, trace: bool
         metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]} for m in specs.end_to_end(workload)}
     else:
         dt = DeviceTrace(ops, int(w["t0"] * 1e9), int(w["t1"] * 1e9), spans)
-        data = {**w, "trace": dt, "peaks": counts.PEAKS, "config": config, "mix": mix}
+        data = {**w, "trace": dt, "peaks": counts.PEAKS, "config": config, "mix": mix, "family": drv.family}
         metrics = {}
         for m in specs.per_layer(workload):
             value = specs.reader(m["name"])(data)

@@ -38,7 +38,7 @@ def main(argv=None) -> int:
     specs = Specs(run.ROOT)
     cell = specs.workload(args.workload)
     config, mix = specs.config(cell["config"]), specs.traffic(cell["traffic"])
-    with cells.driver(config, mix, args.seed, torch.device("cuda")) as drv:
+    with cells.driver(config, mix, args.seed, torch.device("cuda"), specs.family) as drv:
         drv.setup()
         for rate in args.rates:
             w = drv.window(args.seconds, rate)

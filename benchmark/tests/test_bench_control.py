@@ -26,7 +26,7 @@ def test_control_fails(cell, seed):
     specs = bench_util.tiny_specs()
     entry = specs.workload(cell)
     config, mix = specs.config(entry["config"]), specs.traffic(entry["traffic"])
-    with cells.driver(config, mix, seed, torch.device("cpu")) as drv:
+    with cells.driver(config, mix, seed, torch.device("cpu"), specs.family) as drv:
         numbers = drv.control(2)
     correct, checks = runner.judge(numbers, specs.limits(cell))
     assert not correct, checks

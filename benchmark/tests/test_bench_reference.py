@@ -5,9 +5,9 @@ the fusion discriminator, the training steps and DCPDN."""
 import pytest
 import torch
 
-import bench_util  # noqa: F401
+import bench_util
 from harness import check, reference, traffic, weights
-from harness.cells import _program_template
+from harness.specs import Specs
 
 SEED = 2**31 + 41
 
@@ -21,7 +21,8 @@ def _threads():
 
 
 def _weights(model, overrides=None, salt=0):
-    return weights.make(weights.spec(_program_template(model), overrides), SEED, "cpu", salt=salt)
+    return weights.make(weights.spec(Specs(bench_util.ROOT).family(model).template(), overrides), SEED, "cpu",
+                        salt=salt)
 
 
 @pytest.mark.parametrize("bn_mode", ["running", "batch"])
