@@ -229,6 +229,16 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    against a blocking save; ``cli.train.train --deviceSteps 10`` over
    in-memory loaders (staged, logged, evaluated on the device, its async
    checkpoint the final state).
+15. DehazeFormer's window attention (``--window-attention`` runs it alone):
+   the kernel against its plain version at DehazeFormer-B's three attending
+   stage shapes at 8×460×620, both shifts; its times, the plain version's
+   and ``scaled_dot_product_attention``'s. Then DehazeFormer-B through
+   ``InferenceEngine`` (bf16, bucket 4, uint8 in and out) as the bulk cell
+   and ``cli/serve --inDir`` run it: 8 images of 460×620 by
+   ``predict_batch`` with the counter zeroed just before and read just after
+   (24 launches), every device kernel of one batch counted in the
+   profiler's trace, and the host's enqueue of one forward from an idle
+   device.
 
 The line before the last holds the per-kernel summary as JSON (time, bound,
 plain version's and library call's time, the probes' spreads in turns,
@@ -3893,6 +3903,132 @@ def phase_device_loop():
     return out, launches
 
 
+# DehazeFormer-B's attending stages at the bulk cell's launch shape (8x460x620):
+# (B, H, W, C, heads, attending blocks a forward)
+WATTN_STAGES = [(8, 460, 620, 24, 2, 4), (8, 230, 310, 48, 4, 8), (8, 115, 155, 96, 6, 12)]
+WATTN_TOL = dict(atol=1.5e-2, rtol=1.6e-2)  # tests/test_torch_cuda.py's
+
+
+def wattn_bound_ms(b, h, w, c):
+    """The least time of one launch: 4*64*C operations a padded token against
+    the bf16 peak, QK and V read and O written once a real pixel in bf16
+    against the memory bandwidth."""
+    tokens = b * (-(-h // 8) * 8) * (-(-w // 8) * 8)
+    ops, nbytes = 256 * c * tokens, 8 * c * b * h * w
+    return 1e3 * max(ops / 989e12, nbytes / 3.35e12), "bytes" if nbytes / 3.35e12 > ops / 989e12 else "operations"
+
+
+def phase_window_attention():
+    """DehazeFormer's window attention kernel against its plain version at
+    the bulk cell's stage shapes, both shifts (max abs error, the test's
+    tolerance), its times (with the wrapper, on the device alone), the
+    plain version's and scaled_dot_product_attention's on the windows
+    already split (bias as its mask: the yardstick), and DehazeFormer-B
+    through the engine at 8x460x620 bf16 (launches by the counter zeroed
+    just before, device operations by the trace, ms, the host's enqueue of
+    one forward from an idle device). Returns the kernels-table row."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fdgan_tpu_torch.cli._common import maybe_profile
+    from fdgan_tpu_torch.models.dehazeformer import dehazeformer_b
+    from fdgan_tpu_torch.ops import window_attention as wattn
+    from fdgan_tpu_torch.serve import InferenceEngine
+    from fdgan_tpu_torch.tools.timing import device_ms
+
+    t0 = time.perf_counter()
+    rows, worst = [], 0.0
+    for b, h, w, c, heads, blocks in WATTN_STAGES:
+        gen = torch.Generator(device="cuda").manual_seed(c)
+        qk = torch.randn((b, h, w, 2 * c), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+        bias = 0.5 * torch.randn((heads, 64, 64), generator=gen, device="cuda")
+        row = {"shape": [b, h, w, c], "heads": heads, "blocks": blocks}
+        for shift in (0, 4):
+            got = wattn.window_attention(qk, v, bias, heads, shift)
+            want = wattn.reference(qk, v, bias, heads, shift)
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(), **WATTN_TOL)
+            worst = max(worst, err)
+            row[f"max_abs_err_shift{shift}"] = err
+            row[f"ms_shift{shift}"] = cuda_ms(lambda: wattn.window_attention(qk, v, bias, heads, shift))
+            row[f"device_ms_shift{shift}"] = device_ms(lambda: wattn.window_attention(qk, v, bias, heads, shift))
+        row["plain_ms"] = cuda_ms(lambda: wattn.reference(qk, v, bias, heads, 0), reps=3, warmup=1)
+        hd = c // heads
+        nw = b * (-(-h // 8)) * (-(-w // 8))
+        q3 = torch.randn((nw, heads, 64, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        mask = bias.to(torch.bfloat16)[None]
+        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q3, q3, q3, attn_mask=mask))
+        row["bound_ms"], row["bound_by"] = wattn_bound_ms(b, h, w, c)
+        rows.append(row)
+        log(f"window_attention {json.dumps(row)}")
+        del qk, v, got, want, q3
+        torch.cuda.empty_cache()
+    # DehazeFormer-B through the engine, as the bulk cell and cli/serve --inDir run it
+    eng = InferenceEngine(dehazeformer_b(device="cuda"), device="cuda", precision="bf16", bucket=4,
+                          input="uint8", output="uint8")
+    eng.warmup([(460, 620)], batch=8)
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, (460, 620, 3), dtype=np.uint8) for _ in range(8)]
+    # the main path's run: the counter from 0, read right after
+    wattn.reset_launch_count()
+    out = eng.predict_batch(images)
+    torch.cuda.synchronize()
+    per_batch = wattn.launches
+    if per_batch != sum(r["blocks"] for r in rows):
+        raise AssertionError(f"window_attention launched {per_batch} times a batch through the engine, not 24")
+    if any(y.shape != img.shape or y.dtype != np.uint8 for img, y in zip(images, out)):
+        raise AssertionError("the engine's uint8 results do not match their inputs' shapes")
+    batch_ms = cuda_ms(lambda: eng.predict_batch(images), reps=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    eng.predict_batch(images)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with tempfile.TemporaryDirectory() as tmp:  # every device operation of one batch
+        with maybe_profile(tmp):
+            eng.predict_batch(images)
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            cats = collections.Counter(e.get("cat") for e in json.load(f)["traceEvents"]
+                                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    # the host's enqueue of one forward with the device idle before it: the
+    # dehazeformer.forward span's cost where no full launch queue paces it
+    model = eng._model
+    x = model.input_map(torch.from_numpy(np.stack(images)).cuda()).to(torch.bfloat16)
+    host = []
+    with torch.inference_mode():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.serve_forward(x, "running")
+            host.append(1e3 * (time.perf_counter() - t))
+            torch.cuda.synchronize()
+    forward = {"path": "InferenceEngine.predict_batch, bf16, bucket 4, uint8", "shape": [8, 460, 620],
+               "launches": per_batch, "device_kernels": cats["kernel"], "device_copies": cats["gpu_memcpy"],
+               "device_memsets": cats["gpu_memset"], "ms": batch_ms, "img_s": 8e3 / batch_ms,
+               "host_enqueue_ms_from_idle": statistics.median(host[1:]), "peak_gib": peak}
+    log(f"dehazeformer_b engine batch {json.dumps(forward)}")
+    # the row of the first stage (the most of the kernel's bytes), with the
+    # forward's time share: 24 launches a forward against the whole forward
+    first = rows[0]
+    kernel_ms = sum(r["blocks"] * (r["device_ms_shift0"] + r["device_ms_shift4"]) / 2 for r in rows)
+    bound = sum(r["blocks"] * r["bound_ms"] for r in rows)
+    del eng, model, x
+    torch.cuda.empty_cache()
+    log(f"phase window attention: {time.perf_counter() - t0:.1f} s")
+    return {"name": "window_attention", "route": "cuda", "source": "fdgan_tpu_torch/csrc/window_attention.cu",
+            "replaces": "none: added for DehazeFormer (bound by bytes, 32 FLOP/byte)",
+            "launches": per_batch, "launches_by_path": {"engine_predict_batch": per_batch},
+            "max_abs_err": worst, "ms": first["ms_shift0"], "device_ms": first["device_ms_shift0"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "forward_kernel_ms": kernel_ms, "forward_bound_ms": bound,
+            "forward": forward, "stages": rows, "timed_at": first["shape"] + ["bfloat16", "shift 0"],
+            "err_of": "bf16, three stage shapes, both shifts"}
+
+
 def main() -> int:
     import torch
 
@@ -3908,6 +4044,10 @@ def main() -> int:
         return mesh_ranks_main()
     if sys.argv[1:] == ["--sp-ranks"]:
         return sp_ranks_main()
+    if sys.argv[1:] == ["--window-attention"]:
+        phase_device()
+        print(json.dumps({"kernels": [phase_window_attention()]}))
+        return 0
     t_start = time.perf_counter()
     phase_device()
     rows, worst, tf32x3_ceiling = phase_kernels()
@@ -3950,6 +4090,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     device_out, device_launches = phase_device_loop()
     log(json.dumps({"device_loop": device_out}))
+    torch.cuda.empty_cache()
+    wattn_row = phase_window_attention()
     ragged_c = {f"c{r['shape'][-1]}": {k: r[k] for k in r if k.startswith(("k1_", "k2_"))} | {"shape": r["shape"]}
                 for r in zoo["kernels_ragged_c"] if r["dtype"] == "bfloat16"}
     timed = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}[TIMED_SHAPE]
@@ -4051,6 +4193,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_spread": row["ms_spread"], "library_ms_spread": row["library_ms_spread"],  # in turns, where a library call
             "timed_at": row["shape"] + ["bfloat16"], "err_of": "bf16, full and ragged shapes"})
+    kernels.append(wattn_row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,14 @@ normalize=True protocol (demo.py:151).
     python -m fdgan_tpu_torch.cli.serve --inDir ntire/ --outDir dehazed/ \
         --netG netG.pth --tile 512 --halo 128
     python -m fdgan_tpu_torch.cli.serve --inDir hazy/ --outDir dehazed/ --artifact netG_512.pt2
+    python -m fdgan_tpu_torch.cli.serve --inDir hazy/ --outDir dehazed/ --model dehazeformer_b \
+        --netG dehazeformer-b.pth --inputDtype uint8 --outputDtype uint8
+
+``--model dehazeformer_b`` serves DehazeFormer-B (``models/dehazeformer.py``)
+instead of FD-GAN: ``--netG`` is then a state dict with the published names
+(``relative_positions`` entries dropped), ``--bucket`` defaults to the
+model's multiple of 4, ``--bn_mode`` does not apply, and ``--tile``,
+``--dataShards`` and ``--spatialShards`` are FD-GAN's only.
 
 ``--artifact`` serves a folder through an exported program
 (``cli/convert --dst x.pt2``, ``io.export.ArtifactRunner``: weights
@@ -50,11 +58,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inDir", default="", help="directory of hazy images "
                    "(required unless --http is given)")
     p.add_argument("--outDir", default="./result_serve/")
-    p.add_argument("--netG", default="", help="generator checkpoint (.pth or JAX params .msgpack); "
-                   "random-init weights when omitted")
+    p.add_argument("--model", choices=["fdgan", "dehazeformer_b"], default="fdgan",
+                   help="the served model: FD-GAN's generator, or DehazeFormer-B")
+    p.add_argument("--netG", default="", help="generator checkpoint (.pth or JAX params .msgpack; for "
+                   "dehazeformer_b a .pth state dict with the published names); random-init weights when omitted")
     p.add_argument("--precision", choices=["fp32", "bf16"], default="bf16")
     p.add_argument("--bn_mode", choices=["batch", "running"], default="running")
-    p.add_argument("--bucket", type=int, default=64)
+    p.add_argument("--bucket", type=int, default=None,
+                   help="spatial bucket (default 64 for fdgan, the model's multiple of 4 for dehazeformer_b)")
     p.add_argument("--maxBatch", type=int, default=8)
     p.add_argument("--batchSizes", default="",
                    help="explicit comma-separated batch ladder (e.g. 1,2,4,8); "
@@ -117,11 +128,10 @@ def main(argv=None):
         if opt.dataShards or opt.spatialShards > 1:
             raise SystemExit("--artifact runs one program in one process: drop --dataShards/--spatialShards")
         return _serve_artifact(opt)
-
+    opt.bucket = bucket_of(opt)
     shapes = warmup_shapes(opt)
     import torch
 
-    from fdgan_tpu_torch.cli._common import load_generator
     from fdgan_tpu_torch.dist import mesh as dmesh
     from fdgan_tpu_torch.serve import InferenceEngine
 
@@ -146,12 +156,17 @@ def main(argv=None):
         names, out_names = _folder(opt)
 
     if opt.netG:
-        model = load_generator(opt.netG, device=opt.device)
-    else:
+        model = load_served(opt, opt.netG)
+    elif opt.model == "fdgan":
         from fdgan_tpu_torch.models.fdgan import FDGAN
 
         print("warning: no --netG given; using random-init weights (smoke mode)")
         model = FDGAN(generator=torch.Generator().manual_seed(0))
+    else:
+        from fdgan_tpu_torch.models.dehazeformer import dehazeformer_b
+
+        print("warning: no --netG given; using random-init weights (smoke mode)")
+        model = dehazeformer_b(generator=torch.Generator().manual_seed(0))
 
     if opt.batchSizes:
         try:
@@ -196,6 +211,35 @@ def main(argv=None):
         engine.close()
 
 
+def bucket_of(opt) -> int:
+    """``--bucket``, else the model's default: 64 for FD-GAN, DehazeFormer's
+    own multiple (RLN sees the padding)."""
+    if opt.bucket is not None:
+        return opt.bucket
+    if opt.model == "fdgan":
+        return 64
+    from fdgan_tpu_torch.models.dehazeformer import DehazeFormer
+
+    return DehazeFormer.multiple
+
+
+def load_served(opt, path: str):
+    """The served model of ``--model`` from ``path``: FD-GAN's generator by
+    ``load_generator``; DehazeFormer-B from a ``.pth`` state dict with the
+    published names (``published_state_dict``)."""
+    if opt.model == "fdgan":
+        from fdgan_tpu_torch.cli._common import load_generator
+
+        return load_generator(path, device=opt.device)
+    import torch
+
+    from fdgan_tpu_torch.models.dehazeformer import dehazeformer_b, published_state_dict
+
+    model = dehazeformer_b(device="cpu")
+    model.load_state_dict(published_state_dict(torch.load(path, map_location="cpu", weights_only=True)), strict=True)
+    return model.to(opt.device)
+
+
 def warmup_shapes(opt) -> list:
     """The (H, W) shapes to warm before serving: ``--warmup``'s, else the
     bucket shape for ``--http`` (unless ``--noWarmup``), else none. Stops on
@@ -211,7 +255,7 @@ def warmup_shapes(opt) -> list:
     if opt.http and not opt.noWarmup:
         # before the port is bound: a server reachable on the network would otherwise make its first
         # requests at each rung pay the cold start
-        return [(opt.bucket, opt.bucket)]
+        return [(bucket_of(opt),) * 2]
     return []
 
 
@@ -256,7 +300,7 @@ def _serve_artifact(opt):
 
 def _serve(opt, engine, names, out_names):
     """Rank 0's part: the HTTP server, or the folder pass."""
-    from fdgan_tpu_torch.cli._common import load_generator, save_image_normalized
+    from fdgan_tpu_torch.cli._common import save_image_normalized
     from fdgan_tpu_torch.utils.images import load_rgb_image
 
     if opt.http:
@@ -269,7 +313,7 @@ def _serve(opt, engine, names, out_names):
             max_wait=opt.maxWait if opt.maxWait > 0 else 0.05,
             depth=opt.depth,
             # POST /reload re-reads --netG by default
-            weight_loader=lambda path: load_generator(path, device=opt.device),
+            weight_loader=lambda path: load_served(opt, path),
             weights_path=opt.netG,
         )
         serve_forever(server)
@@ -288,10 +332,16 @@ def _serve(opt, engine, names, out_names):
         save_image_normalized(out, os.path.join(opt.outDir, out_name))
         print(name)
     dt = time.time() - t0
+    if opt.model == "fdgan":
+        launches = f"K1 {engine.stats['k1_launches']}, K2 {engine.stats['k2_launches']}"
+    else:
+        from fdgan_tpu_torch.ops import window_attention
+
+        launches = f"window_attention {window_attention.launches}"
     print(
         f"{len(names)} images in {dt:.2f}s ({len(names) / dt:.2f} img/s); "
         f"padding overhead: {engine.stats['padded_frac']:.1%}; "
-        f"kernel launches: K1 {engine.stats['k1_launches']}, K2 {engine.stats['k2_launches']}"
+        f"kernel launches: {launches}"
     )
 
 

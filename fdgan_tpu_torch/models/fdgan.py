@@ -36,6 +36,9 @@ class FDGAN(nn.Module):
     The parameters are made with :meth:`init_weights` from ``generator``
     (a ``torch.Generator``; seed 0 when omitted)."""
 
+    multiple = 8   # the engine's bucket divisor: three ÷2 stages
+    has_bn = True  # the engine's ``bn_mode`` applies
+
     def __init__(self, device=None, dtype=torch.float32, generator=None):
         super().__init__()
         kw = {"device": "meta", "dtype": dtype}
@@ -67,6 +70,19 @@ class FDGAN(nn.Module):
         """Torch-style init (``nn.layers.torch_style_init``), as
         ``conv2d_init(init='torch')``."""
         torch_style_init(self, generator)
+
+    @staticmethod
+    def input_map(x: torch.Tensor) -> torch.Tensor:
+        """A staged batch as the model takes it: uint8 [0, 255] to [0, 1],
+        normalised on x's device in fp32, exactly as the host would; float
+        [0, 1] as it is."""
+        return x.float() / 255.0 if x.dtype == torch.uint8 else x
+
+    def serve_forward(self, x: torch.Tensor, bn_mode: str) -> torch.Tensor:
+        """The engine's forward: ``models.fdgan_fast.apply``."""
+        from fdgan_tpu_torch.models import fdgan_fast
+
+        return fdgan_fast.apply(self, x, bn_mode=bn_mode)
 
     def forward(self, x: torch.Tensor, bn_mode: str = "batch", impl: str = "kernels",
                 stats_out: StatsOut = None) -> torch.Tensor:

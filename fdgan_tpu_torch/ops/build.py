@@ -32,7 +32,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NATIVE = Path(__file__).resolve().parents[1] / "native"
-SOURCES = ("dense_layer.cu", "freq_filters.cu", "probes.cu", "channel_stats.cu")
+SOURCES = ("dense_layer.cu", "freq_filters.cu", "probes.cu", "channel_stats.cu", "window_attention.cu")
 HEADERS = ("mma_bf16.cuh", "wgmma_bf16.cuh", "wgmma_tf32.cuh")  # included by the sources: part of the build's hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,6 +61,7 @@ _SIGNATURES = {
     "fdgan_probe_conv1": [_P, _P, _I] + [_P] * 4 + [_I, _I, _P],
     "fdgan_probe_conv2": [_P] * 3 + [_I] * 4 + [_P],
     "fdgan_wgmma_selfcheck": [_P] * 3 + [_I] * 7 + [_P],
+    "fdgan_window_attention_bf16": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

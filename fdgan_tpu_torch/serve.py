@@ -41,6 +41,14 @@ The forward is ``models.fdgan_fast.apply`` (as the JAX engine's is
 hand-written kernels K1 and K2, and in batch-BN mode the segment statistics
 through ``channel_stats``; their launch counts appear in ``stats``.
 
+The engine serves any module whose class declares its serving, as FDGAN
+and DehazeFormer (``models/dehazeformer.py``) do: its bucket divisor
+``multiple``, ``has_bn``, ``input_map`` (a staged batch, uint8 or [0, 1],
+to the model's input range on the device) and ``serve_forward(x,
+bn_mode)``. ``bn_mode`` and the default bucket of 64 apply only to a model
+with BN; any other defaults to its ``multiple``. The tiled, mesh and
+spatial routes stay FD-GAN's.
+
 With ``tile`` > 0 an image larger than ``tile`` on either axis takes the
 halo-tiled route instead (``dist/tiling.py``): padded to H, W divisible by
 8, run tile by tile on the device, and handed back through the same pending
@@ -83,7 +91,6 @@ from fdgan_tpu_torch import trace
 from fdgan_tpu_torch.dist import halo_exchange
 from fdgan_tpu_torch.dist import mesh as dmesh
 from fdgan_tpu_torch.dist.tiling import tiled_apply
-from fdgan_tpu_torch.models import fdgan_fast
 from fdgan_tpu_torch.models.fdgan import FDGAN
 from fdgan_tpu_torch.ops import dense, stats
 
@@ -100,6 +107,16 @@ _QUIET = "quiet"
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _empty_copy(module: nn.Module, device: torch.device, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``module`` on ``device`` whose parameters are left
+    uninitialised, the floating ones in ``dtype``, for a load to fill; its
+    buffers are copied. The caller's weights are never copied whole."""
+    memo = {id(p): nn.Parameter(torch.empty_like(p, device=device, dtype=dtype if p.is_floating_point() else p.dtype),
+                                requires_grad=p.requires_grad)
+            for p in module.parameters()}
+    return copy.deepcopy(module, memo).to(device)
 
 
 class _Pending:
@@ -128,20 +145,22 @@ class _Pending:
 
 
 class InferenceEngine:
-    """Batched executor for FDGAN dehazing on one device.
+    """Batched executor for FDGAN dehazing (or a served module's) on one device.
 
     Parameters
     ----------
-    params : an FDGAN module or its state dict (copied onto ``device`` and
-        cast per ``precision``; the caller's module is left as it is).
+    params : an FDGAN module or its state dict, or another module whose
+        class declares its serving (copied onto ``device`` and cast per
+        ``precision``; the caller's module is left as it is).
     device : where the forward runs, 'cuda' (the default) or 'cpu'.
     precision : 'bf16' (serving default) or 'fp32'. fp32 runs cuDNN without
         TF32, the counterpart of the JAX engine's scoped 'highest' precision.
     bn_mode : 'running' (default, per-image deterministic) or 'batch'
         (reference parity; couples the images of a batch — padded slots
         repeat real images so the statistics stay in distribution).
-    bucket : spatial bucket; defaults to 64, or 8 in batch-BN mode, where
-        spatial padding enters the statistics. A multiple of 8.
+    bucket : spatial bucket, a multiple of the model's ``multiple`` (8 for
+        FDGAN); defaults to 64, or to the ``multiple`` in batch-BN mode or
+        for a model without BN, where spatial padding enters the statistics.
     batch_sizes : ascending ladder of batch sizes.
     tile, halo : when ``tile`` > 0, images larger than ``tile`` on either
         axis run one at a time through halo-tiled inference
@@ -192,10 +211,18 @@ class InferenceEngine:
             raise ValueError(f"output must be 'float32' or 'uint8', got {output!r}")
         if input not in ("float32", "uint8"):
             raise ValueError(f"input must be 'float32' or 'uint8', got {input!r}")
-        if bucket is None:
-            bucket = 8 if bn_mode == "batch" else 64
-        if bucket % 8:
-            raise ValueError("bucket must be a multiple of 8 (three ÷2 stages)")
+        # the served class declares its bucket divisor, whether it has BN, its input map and its forward
+        self._cls = type(params) if isinstance(params, nn.Module) else FDGAN
+        missing = [a for a in ("multiple", "has_bn", "input_map", "serve_forward") if not hasattr(self._cls, a)]
+        if missing:
+            raise TypeError(f"a served {self._cls.__name__} must declare {', '.join(missing)}")
+        if self._cls is not FDGAN and (tile or mesh is not None or spatial):
+            raise ValueError("the tiled, mesh and spatial routes serve FD-GAN only")
+        multiple = int(self._cls.multiple)
+        if bucket is None:  # padding enters batch-BN's statistics and RLN's: there, the divisor alone
+            bucket = 64 if self._cls.has_bn and bn_mode == "running" else multiple
+        if bucket % multiple:
+            raise ValueError(f"bucket must be a multiple of {multiple} ({self._cls.__name__}'s divisor), got {bucket}")
         if tile and (tile % 8 or tile <= 2 * halo):
             raise ValueError(f"tile must be a multiple of 8 and exceed 2*halo, got tile {tile} halo {halo}")
         n_data, n_spatial = dmesh.mesh_dims(mesh) if mesh is not None else (1, 1)
@@ -252,10 +279,14 @@ class InferenceEngine:
 
     # --- weights -------------------------------------------------------------
 
-    def _materialise(self, params, check_against: Optional[nn.Module]) -> FDGAN:
-        """A fresh FDGAN on the engine's device and dtype holding ``params``.
-        With ``check_against``, the state dict must match its keys, shapes
+    def _materialise(self, params, check_against: Optional[nn.Module]) -> nn.Module:
+        """A fresh FDGAN (or an empty copy of the served module) on the
+        engine's device and dtype holding ``params``. With ``check_against``, a module
+        must be of its class, and the state dict must match its keys, shapes
         and (after the precision cast) dtypes."""
+        if check_against is not None and isinstance(params, nn.Module) and not isinstance(params, type(check_against)):
+            raise ValueError(f"reload: a {type(params).__name__} cannot replace the live "
+                             f"{type(check_against).__name__} — wrong model family?")
         state = params.state_dict() if isinstance(params, nn.Module) else dict(params)
         cast = {
             k: v.to(self._dtype) if self._dtype == torch.bfloat16 and v.is_floating_point() else v
@@ -280,10 +311,13 @@ class InferenceEngine:
                     raise ValueError(
                         f"reload: {k} has dtype {v.dtype}, loaded weights have {cur[k].dtype}"
                     )
-        # a copy of the live module skips FDGAN's random init, which the load overwrites
-        model = copy.deepcopy(check_against) if check_against is not None else FDGAN(
-            device=self.device, dtype=self._dtype
-        )
+        # a copy of the live module skips the random init, which the load overwrites
+        if check_against is not None:
+            model = copy.deepcopy(check_against)
+        elif self._cls is FDGAN:
+            model = FDGAN(device=self.device, dtype=self._dtype)
+        else:
+            model = _empty_copy(params, self.device, self._dtype)
         model.load_state_dict(cast, strict=True)
         return model.eval()
 
@@ -309,11 +343,8 @@ class InferenceEngine:
 
     # --- the forward -----------------------------------------------------------
 
-    def _forward(self, model: FDGAN, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.uint8:
-            # normalise on the device in fp32, exactly as the host would
-            x = x.float() / 255.0
-        y = fdgan_fast.apply(model, x.to(self._dtype), bn_mode=self.bn_mode)
+    def _forward(self, model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        y = model.serve_forward(model.input_map(x).to(self._dtype), self.bn_mode)
         if self.output == "uint8":
             # quantise on the device in fp32 (bf16 would itself cost a level)
             y = torch.clamp(torch.round((y.float() + 1.0) * 127.5), 0.0, 255.0)

@@ -20,6 +20,7 @@ from fdgan_tpu_torch.models.densenet import DenseBlock
 from fdgan_tpu_torch.models.fdgan import FDGAN
 from fdgan_tpu_torch.nn import layers
 from fdgan_tpu_torch.ops import dense, filters, freq, probes, stats
+from fdgan_tpu_torch.ops import window_attention as wattn
 from fdgan_tpu_torch.serve import InferenceEngine
 from fdgan_tpu_torch.tools import probes as probe_tool
 from fdgan_tpu_torch.train.loop import create_train_state, make_train_step
@@ -973,3 +974,67 @@ def test_async_checkpoint_of_card_state_is_the_state_at_save(cuda, tmp_path):
         assert all(torch.equal(blob[net][k].cpu(), v) for k, v in want[net].items()), net
     assert all(torch.equal(blob["g_opt"]["state"][i]["exp_avg"].cpu(), v) for i, v in moments.items())
     assert not torch.equal(state.g.conv_refin1.weight.cpu(), want["g"]["conv_refin1.weight"])
+
+
+# DehazeFormer-B's three attending stages at a batch of 8 at 460x620 (the
+# bulk cell's launch shape): (B, H, W, C, heads)
+WATTN_SHAPES = [(8, 460, 620, 24, 2), (8, 230, 310, 48, 4), (8, 115, 155, 96, 6)]
+# bf16 in and out on both sides; the kernel rounds the unnormalised
+# probabilities to bf16 for P.V (2^-9 relative each) where the plain version
+# keeps fp32, and each side rounds O to bf16 once (2^-8 relative): a value
+# may differ by a bf16 step and a little more
+WATTN_TOL = dict(atol=1.5e-2, rtol=1.6e-2)
+
+
+def _wattn_operands(shape, seed, device):
+    b, h, w, c, heads = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qk = torch.randn((b, h, w, 2 * c), generator=gen, device=device).to(torch.bfloat16)
+    v = torch.randn((b, h, w, c), generator=gen, device=device).to(torch.bfloat16)
+    bias = 0.5 * torch.randn((heads, 64, 64), generator=gen, device=device)
+    return qk, v, bias, heads
+
+
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("shape", WATTN_SHAPES)
+def test_window_attention_kernel_matches_plain(cuda, shape, shift):
+    """The window attention kernel against its plain version at the bulk
+    cell's three stage shapes, both shifts: every pixel written, within a
+    bf16 step, one launch a call."""
+    qk, v, bias, heads = _wattn_operands(shape, 7 + shift, cuda)
+    before = wattn.launches
+    got = wattn.window_attention(qk, v, bias, heads, shift)
+    torch.cuda.synchronize()
+    assert wattn.launches == before + 1
+    want = wattn.reference(qk, v, bias, heads, shift)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **WATTN_TOL)
+
+
+def test_window_attention_kernel_refuses_what_it_does_not_take(cuda):
+    qk, v, bias, heads = _wattn_operands((1, 16, 16, 24, 2), 3, cuda)
+    with pytest.raises(TypeError, match="bfloat16 only"):
+        wattn.window_attention(qk.float(), v.float(), bias, heads, 0)
+    with pytest.raises(ValueError, match="head dims"):
+        wattn.window_attention(qk, v, bias.repeat(2, 1, 1)[:3], 3, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wattn.window_attention(qk.transpose(1, 2), v.transpose(1, 2), bias, heads, 0)
+
+
+def test_dehazeformer_b_forward_on_the_card(cuda):
+    """DehazeFormer-B in bf16 on the card: 24 kernel launches a forward, and
+    the forward through the kernel against the same forward with the plain
+    window attention, by PSNR over [-1, 1]."""
+    from fdgan_tpu_torch.models.dehazeformer import dehazeformer_b
+
+    model = dehazeformer_b(device=cuda, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.rand((2, 116, 156, 3), generator=gen, device=cuda) * 2 - 1).to(torch.bfloat16)
+    before = wattn.launches
+    with torch.inference_mode():
+        got = model(x)
+        torch.cuda.synchronize()
+        assert wattn.launches == before + 24
+        want = model(x, impl="plain")
+    mse = float((got.clamp(-1, 1) - want.clamp(-1, 1)).square().mean())
+    assert 10 * np.log10(4.0 / max(mse, 1e-20)) > 45.0, mse
